@@ -7,17 +7,27 @@ Run from the root of the repository on a machine with an NVIDIA H100:
 
 Phases, each printing its result on lines of its own:
 
-1. device: the card's name and power limit, and the kernels' build time;
+1. device: the card's name and power limit, the kernels' build time, and
+   whether the host C++ library (transcript grinding) loaded;
 2. kernels: every hand-written CUDA kernel against its plain PyTorch
-   version at the shapes of the main path, bit for bit, with both times;
+   version at the shapes of both main paths, bit for bit, with both times
+   and the least time the card could take for the same work (where the
+   plain version cannot hold the whole input, it takes it in column
+   slices and is held to the same slices of the kernel's output);
 3. golden: the four golden proofs proved through the port on the card,
    byte for byte against ``tests/golden`` (vk, proof, transcript log);
-4. real size: keygen + prove of the 2^20 x 64 ``SyntheticAir`` cell under
-   ``app_params_with_100_bits_security(22)`` with a random trace from a
-   seed, with the per-stage spans, the prove seconds and the peak device
-   memory; the proof must re-encode identically after a codec round trip.
-   The kernel launch counters are reset just before this run and every
-   kernel must have launched during it.
+4. app: keygen + prove of the 2^20 x 64 ``SyntheticAir`` cell (degree 3)
+   under ``app_params_with_100_bits_security(22)``;
+5. leaf: keygen + prove of the 2^20 x 64 degree-4 cell under
+   ``leaf_params_with_100_bits_security(25)``: 2 stacked columns of 2^25
+   rows, so the RS encode is one (2, 2^27) NTT through A′.
+
+Phases 4 and 5 use a random trace from a seed and print the per-stage
+spans, the prove seconds, the peak device memory and the input shapes
+each kernel was launched on; each proof must
+re-encode identically after a codec round trip. The kernel launch counters
+are reset just before each prove and read just after it, and every kernel
+of that path must have launched during it.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -30,12 +40,39 @@ import json
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 
 LOG_ROWS = 20
 WIDTH = 64
-LOG_STACKED = 22
+APP_LOG_STACKED = 22
+LEAF_LOG_STACKED = 25
 SEED = 0
 GOLDEN_CASES = ("fib", "interactions", "preprocessed", "cached_preprocessed")
+
+# The least time of a kernel's work is the larger of its bytes over the
+# H100's 3.35 TB/s (NVIDIA's data sheet) and its 32-bit integer operations
+# over the rate of the pipes that run them. A Hopper SM issues 64 32-bit
+# integer multiplies or multiply-adds a clock (its FMA pipe) and 64 other
+# 32-bit integer operations a clock (add, subtract, compare, min and max:
+# its ALU pipe), by the arithmetic throughput table of the CUDA C++
+# Programming Guide for compute capability 9.0. The two pipes run side by
+# side and the FMA pipe can also add, so m multiplies and a other
+# operations take at least max(m, (m + a) / 2) clocks of 64 lanes. 132 SMs
+# at the 1.98 GHz boost clock give 64 x 132 x 1.98e9 = 16.7e12 lane
+# operations a second for each pipe. A field operation counts the fewest
+# instructions of the reductions in swirl_torch/csrc/field.cuh: a
+# Montgomery product 3 multiplies (the wide a*b, m = t*P', the wide m*P + t)
+# and 2 other operations (subtract P, take the unsigned min); an add or a
+# subtract 3 other operations.
+HBM_BYTES_PER_S = 3.35e12
+INT32_LANE_OPS_PER_S = 64 * 132 * 1.98e9
+MONT_MUL, ADD = (3, 2), (0, 3)  # (multiplies, other operations)
+# one Poseidon2-16 permutation: 772 products and 1192 adds (x^7 S-boxes of
+# 4 products, 8 full rounds, 13 partial rounds with the diagonal product,
+# the M_E layers of 72 adds)
+PERM = (772 * MONT_MUL[0], 772 * MONT_MUL[1] + 1192 * ADD[1])
+# one radix-2 butterfly: a product, an add and a subtract
+BUTTERFLY = (MONT_MUL[0], MONT_MUL[1] + 2 * ADD[1])
 
 
 def _say(*parts) -> None:
@@ -57,60 +94,160 @@ def _cuda_time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def ntt_work(shape):
+    """(bytes, (multiplies, others)) of a (batch, N) int64 NTT: one read and
+    one write per element, N/2 log N butterflies per row."""
+    batch, n = shape
+    butterflies = batch * (n // 2) * (n.bit_length() - 1)
+    return 2 * batch * n * 8, _times(BUTTERFLY, butterflies)
+
+
+def hash_work(shape):
+    """hash_cols on (w, H): w*H words in, 8*H out; one permutation per 8
+    absorbed words of each row."""
+    w, h = shape
+    return (w + 8) * h * 8, _times(PERM, h * -(-w // 8))
+
+
+def compress_work(shape):
+    """compress_cols on (16, n): 16n words in, 8n out, n permutations."""
+    _, n = shape
+    return 24 * n * 8, _times(PERM, n)
+
+
+def tower_work(shape):
+    """The tower on (8, n): 8n words in, every level out."""
+    _, n = shape
+    return (8 * n + 8 * (n - 1)) * 8, _times(PERM, n - 1)
+
+
+def _times(ops, k):
+    return ops[0] * k, ops[1] * k
+
+
+def bound(work):
+    """(bound_ms, bound_by) of (bytes, (multiplies, others))."""
+    nbytes, (muls, others) = work
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    op_ms = max(muls, (muls + others) / 2) / INT32_LANE_OPS_PER_S * 1e3
+    return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
+
+
 def kernel_cases():
-    """(kernel, label, kernel fn, plain fn, input shape) at main-path shapes:
-    the RS encode and chunk iDFTs of the commit, the WHIR EF codeword, the
-    base-field leaf hash, the first strided compress level, the tower."""
+    """(kernel, label, kernel fn, plain fn, input shape, work, plain slice)
+    at the main paths' shapes. The first case of each kernel is the one the
+    ``kernels`` line reports: the leaf path's largest. Leaf: the RS encode
+    (A′), the first WHIR codeword, the chunk iDFTs (the app's shape too),
+    the hash of the 2^27-row codeword (w = 2: a partial absorb) and of the
+    first WHIR codeword, the first strided compress level, the tower. App:
+    the RS encode, its WHIR codeword, its leaf hashes and compress level.
+    ``plain slice`` is None where the plain version takes the whole input,
+    else the columns it takes at a time (hash and compress act on each
+    column alone; the kernel always runs on the whole input)."""
     from swirl_torch import kernels as K
     from swirl_torch.hash import poseidon2 as p2
     from swirl_torch.prover import ntt
 
+    fwd, inv = ntt.ntt_rows, (lambda x: ntt.ntt_rows(x, True))
+    pfwd, pinv = ntt.ntt_plain, (lambda x: ntt.ntt_plain(x, True))
+    hash_, compress = (p2.hash_cols, p2.hash_cols_plain), (p2.compress_cols, p2.compress_cols_plain)
     return [
-        (K.NTT, "rs_encode", ntt.ntt_rows, ntt.ntt_plain, (16, 1 << 23)),
-        (K.NTT, "chunk_idft", lambda x: ntt.ntt_rows(x, True), lambda x: ntt.ntt_plain(x, True), (1 << 22, 16)),
-        (K.NTT, "whir_codeword", ntt.ntt_rows, ntt.ntt_plain, (4, 1 << 22)),
-        (K.HASH_COLS, "leaf_hash", p2.hash_cols, p2.hash_cols_plain, (16, 1 << 23)),
-        (K.HASH_COLS, "ef_leaf_hash", p2.hash_cols, p2.hash_cols_plain, (4, 1 << 22)),
-        (K.COMPRESS, "strided_level", p2.compress_cols, p2.compress_cols_plain, (16, 1 << 22)),
-        (K.TOWER, "tower_8192", p2.compress_tower, p2.merkle_tower_plain, (8, 8192)),
+        (K.NTT, "leaf_whir_codeword", fwd, pfwd, (4, 1 << 26), ntt_work, None),
+        (K.NTT, "chunk_idft", inv, pinv, (1 << 22, 16), ntt_work, None),
+        (K.NTT, "app_rs_encode", fwd, pfwd, (16, 1 << 23), ntt_work, None),
+        (K.NTT, "app_whir_codeword", fwd, pfwd, (4, 1 << 22), ntt_work, None),
+        (K.NTT_RECURSIVE, "leaf_rs_encode", fwd, pfwd, (2, 1 << 27), ntt_work, None),
+        (K.NTT_RECURSIVE, "leaf_rs_encode_inverse", inv, pinv, (2, 1 << 27), ntt_work, None),
+        (K.HASH_COLS, "leaf_codeword_hash", *hash_, (2, 1 << 27), hash_work, 1 << 24),
+        (K.HASH_COLS, "leaf_whir_hash", *hash_, (4, 1 << 26), hash_work, 1 << 24),
+        (K.HASH_COLS, "app_codeword_hash", *hash_, (16, 1 << 23), hash_work, None),
+        (K.HASH_COLS, "app_whir_hash", *hash_, (4, 1 << 22), hash_work, None),
+        (K.COMPRESS, "leaf_strided_level", *compress, (16, 1 << 26), compress_work, 1 << 23),
+        (K.COMPRESS, "app_strided_level", *compress, (16, 1 << 22), compress_work, None),
+        (K.TOWER, "tower_8192", p2.compress_tower, p2.merkle_tower_plain, (8, 8192), tower_work, None),
     ]
 
 
-def check_kernels(device) -> dict:
-    """Each kernel against its plain version on seeded random inputs; returns
-    per-kernel results of its first (headline) shape."""
+def _timed_ms(fn):
+    """(result, ms) of one call, by CUDA events."""
     import torch
 
-    from swirl.fields.babybear import P
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _max_abs_err(got, want) -> int:
+    import torch
+
+    if isinstance(got, list):  # the tower's layers
+        got = torch.cat([t.reshape(-1) for t in got])
+        want = torch.cat([t.reshape(-1) for t in want])
+    if got.shape != want.shape:
+        raise AssertionError(f"shape {tuple(got.shape)} against {tuple(want.shape)}")
+    return int((got - want).abs().max().item()) if got.numel() else 0
+
+
+def check_kernels(device) -> dict:
+    """Each kernel against its plain version on seeded random inputs, bit
+    for bit; returns the results of each kernel's first case."""
+    import torch
+
+    from swirl_torch.fields.babybear import P
+    from swirl_torch.prover import ntt
 
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
     results = {}
-    for kernel, label, fk, fp, shape in kernel_cases():
+    for kernel, label, fk, fp, shape, work, cols in kernel_cases():
         x = torch.randint(0, P, shape, generator=gen, device=device, dtype=torch.int64)
-        got, want = fk(x), fp(x)
-        if isinstance(got, list):
-            got, want = torch.cat([g.reshape(-1) for g in got]), torch.cat([w.reshape(-1) for w in want])
-        err = int((got - want).abs().max().item()) if got.numel() else 0
-        if got.shape != want.shape or err != 0:
+        got = fk(x)
+        if cols is None:
+            err = _max_abs_err(got, fp(x))
+            plain_ms = _cuda_time_ms(lambda: fp(x), reps=2)
+            how = ""
+        else:
+            err, plain_ms = 0, 0.0
+            for c in range(0, shape[1], cols):
+                want, ms = _timed_ms(lambda: fp(x[:, c : c + cols].contiguous()))
+                err = max(err, _max_abs_err(got[:, c : c + cols], want))
+                plain_ms += ms
+                del want
+            how = f" (plain in slices of {cols} columns)"
+        if err != 0:
             raise AssertionError(f"kernel {kernel.name} [{label}] {shape}: max_abs_err {err}")
+        del got
         ms = _cuda_time_ms(lambda: fk(x), reps=10)
-        plain_ms = _cuda_time_ms(lambda: fp(x), reps=2)
+        bound_ms, bound_by = bound(work(shape))
         _say(
             f"kernel {kernel.name} [{label}] shape={shape} equal=True "
-            f"max_abs_err={err} ms={ms:.4f} plain_ms={plain_ms:.4f}"
+            f"max_abs_err={err} ms={ms:.4f} plain_ms={plain_ms:.4f}{how} "
+            f"bound_ms={bound_ms:.4f} ({bound_by})"
         )
-        results.setdefault(kernel.name, {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
-        del x, got, want
+        results.setdefault(kernel.name, {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            # no PyTorch call computes a BabyBear NTT or Poseidon2
+            "library_ms": None,
+        })
+        del x
         torch.cuda.empty_cache()
+    # the plain NTT's tables at 2^27 hold gigabytes; the provers never use them
+    ntt._plain_twiddles.cache_clear()
+    ntt._bitrev.cache_clear()
+    torch.cuda.empty_cache()
     return results
 
 
 def check_golden(device) -> None:
-    from swirl.codec import encode_proof, encode_vk
-    from swirl.testing.golden import encode_transcript_log, golden_cases, paths_for
-    from swirl.transcript import Transcript
+    from swirl_torch.codec import encode_proof, encode_vk
     from swirl_torch.engine import StarkEngine
+    from swirl_torch.testing.golden import encode_transcript_log, golden_cases, paths_for
+    from swirl_torch.transcript import Transcript
 
     for name in GOLDEN_CASES:
         params, airs, ctxs = golden_cases()[name]()
@@ -128,24 +265,45 @@ def check_golden(device) -> None:
         _say(f"golden {name}: vk, proof and transcript byte-identical")
 
 
-def prove_real_size(device, log_rows: int = LOG_ROWS, width: int = WIDTH,
-                    log_stacked: int = LOG_STACKED, seed: int = SEED) -> dict:
-    """Keygen + prove of the bench cell with a random witness (column 0 is
+@contextmanager
+def recorded_shapes():
+    """Collects {kernel name: set of input shapes} of every launch inside
+    the block; the launches and their counts are unchanged."""
+    from swirl_torch import kernels as K
+
+    shapes = {}
+    launch = K.LIB.launch
+
+    def record(kernel, fn_name, t, *args):
+        shapes.setdefault(kernel.name, set()).add(tuple(t.shape))
+        return launch(kernel, fn_name, t, *args)
+
+    K.LIB.launch = record
+    try:
+        yield shapes
+    finally:
+        del K.LIB.launch
+
+
+def prove_synthetic(device, params, degree: int, log_rows: int = LOG_ROWS,
+                    width: int = WIDTH, seed: int = SEED) -> dict:
+    """Keygen + prove of the bench shape with a random witness (column 0 is
     the SyntheticAir kill column and stays zero, so any other values are a
-    valid witness). Returns spans, seconds and the encoded proof size."""
+    valid witness). Resets the launch counters just before the prove and
+    returns them with the spans, seconds, the kernels' input shapes and the
+    encoded proof size."""
     import numpy as np
     import torch
 
-    from swirl import metrics
-    from swirl.codec import decode_proof, encode_proof
-    from swirl.fields.babybear import P
-    from swirl.params import app_params_with_100_bits_security
-    from swirl.testing.synthetic import SyntheticAir, uniform_shape
+    from swirl_torch import kernels as K
+    from swirl_torch import metrics
+    from swirl_torch.codec import decode_proof, encode_proof
     from swirl_torch.engine import StarkEngine
+    from swirl_torch.fields.babybear import P
     from swirl_torch.prover.backend import ProvingContext
+    from swirl_torch.testing.synthetic import SyntheticAir, uniform_shape
 
-    params = app_params_with_100_bits_security(log_stacked)
-    air = SyntheticAir(uniform_shape(log_rows, width, num_constraints=16, num_interactions=8, degree=3))
+    air = SyntheticAir(uniform_shape(log_rows, width, num_constraints=16, num_interactions=8, degree=degree))
     trace = np.random.default_rng(seed).integers(0, P, (1 << log_rows, air.common_main_width()), dtype=np.uint64)
     trace[:, 0] = 0
 
@@ -154,24 +312,41 @@ def prove_real_size(device, log_rows: int = LOG_ROWS, width: int = WIDTH,
     pk, vk = eng.keygen([air])
     dpk = eng.transport_pk(pk)
     ctx = ProvingContext([eng.context_for(0, trace, [], [])])
+    torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
     t0 = time.perf_counter()
-    with metrics.run_with_metric_collection() as collector:
+    with metrics.run_with_metric_collection() as collector, recorded_shapes() as shapes:
         proof = eng.prove(dpk, ctx)
     prove_s = time.perf_counter() - t0
+    launches = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
     data = encode_proof(proof)
     if encode_proof(decode_proof(data)) != data:
-        raise AssertionError("real size: the proof does not survive a codec round trip")
+        raise AssertionError("the proof does not survive a codec round trip")
     return {
         "setup_s": setup_s,
         "prove_s": prove_s,
         "spans_ms": {k: v for k, v in collector.snapshot().items() if k.endswith("_time_ms")},
         "proof_bytes": len(data),
-        "peak_bytes": torch.cuda.max_memory_allocated() if device.type == "cuda" else None,
+        "peak_bytes": peak,
+        "launches": launches,
+        "shapes": shapes,
     }
+
+
+def report(tag: str, run: dict, required) -> None:
+    _say(f"{tag}: 2^{LOG_ROWS} x {WIDTH}, setup {run['setup_s']:.3f} s, prove {run['prove_s']:.3f} s")
+    for name, ms in sorted(run["spans_ms"].items()):
+        _say(f"{tag}: span {name} {ms:.1f}")
+    _say(f"{tag}: peak device memory {run['peak_bytes']} B, proof {run['proof_bytes']} B, codec round trip ok")
+    _say(f"{tag}: kernel launches {run['launches']}")
+    for name, shapes in sorted(run["shapes"].items()):
+        _say(f"{tag}: {name} input shapes {sorted(shapes, key=lambda s: -s[0] * s[1])}")
+    missing = [name for name in required if run["launches"][name] == 0]
+    if missing:
+        raise AssertionError(f"{tag}: the path never launched {missing}")
 
 
 def main() -> int:
@@ -181,6 +356,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this test runs only on the card", file=sys.stderr)
         return 2
     from swirl_torch import kernels as K
+    from swirl_torch import native
+    from swirl_torch.params import (
+        app_params_with_100_bits_security,
+        leaf_params_with_100_bits_security,
+    )
 
     device = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -195,33 +375,29 @@ def main() -> int:
     for line in K.LIB.build_log.splitlines():
         if "registers" in line or "spill" in line:
             _say(f"build: {line.strip()}")
+    _say(f"native host library loaded: {native.available()}")
 
     results = check_kernels(device)
+    K.reset_launch_counts()
     check_golden(device)
     counts = K.launch_counts()
-    if min(counts.values()) == 0:
-        raise AssertionError(f"golden proofs missed a kernel: {counts}")
     _say(f"golden: kernel launches {counts}")
 
-    K.reset_launch_counts()
-    real = prove_real_size(device)
-    launches = K.launch_counts()
-    _say(f"real size: 2^{LOG_ROWS} x {WIDTH}, setup {real['setup_s']:.3f} s, prove {real['prove_s']:.3f} s")
-    for name, ms in sorted(real["spans_ms"].items()):
-        _say(f"real size: span {name} {ms:.1f}")
-    _say(f"real size: peak device memory {real['peak_bytes']} B, proof {real['proof_bytes']} B")
-    _say(f"real size: kernel launches {launches}")
-    missing = [name for name, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f"the main path never launched {missing}")
+    app_kernels = [k.name for k in K.KERNELS if k is not K.NTT_RECURSIVE]
+    app = prove_synthetic(device, app_params_with_100_bits_security(APP_LOG_STACKED), 3)
+    report("app", app, app_kernels)
+    torch.cuda.empty_cache()
+    leaf = prove_synthetic(device, leaf_params_with_100_bits_security(LEAF_LOG_STACKED), 4)
+    report("leaf", leaf, [k.name for k in K.KERNELS])
 
+    # launches: the leaf path, the one path that runs all five kernels
     kernels = [
         {
             "name": k.name,
             "route": "cuda",
             "source": k.source,
             "replaces": k.replaces,
-            "launches": launches[k.name],
+            "launches": leaf["launches"][k.name],
             **results[k.name],
         }
         for k in K.KERNELS

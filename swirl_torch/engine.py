@@ -1,9 +1,11 @@
 """StarkEngine for the torch port: keygen, context construction, prove.
 
 Peer of ``swirl/engine.py`` on the default BabyBear-Poseidon2 scheme with a
-fresh :class:`swirl.transcript.Transcript` per proof. Verification is not
-part of the port: ``swirl.verifier`` imports jax, so a proof from this
-engine is checked with ``swirl.verifier.verify`` where jax is installed.
+fresh :class:`~swirl_torch.transcript.Transcript` per proof. The engine
+runs on the CUDA card unless the caller passes another device
+(``device="cpu"`` for the tests). The port has no verifier yet: a proof is
+checked by encoding it with :mod:`swirl_torch.codec` and verifying the
+bytes with the JAX package's verifier.
 """
 
 from __future__ import annotations
@@ -13,11 +15,11 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from swirl.air import Air
-from swirl.keygen import MultiStarkKeygenBuilder, MultiStarkProvingKey, MultiStarkVerifyingKey
-from swirl.params import SystemParams
-from swirl.proof import Proof
-from swirl.transcript import Transcript
+from .air import Air
+from .keygen import MultiStarkKeygenBuilder, MultiStarkProvingKey, MultiStarkVerifyingKey
+from .params import SystemParams
+from .proof import Proof
+from .transcript import Transcript
 
 from .prover.backend import (
     AirContext,
@@ -30,7 +32,7 @@ from .prover.backend import (
 
 
 class StarkEngine:
-    def __init__(self, params: SystemParams, device="cpu"):
+    def __init__(self, params: SystemParams, device="cuda"):
         self.params = params
         self.backend = TorchBackend(params, device)
 

@@ -23,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from swirl.fields.babybear import EXT_W, P
+from .babybear import EXT_W, P
 
 DTYPE = torch.int64
 # R^-1 mod P for R = 2^32: converts the JAX package's Montgomery values

@@ -47,6 +47,11 @@ NTT = Kernel(
     "ntt", "swirl_torch/csrc/ntt.cu",
     "swirl/tpu/ntt_pallas.py:164 (_kernel1 :147 + _kernel2 :156)",
 )
+# the same entry point above 2^26, where it runs A′'s 2^14-point rows
+NTT_RECURSIVE = Kernel(
+    "ntt_recursive", "swirl_torch/csrc/ntt.cu",
+    "swirl/tpu/ntt_pallas.py:249 (_kernel1_only) via ntt :300-312",
+)
 HASH_COLS = Kernel(
     "hash_cols", "swirl_torch/csrc/poseidon2.cu",
     "swirl/tpu/poseidon2_pallas.py:143 (_hash_kernel)",
@@ -59,7 +64,7 @@ TOWER = Kernel(
     "merkle_tower", "swirl_torch/csrc/poseidon2.cu",
     "swirl/tpu/poseidon2_pallas.py:327 (_tower_kernel)",
 )
-KERNELS = (NTT, HASH_COLS, COMPRESS, TOWER)
+KERNELS = (NTT, NTT_RECURSIVE, HASH_COLS, COMPRESS, TOWER)
 
 
 def reset_launch_counts() -> None:
@@ -168,8 +173,8 @@ def require(t: torch.Tensor, ndim: int, what: str) -> None:
 
 
 def _upload_poseidon2_constants(lib) -> None:
-    from swirl.fields.babybear import P
-    from swirl.hash.poseidon2 import constants
+    from ..fields.babybear import P
+    from ..hash.poseidon2 import constants
 
     r = np.uint64((1 << 32) % P)
     mont = [

@@ -15,13 +15,13 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from swirl import metrics
-from swirl.fields import ext as hext
-from swirl.keygen import MultiStarkProvingKey
-from swirl.params import SystemParams
-from swirl.proof import Proof, TraceVData
-from swirl.prover.errors import ProverError
-from swirl.transcript import Transcript
+from .. import metrics
+from ..fields import ext as hext
+from ..keygen import MultiStarkProvingKey
+from ..params import SystemParams
+from ..proof import Proof, TraceVData
+from .errors import ProverError
+from ..transcript import Transcript
 
 from ..fields import field as F
 from .logup_zerocheck import TraceProver, prove_zerocheck_and_logup
@@ -93,13 +93,18 @@ def _sync(device) -> None:
 class TorchBackend:
     """Commitment and transport on one torch device."""
 
-    def __init__(self, params: SystemParams, device="cpu"):
+    def __init__(self, params: SystemParams, device="cuda"):
         if params.l_skip > MAX_BACKEND_L_SKIP:
             raise ProverError(
                 f"TorchBackend requires l_skip <= {MAX_BACKEND_L_SKIP}, got {params.l_skip}"
             )
         self.params = params
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise ProverError(
+                "TorchBackend: no CUDA device is available; pass device='cpu' "
+                "to prove on the CPU"
+            )
         # hash-scheme hook: None = the Poseidon2 kernels' Merkle trees
         self.tree_builder = None
 
@@ -126,7 +131,7 @@ class TorchBackend:
         )
 
     def keygen_committer(self):
-        """Committer callable for :class:`swirl.keygen.MultiStarkKeygenBuilder`."""
+        """Committer callable for :class:`~swirl_torch.keygen.MultiStarkKeygenBuilder`."""
 
         def commit(trace_host: np.ndarray):
             ctd = self.commit_single(trace_host)

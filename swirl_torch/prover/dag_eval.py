@@ -13,9 +13,9 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from swirl.fields import ext as hext
-from swirl.fields.babybear import P
-from swirl.symbolic import ConstraintsDag, eval_dag_nodes
+from ..fields import ext as hext
+from ..fields.babybear import P
+from ..symbolic import ConstraintsDag, eval_dag_nodes
 
 from ..fields import field as F
 

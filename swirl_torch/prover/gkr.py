@@ -17,9 +17,9 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from swirl.fields import ext as hext
-from swirl.proof import GkrLayerClaims
-from swirl.transcript import Transcript
+from ..fields import ext as hext
+from ..proof import GkrLayerClaims
+from ..transcript import Transcript
 
 from ..fields import field as F
 from .sumcheck import ef_dev, eq_hypercube, fold_mle, interp_mle_at_int

@@ -17,15 +17,15 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from swirl import metrics
-from swirl import poly as hpoly
-from swirl.fields import ext as hext
-from swirl.fields.babybear import GENERATOR, P, batch_inverse
-from swirl.params import SystemParams, calculate_n_logup
-from swirl.proof import BatchConstraintProof, GkrProof, column_openings_by_rot
-from swirl.prover.errors import LogupZerocheckError
-from swirl.symbolic import ConstraintsDag
-from swirl.transcript import Transcript
+from .. import metrics
+from .. import poly as hpoly
+from ..fields import ext as hext
+from ..fields.babybear import GENERATOR, P, batch_inverse
+from ..params import SystemParams, calculate_n_logup
+from ..proof import BatchConstraintProof, GkrProof, column_openings_by_rot
+from .errors import LogupZerocheckError
+from ..symbolic import ConstraintsDag
+from ..transcript import Transcript
 
 from ..fields import field as F
 from .dag_eval import (

@@ -17,7 +17,7 @@ from typing import List
 import numpy as np
 import torch
 
-from swirl.prover.errors import StackedPcsError
+from .errors import StackedPcsError
 
 from ..fields import field as F
 from ..hash import poseidon2 as p2

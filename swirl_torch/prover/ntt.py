@@ -1,5 +1,6 @@
-"""Batched NTT over BabyBear on torch tensors: the wrapper of kernel A, its
-plain PyTorch version, and the transforms built on it.
+"""Batched NTT over BabyBear on torch tensors: the wrapper of kernels A and
+A′, their plain PyTorch version, the plain model of the four-step split, and
+the transforms built on them.
 
 Peer of ``swirl/prover/ntt.py`` (:76-192). ``ntt(x)[i] = poly(w^i)`` with
 ``w = two_adic_generator(log N)``, natural order in and out, along the last
@@ -14,13 +15,15 @@ from functools import lru_cache
 
 import torch
 
-from swirl.fields.babybear import P, two_adic_generator
-
 from .. import kernels as K
 from ..fields import field as F
+from ..fields.babybear import P, TWO_ADICITY, two_adic_generator
 
-MAX_LOG_N = 26  # larger transforms (the TPU's recursive level) are not ported
+# BabyBear's two-adicity: the longest transform that exists. The TPU code's
+# ceiling of 2^28 (ntt_pallas.py:60) has no 2^28-th root of unity to use.
+MAX_LOG_N = TWO_ADICITY
 SMALL_LOG_MAX = 13  # ntt.cu: one shared-memory pass up to 2^13 points, four-step above
+RECURSIVE_LOG_N = 26  # above this the TPU recursed (A′); ntt.cu runs 2^14-point rows
 
 
 def _root(log_n: int, inverse: bool) -> int:
@@ -28,11 +31,29 @@ def _root(log_n: int, inverse: bool) -> int:
     return pow(w, P - 2, P) if inverse else w
 
 
+def _split(log_n: int):
+    """ntt.cu's split N = n1 * n2: (log n1, log n2)."""
+    if log_n <= SMALL_LOG_MAX:
+        return 0, log_n
+    return log_n // 2, log_n - log_n // 2
+
+
+def _twiddle_tables(log_n: int, log_n1: int, inverse: bool, device: str):
+    """The two-level twiddle table of an N = n1 * n2 split, canonical:
+    hi[e] = w^(n1*e) for e < n2 and lo[e] = w^e for e < n1, so that
+    w^e = hi[e >> log n1] * lo[e & (n1 - 1)] for every e < N."""
+    w = _root(log_n, inverse)
+    hi = F.powers(pow(w, 1 << log_n1, P), 1 << (log_n - log_n1), device)
+    lo = F.powers(w, 1 << log_n1, device)
+    return hi, lo
+
+
 @lru_cache(maxsize=None)
 def _kernel_table(log_n: int, inverse: bool, device: str):
-    """w^e for e < N in Montgomery form (uint32 values in int32 storage)."""
-    pw = F.powers(_root(log_n, inverse), 1 << log_n, device)
-    return ((pw * ((1 << 32) % P)) % P).to(torch.int32)
+    """hi then lo of ntt.cu's split, in Montgomery form (uint32 values in
+    int32 storage): n2 + n1 entries, at most 2^14 + 2^13."""
+    hi, lo = _twiddle_tables(log_n, _split(log_n)[0], inverse, device)
+    return ((torch.cat([hi, lo]) * ((1 << 32) % P)) % P).to(torch.int32)
 
 
 @lru_cache(maxsize=None)
@@ -65,6 +86,30 @@ def ntt_plain(x, inverse: bool = False):
     return x[:, _bitrev(log_n, dev)]
 
 
+def ntt_four_step_plain(x, log_n1: int, inverse: bool = False):
+    """(batch, N) -> (batch, N) by the four-step split that ntt.cu runs:
+    n1-point sub-NTTs over j1 of the (n1, n2) view, the w^(j2*k1) twiddle
+    from the two-level table, n2-point sub-NTTs over j2, and a transpose
+    to natural order X[k1 + n1*k2]. The model of the kernel's index
+    algebra; equal to :func:`ntt_plain` for every split."""
+    batch, n = x.shape
+    log_n = n.bit_length() - 1
+    n1, n2 = 1 << log_n1, n >> log_n1
+    a = x.reshape(batch, n1, n2).transpose(1, 2).reshape(batch * n2, n1)
+    a = ntt_plain(a, inverse).reshape(batch, n2, n1)  # [j2, k1]
+    hi, lo = _twiddle_tables(log_n, log_n1, inverse, str(x.device))
+    e = torch.arange(n2, device=x.device)[:, None] * torch.arange(n1, device=x.device)
+    a = F.mul(a, F.mul(hi[e >> log_n1], lo[e & (n1 - 1)]))
+    a = a.transpose(1, 2).reshape(batch * n1, n2)  # [k1, j2]
+    a = ntt_plain(a, inverse).reshape(batch, n1, n2)  # [k1, k2]
+    return a.transpose(1, 2).reshape(batch, n)
+
+
+def kernel_for(log_n: int):
+    """The launch counter a CUDA transform of 2^log_n points adds to."""
+    return K.NTT_RECURSIVE if log_n > RECURSIVE_LOG_N else K.NTT
+
+
 def _ntt_kernel(x, inverse: bool):
     K.require(x, 2, "ntt")
     batch, n = x.shape
@@ -78,13 +123,13 @@ def _ntt_kernel(x, inverse: bool):
     else:
         p0 = p1 = None
     K.LIB.launch(
-        K.NTT, "swirl_ntt", x, x.data_ptr(), out.data_ptr(), p0, p1, batch, log_n, table.data_ptr()
+        kernel_for(log_n), "swirl_ntt", x, x.data_ptr(), out.data_ptr(), p0, p1, batch, log_n, table.data_ptr()
     )
     return out
 
 
 def ntt_rows(x, inverse: bool = False):
-    """Kernel A: (batch, N) base-field rows -> their DFTs."""
+    """Kernels A and A′: (batch, N) base-field rows -> their DFTs."""
     n = x.shape[1]
     log_n = n.bit_length() - 1
     if n != 1 << log_n or log_n > MAX_LOG_N:

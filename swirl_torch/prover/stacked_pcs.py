@@ -13,7 +13,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from swirl.prover.errors import StackedPcsError
+from .errors import StackedPcsError
 
 from ..fields import field as F
 from .merkle import MerkleTree, build_merkle_tree

@@ -14,13 +14,13 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from swirl import poly as hpoly
-from swirl.fields import ext as hext
-from swirl.fields.babybear import GENERATOR, P, roots_of_unity, two_adic_generator
-from swirl.params import SystemParams
-from swirl.proof import StackingProof
-from swirl.prover.errors import StackedReductionError
-from swirl.transcript import Transcript
+from .. import poly as hpoly
+from ..fields import ext as hext
+from ..fields.babybear import GENERATOR, P, roots_of_unity, two_adic_generator
+from ..params import SystemParams
+from ..proof import StackingProof
+from .errors import StackedReductionError
+from ..transcript import Transcript
 
 from ..fields import field as F
 from .stacked_pcs import StackedPcsData, StackedSlice

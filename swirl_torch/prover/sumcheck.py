@@ -17,8 +17,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from swirl.fields import ext as hext
-from swirl.fields.babybear import P, U64, roots_of_unity
+from ..fields import ext as hext
+from ..fields.babybear import P, U64, roots_of_unity
 
 from ..fields import field as F
 from .ntt import coset_ntt, intt

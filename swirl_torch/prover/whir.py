@@ -15,12 +15,12 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from swirl.fields import ext as hext
-from swirl.fields.babybear import P, two_adic_generator
-from swirl.params import SystemParams
-from swirl.proof import WhirProof
-from swirl.prover.errors import WhirProverError
-from swirl.transcript import Transcript
+from ..fields import ext as hext
+from ..fields.babybear import P, two_adic_generator
+from ..params import SystemParams
+from ..proof import WhirProof
+from .errors import WhirProverError
+from ..transcript import Transcript
 
 from ..fields import field as F
 from .merkle import build_merkle_tree, get_opened_rows

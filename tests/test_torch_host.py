@@ -1,0 +1,133 @@
+"""The port's copies of the JAX package's host modules against their
+originals: params presets, the transcript, the host Poseidon2, the native
+library and the codec. The port keeps its own copy of every host module it
+uses (it imports nothing of ``swirl``); these tests hold each copy to the
+original on the same numpy inputs. Tolerance: exact equality.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+import jax
+
+jax.config.update("jax_platforms", "cpu")
+
+import swirl.codec as jcodec  # noqa: E402
+import swirl.hash.poseidon2 as jp2  # noqa: E402
+import swirl.native as jnative  # noqa: E402
+import swirl.params as jparams  # noqa: E402
+import swirl.transcript as jtranscript  # noqa: E402
+import swirl_torch.codec as tcodec  # noqa: E402
+import swirl_torch.hash.poseidon2 as tp2  # noqa: E402
+import swirl_torch.native as tnative  # noqa: E402
+import swirl_torch.params as tparams  # noqa: E402
+import swirl_torch.transcript as ttranscript  # noqa: E402
+from swirl_torch.fields.babybear import P  # noqa: E402
+from swirl_torch.testing.golden import paths_for  # noqa: E402
+
+PRESETS = (
+    [("app_params_with_100_bits_security", h) for h in range(20, 25)]
+    + [("leaf_params_with_100_bits_security", h) for h in range(23, 26)]
+    + [("internal_params_with_100_bits_security", None)]
+    + [("root_params_with_100_bits_security", None)]
+    + [("test_system_params_small", (2, 6, 3)), ("test_system_params_small", (2, 7, 3))]
+)
+
+
+def _fields(obj):
+    """A params object as nested plain values (dataclasses by field name),
+    so objects of the two packages compare field by field."""
+    if dataclasses.is_dataclass(obj):
+        return (type(obj).__name__, {f.name: _fields(getattr(obj, f.name)) for f in dataclasses.fields(obj)})
+    if isinstance(obj, (list, tuple)):
+        return [_fields(x) for x in obj]
+    return obj
+
+
+@pytest.mark.parametrize("preset,arg", PRESETS)
+def test_params_preset_matches_jax(preset, arg):
+    args = arg if isinstance(arg, tuple) else (() if arg is None else (arg,))
+    got = getattr(tparams, preset)(*args)
+    want = getattr(jparams, preset)(*args)
+    assert _fields(got) == _fields(want)
+    assert got.log_stacked_height == want.log_stacked_height
+
+
+def _drive(mod, seed: int):
+    """The same observations and samples through a transcript of ``mod``;
+    returns the samples and the final sponge state."""
+    rng = np.random.default_rng(seed)
+    t = mod.Transcript()
+    out = []
+    for step in range(40):
+        t.observe(int(rng.integers(0, P)))
+        if step % 3 == 0:
+            t.observe_commit(rng.integers(0, P, 8, dtype=np.uint64))
+        if step % 4 == 1:
+            t.observe_ext(rng.integers(0, P, 4, dtype=np.uint64))
+        if step % 2 == 0:
+            out.append(t.sample())
+        if step % 5 == 0:
+            out.append([int(v) for v in t.sample_ext()])
+            out.append(t.sample_bits(step % 20 + 1))
+    return out, np.array(t.state, dtype=np.uint64)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_transcript_matches_jax(seed):
+    got, got_state = _drive(ttranscript, seed)
+    want, want_state = _drive(jtranscript, seed)
+    assert got == want
+    assert np.array_equal(got_state, want_state)
+
+
+@pytest.mark.parametrize("bits", [1, 8, 12])
+def test_grind_matches_jax(bits):
+    tt, tj = ttranscript.Transcript(), jtranscript.Transcript()
+    for t in (tt, tj):
+        for v in (5, 17, 123456789):
+            t.observe(v)
+    w = tt.grind(bits)
+    assert w == tj.grind(bits)
+    assert np.array_equal(tt.state, tj.state)
+    assert tt.sample() == tj.sample()
+
+
+def test_native_library_matches_jax():
+    """The port's native build (under build/) is used exactly where the JAX
+    package's is, and gives the same permutation."""
+    assert tnative.available() == jnative.available()
+    s = np.random.default_rng(3).integers(0, P, (9, 16), dtype=np.uint64)
+    if tnative.available():
+        assert np.array_equal(tnative.permute_batch(s), jnative.permute_batch(s))
+    assert np.array_equal(tp2.permute_np(s), jp2.permute_np(s))
+
+
+@pytest.mark.parametrize("width", [1, 7, 8, 9, 16, 33])
+def test_host_hashes_match_jax(width):
+    rng = np.random.default_rng(width)
+    m = rng.integers(0, P, (11, width), dtype=np.uint64)
+    assert np.array_equal(tp2.hash_rows_np(m), jp2.hash_rows_np(m))
+    assert np.array_equal(tp2.hash_slice_np(m[0]), jp2.hash_slice_np(m[0]))
+    left, right = m[:, :1].repeat(8, 1), rng.integers(0, P, (11, 8), dtype=np.uint64)
+    assert np.array_equal(tp2.compress_np(left, right), jp2.compress_np(left, right))
+    assert all(np.array_equal(a, b) for a, b in zip(tp2.constants(), jp2.constants()))
+
+
+@pytest.mark.parametrize("name", ["fib", "interactions", "preprocessed", "cached_preprocessed"])
+def test_codec_round_trips_golden_bytes(name):
+    """Each golden vk and proof, decoded and re-encoded by the port's codec,
+    gives the same bytes; the port's decoded vk encodes the same under the
+    JAX package's reading too."""
+    paths = paths_for(name)
+    with open(paths["vk"], "rb") as f:
+        vk_bytes = f.read()
+    with open(paths["proof"], "rb") as f:
+        proof_bytes = f.read()
+    vk = tcodec.decode_vk(vk_bytes)
+    assert tcodec.encode_vk(vk) == vk_bytes
+    assert tcodec.encode_proof(tcodec.decode_proof(proof_bytes)) == proof_bytes
+    assert jcodec.encode_vk(jcodec.decode_vk(vk_bytes)) == vk_bytes
+    assert _fields(vk.params) == _fields(jcodec.decode_vk(vk_bytes).params)

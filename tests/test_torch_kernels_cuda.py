@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 over edge shapes (every NTT size from 2 points to the four-step split,
-sponge widths that are not multiples of 8, tower sizes). Skips without a
+A′ at 2^27, sponge widths that are not multiples of 8, tower sizes). Skips without a
 card. This file imports no jax, so on a machine without jax run it with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
@@ -11,8 +11,8 @@ Tolerance: exact equality (finite field).
 import pytest
 import torch
 
-from swirl.fields.babybear import P
 from swirl_torch import kernels as K
+from swirl_torch.fields.babybear import P
 from swirl_torch.hash import poseidon2 as p2
 from swirl_torch.prover import ntt
 
@@ -35,6 +35,32 @@ def test_ntt_kernel_matches_plain(rand, batch, log_n, inverse):
     before = K.NTT.launches
     assert torch.equal(ntt.ntt_rows(x, inverse), ntt.ntt_plain(x, inverse))
     assert K.NTT.launches == before + 1
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("batch", [1, 3])
+def test_ntt_recursive_kernel_matches_plain(rand, batch, inverse):
+    """A′: 2^27 points, the longest BabyBear transform; batch 3 puts the
+    element indices above 2^28."""
+    x = rand(batch, 1 << 27)
+    assert torch.equal(ntt.ntt_rows(x, inverse), ntt.ntt_plain(x, inverse))
+
+
+def test_ntt_recursive_kernel_on_the_largest_values(rand):
+    x = torch.full((2, 1 << 27), P - 1, dtype=torch.int64, device=rand(1).device)
+    for inverse in (False, True):
+        assert torch.equal(ntt.ntt_rows(x, inverse), ntt.ntt_plain(x, inverse))
+
+
+@pytest.mark.parametrize("log_n", [26, 27])
+def test_ntt_launch_counts_split_at_2_26(rand, log_n):
+    x = rand(1, 1 << log_n)
+    a, a2 = K.NTT.launches, K.NTT_RECURSIVE.launches
+    ntt.ntt_rows(x)
+    torch.cuda.synchronize()
+    recursive = log_n > 26
+    assert K.NTT.launches == a + (not recursive)
+    assert K.NTT_RECURSIVE.launches == a2 + recursive
 
 
 @pytest.mark.parametrize("w", [0, 1, 7, 8, 9, 16, 21, 64])

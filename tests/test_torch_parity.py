@@ -27,6 +27,7 @@ from swirl_torch.hash import poseidon2 as tp2  # noqa: E402
 from swirl_torch.prover import ntt as tntt  # noqa: E402
 from swirl_torch.prover import stacked_pcs as tspcs  # noqa: E402
 from swirl_torch.prover import sumcheck as tsc  # noqa: E402
+from swirl_torch.prover.ntt import ntt_four_step_plain  # noqa: E402
 
 U64 = np.uint64
 
@@ -144,6 +145,23 @@ def test_base_zeta_mobius_roundtrip_match_jax():
     assert np.array_equal(F.to_host(tntt.mobius_transform(z, 6)), x)
 
 
+# A′'s split: the plain model of ntt.cu's four-step index algebra (sub-NTTs,
+# two-level twiddle, transposes) against ntt_plain and the JAX package's
+# ntt. The JAX recursion itself cannot run below 2^27: its inner split
+# needs 128 lanes.
+FOUR_STEP = [(10, 1), (10, 5), (11, 5), (12, 3), (12, 6), (13, 6), (13, 12), (14, 7)]
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("log_n,log_n1", FOUR_STEP)
+def test_four_step_model_matches_ntt(log_n, log_n1, inverse):
+    x = _rand(np.random.default_rng(log_n * 31 + log_n1), (2, 1 << log_n))
+    x[0, :7] = P - 1  # the largest canonical values
+    got = F.to_host(ntt_four_step_plain(_t(x), log_n1, inverse))
+    assert np.array_equal(got, F.to_host(tntt.ntt_plain(_t(x), inverse)))
+    assert np.array_equal(got, jf.to_host(jntt.ntt(_j(x), inverse=inverse)))
+
+
 # ----------------------------------------------------------- stacked pcs ---
 
 LAYOUT_SWEEP = [
@@ -243,14 +261,15 @@ def test_fractional_sumcheck_matches_jax():
     challenge point and final sponge state (natural order on the port, the
     JAX host path's own layout on the reference)."""
     from swirl.prover.gkr import fractional_sumcheck as jfrac
-    from swirl.transcript import Transcript
+    from swirl.transcript import Transcript as JaxTranscript
     from swirl_torch.prover.gkr import fractional_sumcheck as tfrac
+    from swirl_torch.transcript import Transcript
 
     rng = np.random.default_rng(21)
     p = np.zeros((32, 4), U64)
     p[:, 0] = _rand(rng, (32,))
     q = _rand(rng, (32, 4))
-    tj, tt = Transcript(), Transcript()
+    tj, tt = JaxTranscript(), Transcript()
     want = jfrac(tj, _j(p), _j(q), assert_zero=False)
     got = tfrac(tt, _t(p), _t(q), assert_zero=False)
     assert np.array_equal(tt.state, tj.state)
@@ -266,15 +285,23 @@ def test_fractional_sumcheck_matches_jax():
 def test_constraint_accumulation_matches_jax():
     """Base-mode (round 0) and ext-mode (MLE rounds) constraint sums of a
     SyntheticAir DAG on random columns."""
-    from swirl.keygen import keygen_air
-    from swirl.params import test_system_params_small
+    import swirl
+    import swirl_torch
+
     from swirl.prover import dag_eval as jde
-    from swirl.testing.synthetic import SyntheticAir, uniform_shape
     from swirl_torch.prover import dag_eval as tde
 
-    air = SyntheticAir(uniform_shape(4, 6, num_constraints=5, num_interactions=2, degree=3))
-    vk, _ = keygen_air(air, test_system_params_small(2, 4, 3), False)
-    dag = vk.symbolic_constraints
+    def dag_of(pkg):
+        from importlib import import_module
+
+        syn = import_module(f"{pkg.__name__}.testing.synthetic")
+        params = import_module(f"{pkg.__name__}.params")
+        keygen = import_module(f"{pkg.__name__}.keygen")
+        air = syn.SyntheticAir(syn.uniform_shape(4, 6, num_constraints=5, num_interactions=2, degree=3))
+        vk, _ = keygen.keygen_air(air, params.test_system_params_small(2, 4, 3), False)
+        return vk.symbolic_constraints
+
+    jdag, tdag = dag_of(swirl), dag_of(swirl_torch)
     rng = np.random.default_rng(4)
     lam = _rand(rng, (5, 4))
     for ext in (False, True):
@@ -282,5 +309,5 @@ def test_constraint_accumulation_matches_jax():
         local, nxt, sels = _rand(rng, shape), _rand(rng, shape), _rand(rng, (3,) + shape[1:])
         jev = jde.DeviceEvaluator(_j(sels), None, [(_j(local), _j(nxt))], [], ext)
         tev = tde.DeviceEvaluator(_t(sels), None, [(_t(local), _t(nxt))], [], ext)
-        want = jf.to_host(jde.acc_constraints_device(dag, jev, _j(lam)))
-        assert np.array_equal(F.to_host(tde.acc_constraints(dag, tev, _t(lam))), want)
+        want = jf.to_host(jde.acc_constraints_device(jdag, jev, _j(lam)))
+        assert np.array_equal(F.to_host(tde.acc_constraints(tdag, tev, _t(lam))), want)

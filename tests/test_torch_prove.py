@@ -3,7 +3,10 @@
 The port must reproduce the golden proofs byte for byte with their
 transcript logs, give the same bytes as the JAX package on a random-witness
 SyntheticAir proof, and that proof must pass ``swirl.verifier.verify``.
-On CPU tensors every kernel wrapper runs its plain PyTorch version.
+Each package builds its own cases, params and AIRs and encodes with its own
+codec; the two meet at the bytes, and the JAX verifier reads the port's
+proof through ``swirl.codec``. On CPU tensors every kernel wrapper runs its
+plain PyTorch version.
 """
 
 import numpy as np
@@ -13,11 +16,11 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")
 
-from swirl.codec import encode_proof, encode_vk  # noqa: E402
-from swirl.fields.babybear import P  # noqa: E402
-from swirl.testing.golden import encode_transcript_log, golden_cases, paths_for  # noqa: E402
-from swirl.transcript import Transcript  # noqa: E402
+from swirl_torch.codec import encode_proof, encode_vk  # noqa: E402
 from swirl_torch.engine import StarkEngine  # noqa: E402
+from swirl_torch.fields.babybear import P  # noqa: E402
+from swirl_torch.testing.golden import encode_transcript_log, golden_cases, paths_for  # noqa: E402
+from swirl_torch.transcript import Transcript  # noqa: E402
 
 GOLDEN = ["fib", "interactions", "preprocessed", "cached_preprocessed"]
 
@@ -31,7 +34,7 @@ def _read(path: str) -> bytes:
 def test_port_reproduces_golden_proof(name):
     params, airs, ctxs = golden_cases()[name]()
     transcript = Transcript(record=True)
-    vk, proof = StarkEngine(params).run_test(airs, ctxs, transcript)
+    vk, proof = StarkEngine(params, device="cpu").run_test(airs, ctxs, transcript)
     paths = paths_for(name)
     assert encode_transcript_log(transcript.log) == _read(paths["transcript"])
     assert encode_vk(vk) == _read(paths["vk"])
@@ -40,48 +43,71 @@ def test_port_reproduces_golden_proof(name):
 
 def test_unbalanced_interactions_are_refused():
     """A receiver row that no sender matches leaves a non-zero LogUp sum."""
-    from swirl.testing.fixtures import DummyInteractionAir
+    from swirl_torch.testing.fixtures import DummyInteractionAir
 
     params, airs, ctxs = golden_cases()["interactions"]()
     recv = np.array(ctxs[1][0], dtype=np.uint64)
     recv[0, 1] = 8  # (7, 9) -> (8, 9)
     ctxs = [ctxs[0], (DummyInteractionAir.make_trace(recv.tolist()), [], [])]
     with pytest.raises(ValueError, match="fractional sum is non-zero"):
-        StarkEngine(params).run_test(airs, ctxs)
+        StarkEngine(params, device="cpu").run_test(airs, ctxs)
 
 
-@pytest.fixture(scope="module")
-def random_synthetic():
-    """(params, vk, port proof, JAX proof) for two SyntheticAirs with random
-    witnesses, 2^8 rows and 2 rows (below 2^l_skip: a lifted, strided
-    trace). Column 0 is the kill column and stays zero, so any values in the
-    other columns satisfy every constraint and balance every bus."""
-    from swirl.engine import StarkEngine as JaxEngine
-    from swirl.params import test_system_params_small
-    from swirl.testing.synthetic import SyntheticAir, uniform_shape
+def synthetic_pair(pkg, shapes, seed: int, degree: int):
+    """SyntheticAirs of the package ``pkg`` (``swirl`` or ``swirl_torch``)
+    and their random witnesses from ``default_rng(seed)``. Column 0 is the
+    kill column and stays zero, so any values in the other columns satisfy
+    every constraint and balance every bus."""
+    import importlib
 
-    rng = np.random.default_rng(7)
+    syn = importlib.import_module(f"{pkg}.testing.synthetic")
+    rng = np.random.default_rng(seed)
     airs, ctxs = [], []
-    for log_h, width in ((8, 8), (1, 5)):
-        air = SyntheticAir(uniform_shape(log_h, width, num_constraints=4, num_interactions=2, degree=3))
+    for log_h, width in shapes:
+        air = syn.SyntheticAir(
+            syn.uniform_shape(log_h, width, num_constraints=4, num_interactions=2, degree=degree)
+        )
         trace = rng.integers(0, P, (1 << log_h, air.common_main_width()), dtype=np.uint64)
         trace[:, 0] = 0
         airs.append(air)
         ctxs.append((trace, [], []))
-    params = test_system_params_small(2, 7, 3)
-    vk, port_proof = StarkEngine(params).run_test(airs, ctxs)
-    jax_vk, jax_proof = JaxEngine(params).run_test(airs, ctxs, debug=False)
-    assert encode_vk(vk) == encode_vk(jax_vk)
-    return params, vk, port_proof, jax_proof
+    return airs, ctxs
+
+
+def verify_port_bytes(vk_bytes: bytes, proof_bytes: bytes) -> None:
+    """Verify the port's encoded proof with the JAX package's verifier."""
+    from swirl.codec import decode_proof, decode_vk
+    from swirl.verifier import verify
+
+    vk = decode_vk(vk_bytes)
+    verify(vk.params, vk, decode_proof(proof_bytes))
+
+
+@pytest.fixture(scope="module")
+def random_synthetic():
+    """(port vk bytes, port proof bytes, JAX vk bytes, JAX proof bytes) for
+    two SyntheticAirs with random witnesses, 2^8 rows and 2 rows (below
+    2^l_skip: a lifted, strided trace)."""
+    from swirl.codec import encode_proof as jax_encode_proof
+    from swirl.codec import encode_vk as jax_encode_vk
+    from swirl.engine import StarkEngine as JaxEngine
+    from swirl.params import test_system_params_small as jax_params
+    from swirl_torch.params import test_system_params_small
+
+    shapes = ((8, 8), (1, 5))
+    airs, ctxs = synthetic_pair("swirl_torch", shapes, 7, 3)
+    vk, proof = StarkEngine(test_system_params_small(2, 7, 3), device="cpu").run_test(airs, ctxs)
+    jairs, jctxs = synthetic_pair("swirl", shapes, 7, 3)
+    jvk, jproof = JaxEngine(jax_params(2, 7, 3)).run_test(jairs, jctxs, debug=False)
+    return encode_vk(vk), encode_proof(proof), jax_encode_vk(jvk), jax_encode_proof(jproof)
 
 
 def test_random_proof_matches_jax_bytes(random_synthetic):
-    _, _, port_proof, jax_proof = random_synthetic
-    assert encode_proof(port_proof) == encode_proof(jax_proof)
+    vk, proof, jvk, jproof = random_synthetic
+    assert vk == jvk
+    assert proof == jproof
 
 
 def test_random_proof_passes_the_verifier(random_synthetic):
-    from swirl.verifier import verify
-
-    params, vk, port_proof, _ = random_synthetic
-    verify(params, vk, port_proof)
+    vk, proof, _, _ = random_synthetic
+    verify_port_bytes(vk, proof)
