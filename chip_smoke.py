@@ -37,6 +37,7 @@ before those lines. Without a CUDA device it stops at once with exit code 2.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -60,17 +61,24 @@ GOLDEN_CASES = ("fib", "interactions", "preprocessed", "cached_preprocessed")
 # operations take at least max(m, (m + a) / 2) clocks of 64 lanes. 132 SMs
 # at the 1.98 GHz boost clock give 64 x 132 x 1.98e9 = 16.7e12 lane
 # operations a second for each pipe. A field operation counts the fewest
-# instructions of the reductions in swirl_torch/csrc/field.cuh: a
-# Montgomery product 3 multiplies (the wide a*b, m = t*P', the wide m*P + t)
-# and 2 other operations (subtract P, take the unsigned min); an add or a
-# subtract 3 other operations.
+# instructions that sm_90a issues for it (the SASS of
+# swirl_torch/csrc/poseidon2.cu, by swirl_torch/tools/isa.py): a Montgomery
+# product 3 multiplies (the wide a*b, q = lo*P^-1, the high half of q*P)
+# and 2 other operations (hi(a*b) - hi(q*P) + P in one IADD3, then
+# min(r, r - P) in one VIADDMNMX); a product left in (0, 2P) 1 other; an
+# add or a subtract 2 other operations (IADD3, VIADDMNMX); a halving 1
+# multiply-add and 2 others; a product by 2^-k without a Montgomery
+# product 1 multiply-add (hi - 15 * 2^(27-k) * lo) and 3 others.
 HBM_BYTES_PER_S = 3.35e12
 INT32_LANE_OPS_PER_S = 64 * 132 * 1.98e9
-MONT_MUL, ADD = (3, 2), (0, 3)  # (multiplies, other operations)
-# one Poseidon2-16 permutation: 772 products and 1192 adds (x^7 S-boxes of
-# 4 products, 8 full rounds, 13 partial rounds with the diagonal product,
-# the M_E layers of 72 adds)
-PERM = (772 * MONT_MUL[0], 772 * MONT_MUL[1] + 1192 * ADD[1])
+MONT_MUL, ADD = (3, 2), (0, 2)  # (multiplies, other operations)
+SBOX = (12, 7)  # x^7: x^2, x^4 and x^3 * x^4 reduced, x^3 left in (0, 2P)
+HALVE, DIV2K = (1, 2), (1, 3)
+# one Poseidon2-16 permutation: 141 S-boxes (16 in each of 8 full rounds,
+# 1 in each of 13 partial rounds); 1309 adds (9 M_E layers of 72, 128 + 13
+# round constants, 41 in each partial round's tree sum and diagonal); the
+# diagonal's 2 halvings and 7 products by 2^-k in each partial round
+PERM = tuple(141 * s + 1309 * a + 26 * h + 91 * d for s, a, h, d in zip(SBOX, ADD, HALVE, DIV2K))
 # one radix-2 butterfly: a product, an add and a subtract
 BUTTERFLY = (MONT_MUL[0], MONT_MUL[1] + 2 * ADD[1])
 
@@ -103,9 +111,9 @@ def ntt_work(shape):
 
 
 def hash_work(shape):
-    """hash_cols on (w, H): w*H words in, 8*H out; one permutation per 8
-    absorbed words of each row."""
-    w, h = shape
+    """hash_cols on (w, H) or (w, H, d): w*d*H words in, 8*H out; one
+    permutation per 8 absorbed words of each row."""
+    w, h = shape[0] * (shape[2] if len(shape) == 3 else 1), shape[1]
     return (w + 8) * h * 8, _times(PERM, h * -(-w // 8))
 
 
@@ -113,6 +121,11 @@ def compress_work(shape):
     """compress_cols on (16, n): 16n words in, 8n out, n permutations."""
     _, n = shape
     return 24 * n * 8, _times(PERM, n)
+
+
+def layer_work(shape):
+    """compress_layer on an (8, n) layer: the work of (16, n/2) pairs."""
+    return compress_work((16, shape[1] // 2))
 
 
 def tower_work(shape):
@@ -133,24 +146,46 @@ def bound(work):
     return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
 
 
+def _cols(x, c, k):
+    return x[:, c : c + k]
+
+
+def _layer_cols(stride):
+    """The input columns of output columns [c, c + k) of compress_layer at
+    ``stride`` (k a multiple of the stride): [2c, 2c + 2k)."""
+    def cols(x, c, k):
+        if c % stride or k % stride:
+            raise ValueError(f"columns [{c}, {c + k}) split pairs at stride {stride}")
+        return x[:, 2 * c : 2 * c + 2 * k]
+    return cols
+
+
 def kernel_cases():
     """(kernel, label, kernel fn, plain fn, input shape, work, plain slice)
-    at the main paths' shapes. The first case of each kernel is the one the
-    ``kernels`` line reports: the leaf path's largest. Leaf: the RS encode
-    (A′), the first WHIR codeword, the chunk iDFTs (the app's shape too),
-    the hash of the 2^27-row codeword (w = 2: a partial absorb) and of the
-    first WHIR codeword, the first strided compress level, the tower. App:
-    the RS encode, its WHIR codeword, its leaf hashes and compress level.
+    at the main paths' shapes, each through the entry the path calls. The
+    first case of each kernel is the one the ``kernels`` line reports: the
+    leaf path's largest. Leaf: the RS encode (A′), the first WHIR codeword,
+    the chunk iDFTs (the app's shape too), the hash of the 2^27-row
+    codeword (w = 2: a partial absorb) and of the first WHIR codeword read
+    in place as (1, 2^26, 4), the first strided compress level read in place
+    from the (8, 2^27) leaf digests at the query stride 2^23 (the work of
+    (16, 2^26) pairs), a level above the tower (stride 1), the tower. App:
+    the RS encode, its WHIR codeword, its leaf hashes, its first strided
+    level (stride 2^19) and the (16, n) pairs form of ``compress_cols``.
     ``plain slice`` is None where the plain version takes the whole input,
-    else the columns it takes at a time (hash and compress act on each
-    column alone; the kernel always runs on the whole input)."""
+    else (columns of the output it takes at a time, the input columns of
+    them); the kernel always runs on the whole input."""
     from swirl_torch import kernels as K
     from swirl_torch.hash import poseidon2 as p2
     from swirl_torch.prover import ntt
 
     fwd, inv = ntt.ntt_rows, (lambda x: ntt.ntt_rows(x, True))
     pfwd, pinv = ntt.ntt_plain, (lambda x: ntt.ntt_plain(x, True))
-    hash_, compress = (p2.hash_cols, p2.hash_cols_plain), (p2.compress_cols, p2.compress_cols_plain)
+    hash_ = (p2.hash_cols, p2.hash_cols_plain)
+
+    def layer(stride):
+        return (lambda x: p2.compress_layer(x, stride)), (lambda x: p2.compress_layer_plain(x, stride))
+
     return [
         (K.NTT, "leaf_whir_codeword", fwd, pfwd, (4, 1 << 26), ntt_work, None),
         (K.NTT, "chunk_idft", inv, pinv, (1 << 22, 16), ntt_work, None),
@@ -158,12 +193,16 @@ def kernel_cases():
         (K.NTT, "app_whir_codeword", fwd, pfwd, (4, 1 << 22), ntt_work, None),
         (K.NTT_RECURSIVE, "leaf_rs_encode", fwd, pfwd, (2, 1 << 27), ntt_work, None),
         (K.NTT_RECURSIVE, "leaf_rs_encode_inverse", inv, pinv, (2, 1 << 27), ntt_work, None),
-        (K.HASH_COLS, "leaf_codeword_hash", *hash_, (2, 1 << 27), hash_work, 1 << 24),
-        (K.HASH_COLS, "leaf_whir_hash", *hash_, (4, 1 << 26), hash_work, 1 << 24),
+        (K.HASH_COLS, "leaf_codeword_hash", *hash_, (2, 1 << 27), hash_work, (1 << 24, _cols)),
+        (K.HASH_COLS, "leaf_whir_hash", *hash_, (1, 1 << 26, 4), hash_work, (1 << 24, _cols)),
         (K.HASH_COLS, "app_codeword_hash", *hash_, (16, 1 << 23), hash_work, None),
-        (K.HASH_COLS, "app_whir_hash", *hash_, (4, 1 << 22), hash_work, None),
-        (K.COMPRESS, "leaf_strided_level", *compress, (16, 1 << 26), compress_work, 1 << 23),
-        (K.COMPRESS, "app_strided_level", *compress, (16, 1 << 22), compress_work, None),
+        (K.HASH_COLS, "app_whir_hash", *hash_, (1, 1 << 22, 4), hash_work, None),
+        (K.COMPRESS, "leaf_strided_level", *layer(1 << 23), (8, 1 << 27), layer_work,
+         (1 << 23, _layer_cols(1 << 23))),
+        (K.COMPRESS, "leaf_tower_level", *layer(1), (8, 1 << 23), layer_work, None),
+        (K.COMPRESS, "app_strided_level", *layer(1 << 19), (8, 1 << 23), layer_work, None),
+        (K.COMPRESS, "app_pairs_form", p2.compress_cols, p2.compress_cols_plain, (16, 1 << 22),
+         compress_work, None),
         (K.TOWER, "tower_8192", p2.compress_tower, p2.merkle_tower_plain, (8, 8192), tower_work, None),
     ]
 
@@ -203,17 +242,18 @@ def check_kernels(device) -> dict:
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
     results = {}
-    for kernel, label, fk, fp, shape, work, cols in kernel_cases():
+    for kernel, label, fk, fp, shape, work, slices in kernel_cases():
         x = torch.randint(0, P, shape, generator=gen, device=device, dtype=torch.int64)
         got = fk(x)
-        if cols is None:
+        if slices is None:
             err = _max_abs_err(got, fp(x))
             plain_ms = _cuda_time_ms(lambda: fp(x), reps=2)
             how = ""
         else:
             err, plain_ms = 0, 0.0
-            for c in range(0, shape[1], cols):
-                want, ms = _timed_ms(lambda: fp(x[:, c : c + cols].contiguous()))
+            cols, part = slices
+            for c in range(0, got.shape[1], cols):
+                want, ms = _timed_ms(lambda: fp(part(x, c, cols).contiguous()))
                 err = max(err, _max_abs_err(got[:, c : c + cols], want))
                 plain_ms += ms
                 del want
@@ -343,7 +383,7 @@ def report(tag: str, run: dict, required) -> None:
     _say(f"{tag}: peak device memory {run['peak_bytes']} B, proof {run['proof_bytes']} B, codec round trip ok")
     _say(f"{tag}: kernel launches {run['launches']}")
     for name, shapes in sorted(run["shapes"].items()):
-        _say(f"{tag}: {name} input shapes {sorted(shapes, key=lambda s: -s[0] * s[1])}")
+        _say(f"{tag}: {name} input shapes {sorted(shapes, key=lambda s: -math.prod(s))}")
     missing = [name for name in required if run["launches"][name] == 0]
     if missing:
         raise AssertionError(f"{tag}: the path never launched {missing}")
@@ -372,9 +412,8 @@ def main() -> int:
     t0 = time.perf_counter()
     K.LIB.get()
     _say(f"build: {time.perf_counter() - t0:.2f} s ({K.LIB.path})")
-    for line in K.LIB.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            _say(f"build: {line.strip()}")
+    for line in K.ptxas_summary(K.LIB.build_log):
+        _say(f"build: {line}")
     _say(f"native host library loaded: {native.available()}")
 
     results = check_kernels(device)

@@ -76,6 +76,18 @@ def launch_counts() -> dict:
     return {k.name: k.launches for k in KERNELS}
 
 
+def ptxas_summary(log: str) -> list:
+    """``name: registers ..., spills ...`` for each entry function in the
+    output of ``nvcc -Xptxas -v``."""
+    out, name = [], "?"
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "registers" in line or "spill" in line:
+            out.append(f"{name}: {line.split(':', 1)[-1].strip()}")
+    return out
+
+
 class KernelError(RuntimeError):
     """A kernel failed to build, was refused at launch, or faulted."""
 
@@ -126,9 +138,9 @@ class _Library:
                 vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
                 sigs = {
                     "swirl_ntt": [vp, vp, vp, vp, i64, i32, vp, vp],
-                    "swirl_p2_set_constants": [vp, vp, vp, vp],
-                    "swirl_p2_hash_cols": [vp, vp, i32, i64, vp],
-                    "swirl_p2_compress": [vp, vp, i64, vp],
+                    "swirl_p2_set_constants": [vp, vp, vp],
+                    "swirl_p2_hash_cols": [vp, vp, i32, i64, i32, vp],
+                    "swirl_p2_compress": [vp, vp, i64, i64, i32, i64, vp],
                     "swirl_p2_tower": [vp, vp, i32, vp],
                 }
                 for name, args in sigs.items():
@@ -162,9 +174,11 @@ def check(rc: int) -> None:
         raise KernelError(f"CUDA error {rc}: {msg}")
 
 
-def require(t: torch.Tensor, ndim: int, what: str) -> None:
-    """Validate a kernel operand: CUDA, int64, contiguous, ``ndim`` dims."""
-    if not t.is_cuda or t.dtype != torch.int64 or not t.is_contiguous() or t.dim() != ndim:
+def require(t: torch.Tensor, ndim, what: str) -> None:
+    """Validate a kernel operand: CUDA, int64, contiguous, ``ndim`` dims
+    (an int or a tuple of the dims allowed)."""
+    dims = ndim if isinstance(ndim, tuple) else (ndim,)
+    if not t.is_cuda or t.dtype != torch.int64 or not t.is_contiguous() or t.dim() not in dims:
         raise KernelError(
             f"{what}: expected a contiguous {ndim}-d int64 CUDA tensor, got "
             f"{t.dtype} {tuple(t.shape)} on {t.device} "
@@ -179,7 +193,7 @@ def _upload_poseidon2_constants(lib) -> None:
     r = np.uint64((1 << 32) % P)
     mont = [
         np.ascontiguousarray((np.asarray(c, np.uint64) * r) % np.uint64(P), dtype=np.uint32)
-        for c in constants()
+        for c in constants()[:3]  # the kernels hold the diagonal in their code
     ]
     rc = lib.swirl_p2_set_constants(*[m.ctypes.data for m in mont])
     if rc != 0:

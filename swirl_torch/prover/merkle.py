@@ -2,7 +2,8 @@
 
 Peer of ``swirl/prover/merkle.py``. Rows of a (width, height[, 4]) codeword
 matrix are leaf-hashed (one column of the matrix per leaf, EF coefficients
-flattened so that hash input row = column * 4 + coefficient); the first
+flattened so that hash input row = column * 4 + coefficient, read in place
+by kernel B); the first
 log2(rows_per_query) levels pair leaves at stride ``height /
 rows_per_query`` so one query index opens that many coset-aligned rows with
 one path, and ``layers[0]`` is the layer after those strided levels. Query
@@ -49,15 +50,6 @@ class MerkleTree:
         return [[lvl[qi] for lvl in per_level] for qi in range(len(cur))]
 
 
-def _leaf_hashes(matrix, ext: bool):
-    if ext:
-        w, h, d = matrix.shape
-        cols = matrix.permute(0, 2, 1).reshape(w * d, h)
-    else:
-        cols = matrix
-    return p2.hash_cols(cols.contiguous())
-
-
 def build_merkle_tree(matrix, rows_per_query: int, ext: bool = False) -> MerkleTree:
     height = int(matrix.shape[1])
     if height <= 0 or height & (height - 1) != 0:
@@ -70,17 +62,14 @@ def build_merkle_tree(matrix, rows_per_query: int, ext: bool = False) -> MerkleT
         raise StackedPcsError(
             f"MerkleTree: rows_per_query ({rows_per_query}) exceeds leaves ({height})"
         )
-    cur = _leaf_hashes(matrix, ext)
+    if ext != (matrix.dim() == 3):
+        raise StackedPcsError(f"MerkleTree: ext={ext} does not fit a {matrix.dim()}-d matrix")
+    # an EF (w, h, 4) matrix is hashed in place, hash input row c * 4 + d
+    cur = p2.hash_cols(matrix.contiguous())
     query_stride = height // rows_per_query
-    n = height
-    while n > query_stride:
-        half = n // 2
-        grouped = cur.reshape(8, half // query_stride, 2, query_stride)
-        pairs = torch.cat(
-            [grouped[:, :, 0].reshape(8, half), grouped[:, :, 1].reshape(8, half)]
-        )
-        cur = p2.compress_cols(pairs)
-        n = half
+    # the strided levels pair columns query_stride apart, read in place
+    while cur.shape[1] > query_stride:
+        cur = p2.compress_layer(cur, query_stride)
     return MerkleTree(layers=[cur] + p2.merkle_tower(cur), rows_per_query=rows_per_query)
 
 

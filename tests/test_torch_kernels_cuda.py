@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 over edge shapes (every NTT size from 2 points to the four-step split,
-A′ at 2^27, sponge widths that are not multiples of 8, tower sizes). Skips without a
+A′ at 2^27, sponge widths that are not multiples of 8, extension-field
+codewords hashed in place, digest layers compressed in place at every kind
+of pairing stride, the extreme field values, tower sizes). Skips without a
 card. This file imports no jax, so on a machine without jax run it with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
@@ -74,6 +76,33 @@ def test_compress_kernel_matches_plain(rand):
     assert torch.equal(p2.compress_cols(x), p2.compress_cols_plain(x))
 
 
+@pytest.mark.parametrize("n,stride", [(2000, 1), (2000, 2), (2000, 8), (5 << 13, 1 << 12), (1 << 13, 1 << 12)])
+def test_compress_layer_kernel_matches_plain(rand, n, stride):
+    """In place, at strides 1, 2, 2^k and n/2; 1000 outputs is not a
+    multiple of the block."""
+    x = rand(8, n)
+    before = K.COMPRESS.launches
+    assert torch.equal(p2.compress_layer(x, stride), p2.compress_layer_plain(x, stride))
+    assert K.COMPRESS.launches == before + 1
+
+
+@pytest.mark.parametrize("w", [1, 2, 5])
+def test_hash_cols_kernel_reads_ext_matrix_in_place(rand, w):
+    x = rand(w, 1000, 4)
+    want = p2.hash_cols_plain(x.permute(0, 2, 1).reshape(4 * w, 1000))
+    assert torch.equal(p2.hash_cols(x), want)
+
+
+@pytest.mark.parametrize("value", [0, P - 1])
+def test_poseidon2_kernels_on_extreme_values(rand, value):
+    dev = rand(1).device
+    full = lambda *shape: torch.full(shape, value, dtype=torch.int64, device=dev)  # noqa: E731
+    for x in (full(16, 300), full(3, 300), full(2, 300, 4)):
+        assert torch.equal(p2.hash_cols(x), p2.hash_cols_plain(x))
+    assert torch.equal(p2.compress_cols(full(16, 300)), p2.compress_cols_plain(full(16, 300)))
+    assert torch.equal(p2.compress_layer(full(8, 512), 4), p2.compress_layer_plain(full(8, 512), 4))
+
+
 @pytest.mark.parametrize("log_n", [1, 2, 9, 13, 15])
 def test_merkle_tower_kernels_match_plain(rand, log_n):
     x = rand(8, 1 << log_n)
@@ -87,5 +116,9 @@ def test_kernels_refuse_bad_operands(rand):
         p2.hash_cols(rand(4, 8).to(torch.int32))
     with pytest.raises(K.KernelError):
         p2.compress_cols(rand(8, 8))
+    with pytest.raises(K.KernelError):
+        p2.compress_layer(rand(8, 12), 4)
+    with pytest.raises(K.KernelError):
+        p2.hash_cols(rand(2, 8, 3))
     with pytest.raises(ValueError):
         ntt.ntt_rows(rand(2, 12))

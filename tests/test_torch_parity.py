@@ -90,6 +90,43 @@ def test_permute_matches_numpy():
     assert np.array_equal(F.to_host(tp2.permute_plain(_t(s))), permute_np(s))
 
 
+# permute_model follows csrc/poseidon2.cu step for step (the diagonal by
+# halvings and the 2^-k shift form, the tree sum, lazy products) and asserts
+# every bound the kernel relies on; the card cannot run here.
+DIAG_SHIFTS = (1, 2, 3, 4, 8, 27)
+
+
+def _edge_values():
+    """0, P - 1, and 2^k - 1, 2^k, 2^k + 1 for each shift k of the diagonal."""
+    vals = {0, 1, P - 2, P - 1}
+    for k in DIAG_SHIFTS:
+        vals |= {(1 << k) - 1, 1 << k, (1 << k) + 1}
+    return np.array(sorted(v % P for v in vals), dtype=U64)
+
+
+def _model_states():
+    edges = _edge_values()
+    states = [_rand(np.random.default_rng(21), (40, 16)), np.zeros((1, 16), U64), np.full((1, 16), P - 1, U64)]
+    states.append(np.stack([np.full(16, v, U64) for v in edges]))  # every lane at one edge value
+    states.append(np.stack([np.roll(np.resize(edges, 16), i) for i in range(len(edges))]))  # mixed lanes
+    return np.concatenate(states)
+
+
+def test_permute_model_matches_plain_and_numpy():
+    s = _model_states()
+    got = F.to_host(tp2.permute_model(_t(s)))
+    assert np.array_equal(got, F.to_host(tp2.permute_plain(_t(s))))
+    assert np.array_equal(got, permute_np(s))
+
+
+@pytest.mark.parametrize("k", DIAG_SHIFTS)
+def test_div2k_model_matches_field_mul(k):
+    x = np.concatenate([_edge_values(), _rand(np.random.default_rng(k), (500,))])
+    inv = pow(2, (P - 1 - k) % (P - 1), P)  # 2^-k
+    want = F.to_host(F.mul(_t(x), _t(np.full_like(x, inv))))
+    assert np.array_equal(F.to_host(tp2.div2k_model(_t(x), k)), want)
+
+
 @pytest.mark.parametrize("w", [1, 3, 8, 13, 16, 20])
 def test_hash_cols_matches_sponge(w):
     """Widths that are not multiples of 8 keep the unabsorbed lanes."""
