@@ -164,13 +164,13 @@ def kernel_cases():
     """(kernel, label, kernel fn, plain fn, input shape, work, plain slice)
     at the main paths' shapes, each through the entry the path calls. The
     first case of each kernel is the one the ``kernels`` line reports: the
-    leaf path's largest. Leaf: the RS encode (A′), the first WHIR codeword,
-    the chunk iDFTs (the app's shape too), the hash of the 2^27-row
+    leaf path's largest. Leaf: the RS encode (A′), the three WHIR
+    codewords, the chunk iDFTs (the app's shape too), the hash of the 2^27-row
     codeword (w = 2: a partial absorb) and of the first WHIR codeword read
     in place as (1, 2^26, 4), the first strided compress level read in place
     from the (8, 2^27) leaf digests at the query stride 2^23 (the work of
     (16, 2^26) pairs), a level above the tower (stride 1), the tower. App:
-    the RS encode, its WHIR codeword, its leaf hashes, its first strided
+    the RS encode, its first two WHIR codewords, its leaf hashes, its first strided
     level (stride 2^19) and the (16, n) pairs form of ``compress_cols``.
     ``plain slice`` is None where the plain version takes the whole input,
     else (columns of the output it takes at a time, the input columns of
@@ -188,9 +188,12 @@ def kernel_cases():
 
     return [
         (K.NTT, "leaf_whir_codeword", fwd, pfwd, (4, 1 << 26), ntt_work, None),
+        (K.NTT, "leaf_whir_codeword_2", fwd, pfwd, (4, 1 << 25), ntt_work, None),
+        (K.NTT, "leaf_whir_codeword_3", fwd, pfwd, (4, 1 << 24), ntt_work, None),
         (K.NTT, "chunk_idft", inv, pinv, (1 << 22, 16), ntt_work, None),
         (K.NTT, "app_rs_encode", fwd, pfwd, (16, 1 << 23), ntt_work, None),
         (K.NTT, "app_whir_codeword", fwd, pfwd, (4, 1 << 22), ntt_work, None),
+        (K.NTT, "app_whir_codeword_2", fwd, pfwd, (4, 1 << 21), ntt_work, None),
         (K.NTT_RECURSIVE, "leaf_rs_encode", fwd, pfwd, (2, 1 << 27), ntt_work, None),
         (K.NTT_RECURSIVE, "leaf_rs_encode_inverse", inv, pinv, (2, 1 << 27), ntt_work, None),
         (K.HASH_COLS, "leaf_codeword_hash", *hash_, (2, 1 << 27), hash_work, (1 << 24, _cols)),

@@ -42,42 +42,16 @@ constexpr int PARTIAL = 13;
 constexpr int TOWER_MAX = 8192;
 
 constexpr uint32_t P = bb::P;
-constexpr uint32_t MU = 0x88000001u;  // P^-1 mod 2^32 (= 1 + 2^27 + 2^31)
+constexpr uint32_t MU = bb::fast::MU;
 
 __constant__ uint32_t c_ext_init[HALF_FULL][WIDTH];
 __constant__ uint32_t c_internal[PARTIAL];
 __constant__ uint32_t c_ext_final[HALF_FULL][WIDTH];
 
-// a + b mod P for a, b < P: s < 2P < 2^32, and the unsigned min of s and
-// s - P (which wraps above 2^32 - P when s < P) is s mod P.
-__device__ __forceinline__ uint32_t add(uint32_t a, uint32_t b) {
-  const uint32_t s = a + b;
-  return min(s, s - P);
-}
-
-// a - b mod P for a, b < P: d = a - b wraps above 2^32 - P when a < b,
-// and then d + P < P is the smaller.
-__device__ __forceinline__ uint32_t sub(uint32_t a, uint32_t b) {
-  const uint32_t d = a - b;
-  return min(d, d + P);
-}
-
-// Montgomery product a * b / 2^32 mod P, left in (0, 2P), for a * b <
-// P * 2^32 (a < 2^32 and b < P suffice). q = lo(t) * P^-1 makes t and q * P
-// agree in their low words, so (t - q * P) / 2^32 = hi(t) - hi(q * P)
-// exactly, with hi(t) < P (t < P * 2^32) and hi(q * P) < P (q < 2^32): in
-// (-P, P), and + P puts it in (0, 2P).
-__device__ __forceinline__ uint32_t mont_lazy(uint32_t a, uint32_t b) {
-  const uint64_t t = (uint64_t)a * b;
-  const uint32_t h = __umulhi((uint32_t)t * MU, P);
-  return (uint32_t)(t >> 32) - h + P;
-}
-
-// The same, reduced: r < 2P, so min(r, r - P) is r mod P.
-__device__ __forceinline__ uint32_t mont(uint32_t a, uint32_t b) {
-  const uint32_t r = mont_lazy(a, b);
-  return min(r, r - P);
-}
+using bb::fast::add;
+using bb::fast::mont;
+using bb::fast::mont_lazy;
+using bb::fast::sub;
 
 __device__ __forceinline__ uint32_t to_mont(uint32_t a) { return mont(a, bb::R2); }
 

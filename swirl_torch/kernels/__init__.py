@@ -137,7 +137,7 @@ class _Library:
                 lib = ctypes.CDLL(self.path)
                 vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
                 sigs = {
-                    "swirl_ntt": [vp, vp, vp, vp, i64, i32, vp, vp],
+                    "swirl_ntt": [vp, vp, vp, i64, i32, vp, vp],
                     "swirl_p2_set_constants": [vp, vp, vp],
                     "swirl_p2_hash_cols": [vp, vp, i32, i64, i32, vp],
                     "swirl_p2_compress": [vp, vp, i64, i64, i32, i64, vp],

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 over edge shapes (every NTT size from 2 points to the four-step split,
-A′ at 2^27, sponge widths that are not multiples of 8, extension-field
+every four-step strip shape from 2^19 to 2^26 at batch 1 and 3, A′ at
+2^27, sponge widths that are not multiples of 8, extension-field
 codewords hashed in place, digest layers compressed in place at every kind
 of pairing stride, the extreme field values, tower sizes). Skips without a
 card. This file imports no jax, so on a machine without jax run it with
@@ -37,6 +38,31 @@ def test_ntt_kernel_matches_plain(rand, batch, log_n, inverse):
     before = K.NTT.launches
     assert torch.equal(ntt.ntt_rows(x, inverse), ntt.ntt_plain(x, inverse))
     assert K.NTT.launches == before + 1
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("log_n", range(19, 27))
+def test_ntt_two_pass_kernel_matches_plain(rand, batch, log_n, inverse):
+    """The four-step passes at every strip shape of the path's splits."""
+    x = rand(batch, 1 << log_n)
+    assert torch.equal(ntt.ntt_rows(x, inverse), ntt.ntt_plain(x, inverse))
+
+
+def test_ntt_two_pass_kernel_on_the_largest_values(rand):
+    x = torch.full((2, 1 << 26), P - 1, dtype=torch.int64, device=rand(1).device)
+    for inverse in (False, True):
+        assert torch.equal(ntt.ntt_rows(x, inverse), ntt.ntt_plain(x, inverse))
+
+
+def test_ntt_kernel_takes_an_unaligned_view(rand):
+    """Rows that start 8 bytes past a 16-byte boundary (the passes read
+    16-byte vectors) and a strided view are transformed all the same."""
+    base = rand(2 * (1 << 16) + 1)
+    x = base[1:].view(2, 1 << 16)
+    assert torch.equal(ntt.ntt_rows(x), ntt.ntt_plain(x))
+    y = rand(3, 1 << 15)[::2]
+    assert torch.equal(ntt.ntt(y), ntt.ntt_plain(y.contiguous()))
 
 
 @pytest.mark.parametrize("inverse", [False, True])
