@@ -13,7 +13,14 @@ Phases, each printing its result on lines of its own:
    version at the shapes of both main paths, bit for bit, with both times
    and the least time the card could take for the same work (where the
    plain version cannot hold the whole input, it takes it in column
-   slices and is held to the same slices of the kernel's output);
+   slices and is held to the same slices of the kernel's output). A
+   kernel's time is the mean of 10 back-to-back calls by CUDA events,
+   except where the kernel may run faster than the Python that enqueues
+   it (``GRAPH_TIMED``: the tower, the 16-point coset NTT): there it is the
+   device's own clock, a CUDA graph of 10 calls replayed between two
+   events. The tower is also timed so at every n from 2 to 8192: its time
+   at n = 2 is one permutation's (t_perm), and 13 t_perm is the chain
+   floor of its 13 dependent levels at n = 8192;
 3. golden: the four golden proofs proved through the port on the card,
    byte for byte against ``tests/golden`` (vk, proof, transcript log);
 4. app: keygen + prove of the 2^20 x 64 ``SyntheticAir`` cell (degree 3)
@@ -102,6 +109,33 @@ def _cuda_time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _graph_time_ms(fn, reps: int) -> float:
+    """Device ms of one call of ``fn``: ``reps`` calls captured in a CUDA
+    graph on a side stream (after a call there that fills the wrappers'
+    caches for that stream), replayed once to warm up, then once between
+    two CUDA events."""
+    import torch
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    stream.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def ntt_work(shape):
     """(bytes, (multiplies, others)) of a (batch, N) int64 NTT: one read and
     one write per element, N/2 log N butterflies per row."""
@@ -165,7 +199,8 @@ def kernel_cases():
     at the main paths' shapes, each through the entry the path calls. The
     first case of each kernel is the one the ``kernels`` line reports: the
     leaf path's largest. Leaf: the RS encode (A′), the three WHIR
-    codewords, the chunk iDFTs (the app's shape too), the hash of the 2^27-row
+    codewords, the chunk iDFTs (the app's shape too), the 16-point
+    transforms of the univariate-skip coset grid (both paths), the hash of the 2^27-row
     codeword (w = 2: a partial absorb) and of the first WHIR codeword read
     in place as (1, 2^26, 4), the first strided compress level read in place
     from the (8, 2^27) leaf digests at the query stride 2^23 (the work of
@@ -191,6 +226,7 @@ def kernel_cases():
         (K.NTT, "leaf_whir_codeword_2", fwd, pfwd, (4, 1 << 25), ntt_work, None),
         (K.NTT, "leaf_whir_codeword_3", fwd, pfwd, (4, 1 << 24), ntt_work, None),
         (K.NTT, "chunk_idft", inv, pinv, (1 << 22, 16), ntt_work, None),
+        (K.NTT, "coset_chunks", fwd, pfwd, (196608, 16), ntt_work, None),
         (K.NTT, "app_rs_encode", fwd, pfwd, (16, 1 << 23), ntt_work, None),
         (K.NTT, "app_whir_codeword", fwd, pfwd, (4, 1 << 22), ntt_work, None),
         (K.NTT, "app_whir_codeword_2", fwd, pfwd, (4, 1 << 21), ntt_work, None),
@@ -208,6 +244,26 @@ def kernel_cases():
          compress_work, None),
         (K.TOWER, "tower_8192", p2.compress_tower, p2.merkle_tower_plain, (8, 8192), tower_work, None),
     ]
+
+
+# cases that may run faster than the Python that enqueues them
+GRAPH_TIMED = ("coset_chunks", "tower_8192")
+TOWER_LOG_MAX = 13  # log2 of TOWER_MAX, the tower's widest layer
+
+
+def tower_profile(gen, device) -> dict:
+    """{log n: device ms of the tower on a random (8, 2^log n) layer} for
+    log n = 1 .. 13, by CUDA graph replay."""
+    import torch
+
+    from swirl_torch.fields.babybear import P
+    from swirl_torch.hash import poseidon2 as p2
+
+    prof = {}
+    for log_n in range(1, TOWER_LOG_MAX + 1):
+        x = torch.randint(0, P, (8, 1 << log_n), generator=gen, device=device, dtype=torch.int64)
+        prof[log_n] = _graph_time_ms(lambda: p2.compress_tower(x), reps=10)
+    return prof
 
 
 def _timed_ms(fn):
@@ -239,11 +295,16 @@ def check_kernels(device) -> dict:
     for bit; returns the results of each kernel's first case."""
     import torch
 
+    from swirl_torch import kernels as K
     from swirl_torch.fields.babybear import P
     from swirl_torch.prover import ntt
 
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
+    prof = tower_profile(gen, device)
+    t_perm, floor_ms = prof[1], TOWER_LOG_MAX * prof[1]
+    _say("kernel merkle_tower device ms by n: "
+         + " ".join(f"2^{k}={ms:.4f}" for k, ms in prof.items()))
     results = {}
     for kernel, label, fk, fp, shape, work, slices in kernel_cases():
         x = torch.randint(0, P, shape, generator=gen, device=device, dtype=torch.int64)
@@ -265,6 +326,13 @@ def check_kernels(device) -> dict:
             raise AssertionError(f"kernel {kernel.name} [{label}] {shape}: max_abs_err {err}")
         del got
         ms = _cuda_time_ms(lambda: fk(x), reps=10)
+        extra = {}
+        if label in GRAPH_TIMED:
+            how += f" (ms by CUDA graph replay; by events {ms:.4f})"
+            ms = _graph_time_ms(lambda: fk(x), reps=10)
+        if kernel is K.TOWER:
+            how += f" t_perm_ms={t_perm:.4f} floor_ms={floor_ms:.4f} ({TOWER_LOG_MAX} t_perm)"
+            extra["floor_ms"] = floor_ms
         bound_ms, bound_by = bound(work(shape))
         _say(
             f"kernel {kernel.name} [{label}] shape={shape} equal=True "
@@ -275,7 +343,7 @@ def check_kernels(device) -> dict:
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             # no PyTorch call computes a BabyBear NTT or Poseidon2
-            "library_ms": None,
+            "library_ms": None, **extra,
         })
         del x
         torch.cuda.empty_cache()

@@ -7,8 +7,9 @@
 // C  compress     replaces _compress_kernel (:259) via compress_cols (:318):
 //                 one permutation of concat(left, right) per pair, truncated;
 //                 the pairs are read in place from a digest layer.
-// D  tower        replaces _tower_kernel (:327) via compress_tower (:408):
-//                 every level from <= 8192 digests to the root in one launch.
+// D  tower        replaces _tower_kernel (:327) via _tower_fn (:365) /
+//                 compress_tower (:408): every level from <= 8192 digests
+//                 to the root in one launch, subtrees spread over the SMs.
 //
 // What bounds it on the H100: the multiply pipe. A Montgomery product
 // needs the high halves of two 32x32-bit products (IMAD.WIDE, IMAD.HI),
@@ -25,11 +26,30 @@
 // predicate). The TPU kernel carried the sponge state across grid steps
 // of its absorb axis; here the absorb is a loop inside the thread. Inputs
 // and outputs are the port's canonical int64 tensors; the state runs in
-// Montgomery form between the conversion at load and at store. The tower
-// is one block that walks the levels in shared memory (ping-pong buffers)
-// and writes every level out, because query proofs open all of them; the
-// first level is read from global memory, so 8192 input digests need only
-// 24 * 8192 bytes of shared memory.
+// Montgomery form between the conversion at load and at store.
+//
+// D is a chain: its log2(n) levels depend on each other, and a level of
+// up to 32 permutations costs one warp's issue time for a permutation
+// (t_warp, some 10,000 clocks by B's rate: 32 permutations at 4 x 78 clocks
+// of one SM sub-partition), however few lanes are busy. So D is bound by
+// the number of levels that cost t_warp each, not by the card's rate. The
+// TPU kernel walked every level on one core; here G = n / 256 blocks (32 at
+// n = 8192) each fold a subtree of 256 digests in shared memory (128
+// threads, one warp on each sub-partition: level 1's 128 permutations cost
+// one t_warp), writing every level's slice out as they go, and the block
+// that draws the last ticket folds the G roots down to the root ("last
+// block done": each block fences its root and takes a ticket with
+// atomicAdd on a counter that the wrapper allocates once per device and
+// stream; the last block resets it). That is log2(n) levels of one t_warp
+// each, the least for one thread a permutation. A cluster would need no
+// counter, but holds at most 16 SMs: level 1's 4096 permutations at
+// n = 8192 would put 2 warps on each sub-partition, one t_warp more.
+// Fewer digests a block (more blocks) would add top levels with no gain;
+// more would put 2 warps on a sub-partition at level 1. In shared memory
+// a level of m digests keeps, in each of its 8 lane rows, the even digests
+// at [0, m/2) and the odd ones from m/2 + pad (pad 16 from m = 64 up): the
+// next level reads its pairs at consecutive words, and the stores of a warp
+// fall in 32 distinct banks.
 #include "field.cuh"
 
 namespace {
@@ -40,6 +60,8 @@ constexpr int RATE = 8;
 constexpr int HALF_FULL = 4;
 constexpr int PARTIAL = 13;
 constexpr int TOWER_MAX = 8192;
+constexpr int TOWER_BLOCK = 256;                 // digests a block folds
+constexpr int TOWER_ROW = TOWER_BLOCK / 2 + 16;  // shared words of a lane row of a level
 
 constexpr uint32_t P = bb::P;
 constexpr uint32_t MU = bb::fast::MU;
@@ -210,40 +232,77 @@ __global__ void __launch_bounds__(128) compress_kernel(const int64_t* __restrict
   for (int j = 0; j < DIGEST; ++j) out[j * m + o] = from_mont(s[j]);
 }
 
-// in: (8, n) digests, n a power of two in [2, TOWER_MAX]. out: level l
-// (n >> l digests, l = 1..log n) as an (8, n >> l) block at offset
-// 8 * (n - 2 * (n >> l)). Shared: two Montgomery ping-pong buffers of
-// n/2 and n/4 digests, lane-major.
-__global__ void tower_kernel(const int64_t* __restrict__ in, int64_t* __restrict__ out, int n) {
-  extern __shared__ uint32_t smem[];
-  uint32_t* buf[2] = {smem, smem + DIGEST * (n / 2)};
-  const uint32_t* prev = nullptr;
-  int level = 0;
-  for (int m = n / 2; m >= 1; m /= 2, ++level) {
-    uint32_t* dst = buf[level & 1];
-    int64_t* gout = out + (long long)DIGEST * (n - 2 * m);
-    for (int i = threadIdx.x; i < m; i += blockDim.x) {
+// A level of m digests in shared memory: digest k at this word of each
+// lane row (evens first, odds after a pad that keeps a warp's stores on
+// 32 banks).
+__device__ __forceinline__ int tower_pad(int m) { return m >= 64 ? 16 : 0; }
+__device__ __forceinline__ int tower_slot(int k, int m) {
+  return (k & 1) * (m / 2 + tower_pad(m)) + (k >> 1);
+}
+
+// Folds `count` digests (a power of two, 2 to TOWER_BLOCK) of an (8, width)
+// canonical layer, from column part * count, down to one. Level l of the
+// fold (m = count >> l digests) is written out as columns [part * m,
+// (part + 1) * m) of the tower's level of width >> l, at flat offset
+// 8 * (n - 2 * (width >> l)). The layer is read through L2 (ld.global.cg):
+// the top fold reads roots that other blocks wrote.
+__device__ __forceinline__ void tower_fold(const int64_t* src, int width, int part, int count,
+                                           int64_t* out, int n,
+                                           uint32_t (*buf)[DIGEST][TOWER_ROW]) {
+  const int i = threadIdx.x;
+  for (int l = 1, m = count / 2; m >= 1; ++l, m /= 2) {
+    if (i < m) {
       uint32_t s[WIDTH];
+      if (l == 1) {
+        const long long* p = reinterpret_cast<const long long*>(src) + (long long)part * count + 2 * i;
 #pragma unroll
-      for (int j = 0; j < DIGEST; ++j) {
-        if (prev == nullptr) {
-          s[j] = to_mont((uint32_t)in[j * n + 2 * i]);
-          s[DIGEST + j] = to_mont((uint32_t)in[j * n + 2 * i + 1]);
-        } else {
-          s[j] = prev[j * (2 * m) + 2 * i];
-          s[DIGEST + j] = prev[j * (2 * m) + 2 * i + 1];
+        for (int j = 0; j < DIGEST; ++j) {
+          s[j] = to_mont((uint32_t)__ldcg(p + (long long)j * width));
+          s[DIGEST + j] = to_mont((uint32_t)__ldcg(p + (long long)j * width + 1));
+        }
+      } else {
+        const int right = m + tower_pad(2 * m) + i;  // tower_slot(2i + 1, 2m)
+#pragma unroll
+        for (int j = 0; j < DIGEST; ++j) {
+          s[j] = buf[(l - 1) & 1][j][i];
+          s[DIGEST + j] = buf[(l - 1) & 1][j][right];
         }
       }
       permute(s);
+      const int w = width >> l;
+      int64_t* g = out + (long long)DIGEST * (n - 2 * w) + (long long)part * m + i;
+      const int k = tower_slot(i, m);
 #pragma unroll
       for (int j = 0; j < DIGEST; ++j) {
-        dst[j * m + i] = s[j];
-        gout[j * m + i] = from_mont(s[j]);
+        buf[l & 1][j][k] = s[j];
+        g[(long long)j * w] = from_mont(s[j]);
       }
     }
     __syncthreads();
-    prev = dst;
   }
+}
+
+// in: (8, n) digests, n a power of two in [2, TOWER_MAX]. out: level l
+// (n >> l digests, l = 1..log n) as an (8, n >> l) block at offset
+// 8 * (n - 2 * (n >> l)). Grid: n / count blocks of count / 2 threads,
+// count = min(n, TOWER_BLOCK). tickets: a zero counter, left zero.
+__global__ void __launch_bounds__(TOWER_BLOCK / 2) tower_kernel(const int64_t* __restrict__ in,
+                                                                int64_t* out, int n,
+                                                                unsigned* tickets) {
+  __shared__ uint32_t buf[2][DIGEST][TOWER_ROW];
+  __shared__ bool last;
+  const int g = gridDim.x;
+  tower_fold(in, n, blockIdx.x, n / g, out, n, buf);
+  if (g == 1) return;
+  if (threadIdx.x == 0) {
+    __threadfence();  // this thread's root, visible before its ticket
+    last = atomicAdd(tickets, 1u) == (unsigned)g - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  if (threadIdx.x == 0) *tickets = 0;
+  tower_fold(out + (long long)DIGEST * (n - 2 * g), g, 0, g, out, n, buf);
 }
 
 }  // namespace
@@ -276,11 +335,10 @@ extern "C" int swirl_p2_compress(const int64_t* in, int64_t* out, long long m, l
   return (int)cudaGetLastError();
 }
 
-extern "C" int swirl_p2_tower(const int64_t* in, int64_t* out, int n, void* stream) {
+extern "C" int swirl_p2_tower(const int64_t* in, int64_t* out, int n, unsigned* tickets,
+                              void* stream) {
   if (n < 2 || n > TOWER_MAX || (n & (n - 1)) != 0) return (int)cudaErrorInvalidValue;
-  const int smem = (int)sizeof(uint32_t) * DIGEST * (n / 2 + n / 4);
-  cudaFuncSetAttribute(tower_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  const int threads = n / 2 < 1024 ? n / 2 : 1024;
-  tower_kernel<<<1, threads, smem, (cudaStream_t)stream>>>(in, out, n);
+  const int count = n < TOWER_BLOCK ? n : TOWER_BLOCK;
+  tower_kernel<<<n / count, count / 2, 0, (cudaStream_t)stream>>>(in, out, n, tickets);
   return (int)cudaGetLastError();
 }

@@ -482,6 +482,29 @@ def compress_layer(layer, stride: int):
     return _compress_launch(layer, out, n // 2, n, stride.bit_length() - 1, stride)
 
 
+# the tower's ticket counters, one a (device index, stream): zero between launches
+_TICKETS = {}
+
+
+def _tower_tickets(device):
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _TICKETS[key]
+
+
+def _tower_layers(flat, n: int) -> list:
+    """The (8, m) views of every level, m = n/2 down to 1, of the flat
+    tower output: level m at offset 8 * (n - 2m)."""
+    layers = []
+    m = n // 2
+    while m >= 1:
+        off = DIGEST * (n - 2 * m)
+        layers.append(flat[off : off + DIGEST * m].view(DIGEST, m))
+        m //= 2
+    return layers
+
+
 def compress_tower(digests) -> list:
     """Kernel D: every layer above a (8, n) layer, 2 <= n <= TOWER_MAX a power
     of two, down to the (8, 1) root, in one launch."""
@@ -492,14 +515,131 @@ def compress_tower(digests) -> list:
     if digests.shape[0] != DIGEST or not 2 <= n <= TOWER_MAX or n & (n - 1):
         raise K.KernelError(f"compress_tower: unsupported shape {tuple(digests.shape)}")
     flat = torch.empty(DIGEST * (n - 1), dtype=F.DTYPE, device=digests.device)
-    K.LIB.launch(K.TOWER, "swirl_p2_tower", digests, digests.data_ptr(), flat.data_ptr(), n)
-    layers = []
-    m = n // 2
+    tickets = _tower_tickets(digests.device)
+    K.LIB.launch(K.TOWER, "swirl_p2_tower", digests, digests.data_ptr(), flat.data_ptr(), n, tickets.data_ptr())
+    return _tower_layers(flat, n)
+
+
+# ---------------------------------------------------------------------------
+# Kernel D's plan (csrc/poseidon2.cu tower_kernel), checked on index arrays,
+# and a CPU model that runs it step for step.
+# ---------------------------------------------------------------------------
+
+TOWER_BLOCK = 256  # digests a block folds
+TOWER_ROW = TOWER_BLOCK // 2 + 16  # shared words of a lane row of a level
+_WARP = 32
+
+
+def _tower_pad(m: int) -> int:
+    return 16 if m >= 64 else 0
+
+
+def _tower_slot(k, m: int):
+    """Shared word of digest k of a level of m: evens first, odds after a pad."""
+    return (k & 1) * (m // 2 + _tower_pad(m)) + (k >> 1)
+
+
+def _tower_fold(n: int, src: str, base: int, width: int, parts, count: int, by: str) -> dict:
+    """One fold of the kernel (``tower_fold``): block p of ``parts`` folds
+    ``count`` digests of an (8, width) layer at flat ``base`` of ``src``,
+    from column p * count, to one. Thread i of level l (m = count >> l)
+    compresses pair i; level 1 reads it from ``src``, the others from the
+    previous level's shared words; it writes shared word ``write[i]`` and
+    flat output ``out[p, i, j]`` (lane j)."""
+    from ..prover.ntt import bank_conflicts
+
+    levels = []
+    m, l, prev_write = count // 2, 1, None
     while m >= 1:
-        off = DIGEST * (n - 2 * m)
-        layers.append(flat[off : off + DIGEST * m].view(DIGEST, m))
-        m //= 2
-    return layers
+        i = torch.arange(m)
+        w = width >> l
+        write = _tower_slot(i, m)
+        lvl = {"m": m, "width": w, "write": write, "read": None, "src": None}
+        if l == 1:
+            cols = parts[:, None] * count + 2 * i[None, :]  # (P, m) left digest
+            j = torch.arange(DIGEST)
+            lane = base + j[None, None, :] * width + cols[:, :, None]
+            lvl["src"] = torch.cat([lane, lane + 1], dim=2)  # (P, m, 16)
+        else:
+            left, right = i, m + _tower_pad(2 * m) + i
+            # the words the previous level wrote for digests 2i and 2i + 1
+            if not (torch.equal(left, prev_write[2 * i]) and torch.equal(right, prev_write[2 * i + 1])):
+                raise AssertionError(f"tower level {m}: its pair reads miss the words level {2 * m} wrote")
+            lvl["read"] = (left, right)
+            for a, what in ((left, "left read"), (right, "right read")):
+                if bank_conflicts(a) != 1:
+                    raise AssertionError(f"tower level {m}: {what} conflicts")
+        if bank_conflicts(write) != 1:
+            raise AssertionError(f"tower level {m}: store conflicts")
+        if int(write.max()) >= TOWER_ROW or torch.unique(write).numel() != m:
+            raise AssertionError(f"tower level {m}: its words overlap or leave a row")
+        j = torch.arange(DIGEST)
+        lvl["out"] = (DIGEST * (n - 2 * w) + j[None, None, :] * w
+                      + parts[:, None, None] * m + i[None, :, None])  # (P, m, 8)
+        levels.append(lvl)
+        prev_write, m, l = write, m // 2, l + 1
+    return {"by": by, "src": src, "parts": parts, "count": count, "levels": levels}
+
+
+def tower_plan(n: int) -> dict:
+    """Kernel D's decomposition of an (8, n) digest layer: G = n / count
+    blocks of count / 2 threads (count = min(n, TOWER_BLOCK)); block b folds
+    input columns [b * count, (b + 1) * count) and writes each level's slice
+    out; the block that draws the last ticket (any of them) folds the G roots,
+    read back from the output, to the root. Asserts that every level's
+    shared words are those the next level reads, that every warp access to
+    shared memory is conflict-free, that the top fold's reads are the roots
+    the blocks wrote, and that every flat output index of [0, 8 (n - 1)) is
+    written exactly once. Returns {"blocks", "threads", "ranges", "folds"}."""
+    if not 2 <= n <= TOWER_MAX or n & (n - 1):
+        raise ValueError(f"tower_plan: n = {n} is not a power of two in [2, {TOWER_MAX}]")
+    count = min(n, TOWER_BLOCK)
+    g = n // count
+    if g > count:
+        raise AssertionError(f"tower_plan: {g} roots do not fit one block's {count // 2} threads")
+    folds = [_tower_fold(n, "in", 0, n, torch.arange(g), count, "every block")]
+    if g > 1:
+        top = _tower_fold(n, "out", DIGEST * (n - 2 * g), g, torch.tensor([0]), g, "the last ticket")
+        roots = folds[0]["levels"][-1]["out"].reshape(-1)
+        if not torch.equal(torch.sort(top["levels"][0]["src"].reshape(-1)).values, torch.sort(roots).values):
+            raise AssertionError("tower_plan: the top fold does not read the blocks' roots")
+        folds.append(top)
+    written = torch.cat([lvl["out"].reshape(-1) for f in folds for lvl in f["levels"]])
+    if not torch.equal(torch.sort(written).values, torch.arange(DIGEST * (n - 1))):
+        raise AssertionError("tower_plan: not every output index written exactly once")
+    ranges = [(b * count, (b + 1) * count) for b in range(g)]
+    return {"blocks": g, "threads": count // 2, "ranges": ranges, "folds": folds}
+
+
+def compress_tower_model(digests) -> list:
+    """:func:`compress_tower` on a CPU (8, n) layer by kernel D's plan, step
+    for step with :func:`permute_model`: the subtree folds of every block,
+    each level's shared words in a buffer of its own (canonical values, where
+    the kernel keeps Montgomery form), then the top fold from the roots in
+    the output. Asserts that no read finds a word unwritten and that every
+    output digest is written exactly once."""
+    n = digests.shape[1]
+    plan = tower_plan(n)
+    flat = torch.full((DIGEST * (n - 1),), -1, dtype=F.DTYPE)
+    writes = torch.zeros_like(flat)
+    for fold in plan["folds"]:
+        src = digests.reshape(-1) if fold["src"] == "in" else flat
+        buf = torch.full((len(fold["parts"]), 2, DIGEST, TOWER_ROW), -1, dtype=F.DTYPE)
+        for l, lvl in enumerate(fold["levels"], start=1):
+            if lvl["read"] is None:
+                state = src[lvl["src"]]
+            else:
+                prev = buf[:, (l - 1) & 1]
+                state = torch.cat([prev[:, :, lvl["read"][0]], prev[:, :, lvl["read"][1]]], dim=1).transpose(1, 2)
+            if bool((state < 0).any()):
+                raise AssertionError(f"tower model, level {lvl['m']}: a read of a word never written")
+            res = permute_model(state.reshape(-1, WIDTH))[:, :DIGEST].reshape(len(fold["parts"]), lvl["m"], DIGEST)
+            buf[:, l & 1, :, lvl["write"]] = res.transpose(1, 2)
+            flat[lvl["out"]] = res
+            writes[lvl["out"]] += 1
+    if not bool((writes == 1).all()):
+        raise AssertionError("tower model: an output digest written other than once")
+    return _tower_layers(flat, n)
 
 
 def merkle_tower(digests) -> list:

@@ -141,7 +141,7 @@ class _Library:
                     "swirl_p2_set_constants": [vp, vp, vp],
                     "swirl_p2_hash_cols": [vp, vp, i32, i64, i32, vp],
                     "swirl_p2_compress": [vp, vp, i64, i64, i32, i64, vp],
-                    "swirl_p2_tower": [vp, vp, i32, vp],
+                    "swirl_p2_tower": [vp, vp, i32, vp, vp],
                 }
                 for name, args in sigs.items():
                     fn = getattr(lib, name)

@@ -137,6 +137,44 @@ def test_merkle_tower_kernels_match_plain(rand, log_n):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+@pytest.mark.parametrize("log_n", range(1, 14))
+def test_tower_kernel_matches_plain(rand, log_n):
+    x = rand(8, 1 << log_n)
+    got, want = p2.compress_tower(x), p2.merkle_tower_plain(x)
+    assert len(got) == len(want) == log_n
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_tower_kernel_leaves_its_tickets_clean(rand):
+    """Calls in a row and on a side stream: a ticket counter left dirty
+    would make a later launch's top fold run early, or never."""
+    xs = [rand(8, 8192) for _ in range(3)]
+    wants = [p2.merkle_tower_plain(x) for x in xs]
+    for _ in range(2):
+        for x, want in zip(xs, wants):
+            assert all(torch.equal(a, b) for a, b in zip(p2.compress_tower(x), want))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = [p2.compress_tower(x) for x in xs]
+    torch.cuda.current_stream().wait_stream(side)
+    for g, want in zip(got, wants):
+        assert all(torch.equal(a, b) for a, b in zip(g, want))
+
+
+@pytest.mark.parametrize("value", [0, P - 1])
+@pytest.mark.parametrize("log_n", [1, 8, 13])
+def test_tower_kernel_on_extreme_values(rand, value, log_n):
+    x = torch.full((8, 1 << log_n), value, dtype=torch.int64, device=rand(1).device)
+    assert all(torch.equal(a, b) for a, b in zip(p2.compress_tower(x), p2.merkle_tower_plain(x)))
+
+
+@pytest.mark.parametrize("shape", [(8, 1), (8, 3), (8, 16384), (9, 64)])
+def test_tower_kernel_refuses_bad_shapes(rand, shape):
+    with pytest.raises(K.KernelError):
+        p2.compress_tower(rand(*shape))
+
+
 def test_kernels_refuse_bad_operands(rand):
     with pytest.raises(K.KernelError):
         p2.hash_cols(rand(4, 8).to(torch.int32))

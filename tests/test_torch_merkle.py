@@ -1,7 +1,9 @@
 """The Merkle build's in-place forms against the JAX package on the CPU:
 kernel C's layer entry (pairs read at a stride from an (8, n) layer),
 kernel B on a (w, h, 4) extension-field matrix read in place, and whole
-trees (root and every layer) against ``swirl.prover.merkle``. On these CPU
+trees (root and every layer) against ``swirl.prover.merkle``, and kernel
+D's plan run step for step on the CPU against ``swirl.hash.jposeidon2``'s
+tower. On these CPU
 tensors the wrappers run their plain PyTorch versions; the card tests
 (tests/test_torch_kernels_cuda.py) hold the kernels to those. Tolerance:
 exact equality (finite field).
@@ -16,8 +18,11 @@ jax.config.update("jax_platforms", "cpu")
 
 from swirl.fields import jfield as jf  # noqa: E402
 from swirl.fields.babybear import P  # noqa: E402
+from swirl.hash import jposeidon2 as jp2  # noqa: E402
 from swirl.hash.poseidon2 import compress_np, hash_rows_np  # noqa: E402
 from swirl.prover import merkle as jmerkle  # noqa: E402
+import torch  # noqa: E402
+
 from swirl_torch.fields import field as F  # noqa: E402
 from swirl_torch.hash import poseidon2 as tp2  # noqa: E402
 from swirl_torch.prover import merkle as tmerkle  # noqa: E402
@@ -68,3 +73,26 @@ def test_build_merkle_tree_matches_jax(ext, rows_per_query):
     for a, b in zip(got.layers, want.layers):
         assert np.array_equal(F.to_host(a), jf.to_host(b))
     assert np.array_equal(got.root, np.asarray(want.root, U64))
+
+
+@pytest.mark.parametrize("log_n", range(1, 14))
+def test_tower_model_matches_plain_and_jax(log_n):
+    """Kernel D's plan (subtree folds, then the last block's top fold) run
+    by the CPU model equals the plain tower and the JAX package's, and its
+    blocks cover every input digest and write every output digest once."""
+    n = 1 << log_n
+    plan = tp2.tower_plan(n)
+    assert plan["blocks"] * plan["threads"] * 2 == n
+    assert [c for r in plan["ranges"] for c in range(*r)] == list(range(n))
+    written = torch.cat([lvl["out"].reshape(-1) for f in plan["folds"] for lvl in f["levels"]])
+    assert torch.equal(torch.sort(written).values, torch.arange(8 * (n - 1)))
+    assert sum(len(f["levels"]) for f in plan["folds"]) == log_n
+
+    d = _rand(100 + log_n, (8, n))
+    got = [F.to_host(x) for x in tp2.compress_tower_model(F.const_arr(d))]
+    plain = [F.to_host(x) for x in tp2.merkle_tower_plain(F.const_arr(d))]
+    want = [jf.to_host(x) for x in jp2.merkle_tower(jf.const_arr(d))]
+    assert len(got) == len(plain) == len(want) == log_n
+    for g, p, w in zip(got, plain, want):
+        assert np.array_equal(g, w)
+        assert np.array_equal(p, w)
