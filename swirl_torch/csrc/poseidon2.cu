@@ -28,28 +28,30 @@
 // and outputs are the port's canonical int64 tensors; the state runs in
 // Montgomery form between the conversion at load and at store.
 //
-// D is a chain: its log2(n) levels depend on each other, and a level of
-// up to 32 permutations costs one warp's issue time for a permutation
-// (t_warp, some 10,000 clocks by B's rate: 32 permutations at 4 x 78 clocks
-// of one SM sub-partition), however few lanes are busy. So D is bound by
-// the number of levels that cost t_warp each, not by the card's rate. The
-// TPU kernel walked every level on one core; here G = n / 256 blocks (32 at
-// n = 8192) each fold a subtree of 256 digests in shared memory (128
-// threads, one warp on each sub-partition: level 1's 128 permutations cost
-// one t_warp), writing every level's slice out as they go, and the block
-// that draws the last ticket folds the G roots down to the root ("last
-// block done": each block fences its root and takes a ticket with
+// D is a chain: its log2(n) levels depend on each other, so one
+// permutation's latency, not the card's rate, bounds each level. A lone
+// warp running one permutation a thread issues 6,031 instructions with
+// little to overlap them (one thread a permutation measured about 9.7 µs a
+// level on the H100, whatever the level's width). So D splits each
+// permutation over a quad of 4 lanes (`permute_quad`): lane q holds state
+// words 4q .. 4q + 3, one M4 group; the external layer's column sums and
+// the partial rounds' sum are two __shfl_xor_sync each within the quad, and
+// the partial S-box of word 0 reaches the other lanes by one __shfl_sync.
+// The diagonal there is a Montgomery product by each lane's own d_i
+// (uploaded with the round constants), so the quad runs one instruction
+// stream. B and C keep `permute` as it is. The TPU kernel walked every
+// level on one core; here G = n / 128 blocks (64 at n = 8192) each fold a
+// subtree of 128 digests in shared memory (256 threads: level 1's 64
+// permutations are 2 warps on each SM sub-partition, the levels above 1
+// or less), writing every level's slice out as they go, and the block that
+// draws the last ticket folds the G roots down to the root ("last block
+// done": the root's lanes are fenced before a ticket is taken with
 // atomicAdd on a counter that the wrapper allocates once per device and
-// stream; the last block resets it). That is log2(n) levels of one t_warp
-// each, the least for one thread a permutation. A cluster would need no
-// counter, but holds at most 16 SMs: level 1's 4096 permutations at
-// n = 8192 would put 2 warps on each sub-partition, one t_warp more.
-// Fewer digests a block (more blocks) would add top levels with no gain;
-// more would put 2 warps on a sub-partition at level 1. In shared memory
-// a level of m digests keeps, in each of its 8 lane rows, the even digests
-// at [0, m/2) and the odd ones from m/2 + pad (pad 16 from m = 64 up): the
-// next level reads its pairs at consecutive words, and the stores of a warp
-// fall in 32 distinct banks.
+// stream; the last block resets it). A cluster would need no counter, but
+// holds at most 16 SMs: level 1's 4096 permutations at n = 8192 would put
+// 8 warps on each sub-partition. In shared memory a level keeps lane row r
+// of digest k at word r * 68 + k: a warp's pair reads (16 digests, rows r
+// and r + 4) and its stores fall on 32 distinct banks.
 #include "field.cuh"
 
 namespace {
@@ -60,8 +62,9 @@ constexpr int RATE = 8;
 constexpr int HALF_FULL = 4;
 constexpr int PARTIAL = 13;
 constexpr int TOWER_MAX = 8192;
-constexpr int TOWER_BLOCK = 256;                 // digests a block folds
-constexpr int TOWER_ROW = TOWER_BLOCK / 2 + 16;  // shared words of a lane row of a level
+constexpr int TOWER_BLOCK = 128;                // digests a block folds
+constexpr int TOWER_ROW = TOWER_BLOCK / 2 + 4;  // a level's lane row: 4 rows span 16 banks
+constexpr int QUAD = 4;                         // lanes of one of kernel D's permutations
 
 constexpr uint32_t P = bb::P;
 constexpr uint32_t MU = bb::fast::MU;
@@ -69,6 +72,7 @@ constexpr uint32_t MU = bb::fast::MU;
 __constant__ uint32_t c_ext_init[HALF_FULL][WIDTH];
 __constant__ uint32_t c_internal[PARTIAL];
 __constant__ uint32_t c_ext_final[HALF_FULL][WIDTH];
+__constant__ uint32_t c_diag[WIDTH];  // the internal diagonal, for kernel D only
 
 using bb::fast::add;
 using bb::fast::mont;
@@ -232,50 +236,106 @@ __global__ void __launch_bounds__(128) compress_kernel(const int64_t* __restrict
   for (int j = 0; j < DIGEST; ++j) out[j * m + o] = from_mont(s[j]);
 }
 
-// A level of m digests in shared memory: digest k at this word of each
-// lane row (evens first, odds after a pad that keeps a warp's stores on
-// 32 banks).
-__device__ __forceinline__ int tower_pad(int m) { return m >= 64 ? 16 : 0; }
-__device__ __forceinline__ int tower_slot(int k, int m) {
-  return (k & 1) * (m / 2 + tower_pad(m)) + (k >> 1);
+// Kernel D's permutation split over a quad of lanes (see the note at the
+// top). Each lane's round constants and diagonal, in registers.
+struct QuadRc {
+  uint32_t init[HALF_FULL][4], fin[HALF_FULL][4], diag[4];
+};
+
+__device__ __forceinline__ QuadRc quad_rc(int q) {
+  QuadRc c;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int r = 0; r < HALF_FULL; ++r) {
+      c.init[r][i] = c_ext_init[r][4 * q + i];
+      c.fin[r][i] = c_ext_final[r][4 * q + i];
+    }
+    c.diag[i] = c_diag[4 * q + i];
+  }
+  return c;
+}
+
+__device__ __forceinline__ uint32_t quad_xor(uint32_t v, int mask) {
+  return __shfl_xor_sync(0xffffffffu, v, mask, QUAD);
+}
+
+// M_E: M4 on the lane's own group, then the sum over the 4 groups of each
+// word position, by two shuffles.
+__device__ __forceinline__ void quad_external(uint32_t* x) {
+  m4(x);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t t = add(x[j], quad_xor(x[j], 1));
+    x[j] = add(x[j], add(t, quad_xor(t, 2)));
+  }
+}
+
+__device__ __forceinline__ void quad_full_round(uint32_t* x, const uint32_t* rc) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) x[i] = sbox(add(x[i], rc[i]));
+  quad_external(x);
+}
+
+// The partial round, s_i <- d_i * s_i + sum(s) after word 0's S-box: every
+// lane takes the S-box of its word 0 (lane 0's is the one used) while the
+// quad sums words 1..15; state in Montgomery form, all lanes of the warp
+// in step (the shuffles name the whole warp).
+__device__ __forceinline__ void permute_quad(uint32_t* x, const QuadRc& c, int q) {
+  quad_external(x);
+#pragma unroll
+  for (int r = 0; r < HALF_FULL; ++r) quad_full_round(x, c.init[r]);
+#pragma unroll
+  for (int r = 0; r < PARTIAL; ++r) {
+    const uint32_t y = sbox(add(x[0], c_internal[r]));
+    const uint32_t own = add(add(q == 0 ? 0u : x[0], x[1]), add(x[2], x[3]));
+    const uint32_t t = add(own, quad_xor(own, 1));
+    const uint32_t full = add(add(t, quad_xor(t, 2)), __shfl_sync(0xffffffffu, y, 0, QUAD));
+    if (q == 0) x[0] = y;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[i] = add(mont(x[i], c.diag[i]), full);
+  }
+#pragma unroll
+  for (int r = 0; r < HALF_FULL; ++r) quad_full_round(x, c.fin[r]);
 }
 
 // Folds `count` digests (a power of two, 2 to TOWER_BLOCK) of an (8, width)
 // canonical layer, from column part * count, down to one. Level l of the
-// fold (m = count >> l digests) is written out as columns [part * m,
-// (part + 1) * m) of the tower's level of width >> l, at flat offset
-// 8 * (n - 2 * (width >> l)). The layer is read through L2 (ld.global.cg):
-// the top fold reads roots that other blocks wrote.
+// fold has m = count >> l pairs: quad p (threads 4p .. 4p + 3) compresses
+// pair p, lane q loading lane rows 4 (q & 1) .. + 3 of digest 2p + q / 2;
+// lanes 0 and 1 then hold the digest, which is written out as column
+// part * m + p of the tower's level of width >> l (flat offset
+// 8 * (n - 2 * (width >> l))) and to shared memory. A warp with a pair
+// runs whole (its idle quads repeat the last pair and store nothing). The
+// layer is read through L2 (ld.global.cg): the top fold reads roots that
+// other blocks wrote.
 __device__ __forceinline__ void tower_fold(const int64_t* src, int width, int part, int count,
                                            int64_t* out, int n,
-                                           uint32_t (*buf)[DIGEST][TOWER_ROW]) {
-  const int i = threadIdx.x;
+                                           uint32_t (*buf)[DIGEST][TOWER_ROW], const QuadRc& c) {
+  const int q = threadIdx.x & (QUAD - 1);
+  const int r0 = DIGEST / 2 * (q & 1);
   for (int l = 1, m = count / 2; m >= 1; ++l, m /= 2) {
-    if (i < m) {
-      uint32_t s[WIDTH];
+    if ((int)(threadIdx.x & ~31u) < QUAD * m) {
+      const int p = min((int)threadIdx.x / QUAD, m - 1);
+      const int k = 2 * p + (q >> 1);
+      uint32_t x[4];
       if (l == 1) {
-        const long long* p = reinterpret_cast<const long long*>(src) + (long long)part * count + 2 * i;
+        const long long* g = reinterpret_cast<const long long*>(src) + (long long)part * count + k;
 #pragma unroll
-        for (int j = 0; j < DIGEST; ++j) {
-          s[j] = to_mont((uint32_t)__ldcg(p + (long long)j * width));
-          s[DIGEST + j] = to_mont((uint32_t)__ldcg(p + (long long)j * width + 1));
-        }
+        for (int j = 0; j < 4; ++j) x[j] = to_mont((uint32_t)__ldcg(g + (long long)(r0 + j) * width));
       } else {
-        const int right = m + tower_pad(2 * m) + i;  // tower_slot(2i + 1, 2m)
 #pragma unroll
-        for (int j = 0; j < DIGEST; ++j) {
-          s[j] = buf[(l - 1) & 1][j][i];
-          s[DIGEST + j] = buf[(l - 1) & 1][j][right];
-        }
+        for (int j = 0; j < 4; ++j) x[j] = buf[(l - 1) & 1][r0 + j][k];
       }
-      permute(s);
-      const int w = width >> l;
-      int64_t* g = out + (long long)DIGEST * (n - 2 * w) + (long long)part * m + i;
-      const int k = tower_slot(i, m);
+      permute_quad(x, c, q);
+      if (q < 2 && (int)threadIdx.x / QUAD < m) {
+        const int w = width >> l;
+        int64_t* g = out + (long long)DIGEST * (n - 2 * w) + (long long)part * m + p;
 #pragma unroll
-      for (int j = 0; j < DIGEST; ++j) {
-        buf[l & 1][j][k] = s[j];
-        g[(long long)j * w] = from_mont(s[j]);
+        for (int j = 0; j < 4; ++j) {
+          buf[l & 1][4 * q + j][p] = x[j];
+          g[(long long)(4 * q + j) * w] = from_mont(x[j]);
+        }
       }
     }
     __syncthreads();
@@ -284,36 +344,46 @@ __device__ __forceinline__ void tower_fold(const int64_t* src, int width, int pa
 
 // in: (8, n) digests, n a power of two in [2, TOWER_MAX]. out: level l
 // (n >> l digests, l = 1..log n) as an (8, n >> l) block at offset
-// 8 * (n - 2 * (n >> l)). Grid: n / count blocks of count / 2 threads,
-// count = min(n, TOWER_BLOCK). tickets: a zero counter, left zero.
-__global__ void __launch_bounds__(TOWER_BLOCK / 2) tower_kernel(const int64_t* __restrict__ in,
-                                                                int64_t* out, int n,
-                                                                unsigned* tickets) {
+// 8 * (n - 2 * (n >> l)). Grid: n / count blocks of 2 * count threads (at
+// least a warp), count = min(n, TOWER_BLOCK). tickets: a zero counter, left
+// zero.
+__global__ void __launch_bounds__(2 * TOWER_BLOCK) tower_kernel(const int64_t* in, int64_t* out, int n,
+                                                                 unsigned* tickets) {
   __shared__ uint32_t buf[2][DIGEST][TOWER_ROW];
   __shared__ bool last;
+  const QuadRc c = quad_rc(threadIdx.x & (QUAD - 1));
   const int g = gridDim.x;
-  tower_fold(in, n, blockIdx.x, n / g, out, n, buf);
-  if (g == 1) return;
-  if (threadIdx.x == 0) {
-    __threadfence();  // this thread's root, visible before its ticket
-    last = atomicAdd(tickets, 1u) == (unsigned)g - 1;
+  const int64_t* src = in;
+  int width = n, part = blockIdx.x, count = n / g;
+  // two trips through one copy of the fold: a lone warp fetches its code,
+  // and a second copy for the top fold would start cold
+#pragma unroll 1
+  for (int top = 0;; ++top) {
+    tower_fold(src, width, part, count, out, n, buf, c);
+    if (top || g == 1) return;
+    if (threadIdx.x < 2) __threadfence();  // the root's lanes, visible before the ticket
+    __syncthreads();
+    if (threadIdx.x == 0) last = atomicAdd(tickets, 1u) == (unsigned)g - 1;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    if (threadIdx.x == 0) *tickets = 0;
+    src = out + (long long)DIGEST * (n - 2 * g);
+    width = g, part = 0, count = g;
   }
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  if (threadIdx.x == 0) *tickets = 0;
-  tower_fold(out + (long long)DIGEST * (n - 2 * g), g, 0, g, out, n, buf);
 }
 
 }  // namespace
 
 // Round constants in Montgomery form: ext_init/ext_final (4, 16) and
-// internal (13,), as uint32 host arrays. The diagonal is in the code.
+// internal (13,), and the internal diagonal (16,), as uint32 host arrays.
+// B and C hold the diagonal in their code; D's quads read it.
 extern "C" int swirl_p2_set_constants(const uint32_t* ext_init, const uint32_t* internal,
-                                      const uint32_t* ext_final) {
+                                      const uint32_t* ext_final, const uint32_t* diag) {
   cudaMemcpyToSymbol(c_ext_init, ext_init, sizeof(c_ext_init));
   cudaMemcpyToSymbol(c_internal, internal, sizeof(c_internal));
   cudaMemcpyToSymbol(c_ext_final, ext_final, sizeof(c_ext_final));
+  cudaMemcpyToSymbol(c_diag, diag, sizeof(c_diag));
   return (int)cudaGetLastError();
 }
 
@@ -339,6 +409,7 @@ extern "C" int swirl_p2_tower(const int64_t* in, int64_t* out, int n, unsigned* 
                               void* stream) {
   if (n < 2 || n > TOWER_MAX || (n & (n - 1)) != 0) return (int)cudaErrorInvalidValue;
   const int count = n < TOWER_BLOCK ? n : TOWER_BLOCK;
-  tower_kernel<<<n / count, count / 2, 0, (cudaStream_t)stream>>>(in, out, n, tickets);
+  const int threads = 2 * count < 32 ? 32 : 2 * count;  // whole warps: the shuffles name all 32 lanes
+  tower_kernel<<<n / count, threads, 0, (cudaStream_t)stream>>>(in, out, n, tickets);
   return (int)cudaGetLastError();
 }

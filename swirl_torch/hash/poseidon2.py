@@ -521,120 +521,172 @@ def compress_tower(digests) -> list:
 
 
 # ---------------------------------------------------------------------------
-# Kernel D's plan (csrc/poseidon2.cu tower_kernel), checked on index arrays,
-# and a CPU model that runs it step for step.
+# Kernel D (csrc/poseidon2.cu tower_kernel): its permutation split over a
+# quad of lanes, and its plan, checked on index arrays; a CPU model runs
+# both step for step.
 # ---------------------------------------------------------------------------
 
-TOWER_BLOCK = 256  # digests a block folds
-TOWER_ROW = TOWER_BLOCK // 2 + 16  # shared words of a lane row of a level
+TOWER_BLOCK = 128  # digests a block folds
+TOWER_ROW = TOWER_BLOCK // 2 + 4  # shared words of a lane row of a level
+QUAD = 4  # lanes of one permutation: lane q holds state words 4q .. 4q + 3
 _WARP = 32
+_Q = torch.arange(QUAD)
 
 
-def _tower_pad(m: int) -> int:
-    return 16 if m >= 64 else 0
+def _quad_xor(x, mask: int):
+    """__shfl_xor_sync(x, mask) within each quad: x (..., QUAD), one value a lane."""
+    return x[..., _Q ^ mask]
 
 
-def _tower_slot(k, m: int):
-    """Shared word of digest k of a level of m: evens first, odds after a pad."""
-    return (k & 1) * (m // 2 + _tower_pad(m)) + (k >> 1)
+def _quad_external_m(x):
+    """M_E on words x[0..3], each (..., QUAD): M4 in each lane, then the sum
+    over the quad of each word position by two shuffles."""
+    x = _m4_m(*x)
+    out = []
+    for xj in x:
+        t = _add_m(xj, _quad_xor(xj, 1))
+        out.append(_add_m(xj, _add_m(t, _quad_xor(t, 2))))
+    return out
+
+
+def permute_quad_model(state):
+    """Poseidon2 of (..., 16) canonical int64 tensors by kernel D's quad
+    (``permute_quad``): lane q holds Montgomery words 4q .. 4q + 3, the
+    partial rounds take every lane's word-0 S-box and use lane 0's through
+    a broadcast, and the diagonal is a Montgomery product by each lane's
+    d_i. The lane axis is the last; shuffles are index maps over it."""
+    ext_init, internal, ext_final, diag = (
+        torch.tensor([int(v) * (1 << 32) % P for v in np.asarray(c).ravel()]) for c in constants()
+    )
+    lanes = lambda c: c.reshape(-1, QUAD, 4).transpose(1, 2)  # noqa: E731  (rounds, word i, lane q)
+    init, fin, d = lanes(ext_init), lanes(ext_final), lanes(diag)[0]
+    s = _mont_m(state, torch.full_like(state, _R2)).reshape(state.shape[:-1] + (QUAD, 4))
+    x = _quad_external_m(list(s.unbind(-1)))
+    for r in range(4):
+        x = _quad_external_m([_sbox_m(_add_m(x[i], init[r, i])) for i in range(4)])
+    lane0 = _Q == 0
+    for rc in internal:
+        y = _sbox_m(_add_m(x[0], rc))
+        own = _add_m(_add_m(torch.where(lane0, 0, x[0]), x[1]), _add_m(x[2], x[3]))
+        t = _add_m(own, _quad_xor(own, 1))
+        full = _add_m(_add_m(t, _quad_xor(t, 2)), y[..., :1].expand_as(y))
+        x[0] = torch.where(lane0, y, x[0])
+        x = [_add_m(_mont_m(x[i], d[i].expand_as(x[i])), full) for i in range(4)]
+    for r in range(4):
+        x = _quad_external_m([_sbox_m(_add_m(x[i], fin[r, i])) for i in range(4)])
+    return _from_mont_m(torch.stack(x, dim=-1).reshape(state.shape))
 
 
 def _tower_fold(n: int, src: str, base: int, width: int, parts, count: int, by: str) -> dict:
-    """One fold of the kernel (``tower_fold``): block p of ``parts`` folds
+    """One fold of the kernel (``tower_fold``): block b of ``parts`` folds
     ``count`` digests of an (8, width) layer at flat ``base`` of ``src``,
-    from column p * count, to one. Thread i of level l (m = count >> l)
-    compresses pair i; level 1 reads it from ``src``, the others from the
-    previous level's shared words; it writes shared word ``write[i]`` and
-    flat output ``out[p, i, j]`` (lane j)."""
+    from column b * count, to one. At level l (m = count >> l pairs) thread
+    t = 4p + q (p < m) loads lane rows 4 (q & 1) .. + 3 of digest 2p + q // 2:
+    at level 1 from ``src[load]`` (its 4 words), above it from the shared
+    words ``read[t]`` (lane row r of digest k at r * TOWER_ROW + k); lanes
+    q < 2 then store lane rows 4q .. 4q + 3 of output digest p at shared
+    ``write`` and flat ``out[b, p, lane]``."""
     from ..prover.ntt import bank_conflicts
 
     levels = []
-    m, l, prev_write = count // 2, 1, None
+    m, l, prev_out = count // 2, 1, None
+    j4 = torch.arange(4)
     while m >= 1:
-        i = torch.arange(m)
         w = width >> l
-        write = _tower_slot(i, m)
-        lvl = {"m": m, "width": w, "write": write, "read": None, "src": None}
+        t = torch.arange(max(QUAD * m, _WARP))  # a warp with a pair runs whole
+        p, q = torch.clamp(t // QUAD, max=m - 1), t % QUAD
+        k = 2 * p + q // 2
+        rows = (4 * (q % 2))[:, None] + j4[None, :]  # (threads, 4)
+        lvl = {"m": m, "width": w, "load": None, "read": None}
         if l == 1:
-            cols = parts[:, None] * count + 2 * i[None, :]  # (P, m) left digest
-            j = torch.arange(DIGEST)
-            lane = base + j[None, None, :] * width + cols[:, :, None]
-            lvl["src"] = torch.cat([lane, lane + 1], dim=2)  # (P, m, 16)
+            cols = parts[:, None, None] * count + k[None, :, None]
+            lvl["load"] = base + rows[None] * width + cols  # (P, threads, 4)
         else:
-            left, right = i, m + _tower_pad(2 * m) + i
-            # the words the previous level wrote for digests 2i and 2i + 1
-            if not (torch.equal(left, prev_write[2 * i]) and torch.equal(right, prev_write[2 * i + 1])):
-                raise AssertionError(f"tower level {m}: its pair reads miss the words level {2 * m} wrote")
-            lvl["read"] = (left, right)
-            for a, what in ((left, "left read"), (right, "right read")):
-                if bank_conflicts(a) != 1:
-                    raise AssertionError(f"tower level {m}: {what} conflicts")
-        if bank_conflicts(write) != 1:
-            raise AssertionError(f"tower level {m}: store conflicts")
-        if int(write.max()) >= TOWER_ROW or torch.unique(write).numel() != m:
-            raise AssertionError(f"tower level {m}: its words overlap or leave a row")
-        j = torch.arange(DIGEST)
-        lvl["out"] = (DIGEST * (n - 2 * w) + j[None, None, :] * w
-                      + parts[:, None, None] * m + i[None, :, None])  # (P, m, 8)
+            read = rows * TOWER_ROW + k[:, None]
+            # the words the previous level wrote for those lanes of those digests
+            if not torch.equal(read, prev_out[k[:, None], rows]):
+                raise AssertionError(f"tower level {m}: its loads miss the words level {2 * m} wrote")
+            for j in range(4):
+                if bank_conflicts(read[:, j]) != 1:
+                    raise AssertionError(f"tower level {m}: load {j} conflicts")
+            lvl["read"] = read
+        p_out = torch.arange(m)
+        lane = torch.arange(DIGEST)
+        write = lane[None, :] * TOWER_ROW + p_out[:, None]  # (m, 8): lane row r of digest p
+        if int(write.max()) >= DIGEST * TOWER_ROW or int(p_out.max()) >= TOWER_ROW:
+            raise AssertionError(f"tower level {m}: its words leave the rows")
+        for j in range(4):  # lanes 0 and 1 of each quad store lane rows j and 4 + j
+            stores = write[:, [j, 4 + j]].reshape(-1)  # thread order 4p, 4p + 1
+            group = (QUAD * p_out[:, None] + torch.arange(2)[None, :]).reshape(-1) // _WARP
+            if bank_conflicts(stores, group) != 1:
+                raise AssertionError(f"tower level {m}: store {j} conflicts")
+        lvl["write"] = write
+        lvl["out"] = (DIGEST * (n - 2 * w) + lane[None, None, :] * w
+                      + parts[:, None, None] * m + p_out[None, :, None])  # (P, m, 8)
         levels.append(lvl)
-        prev_write, m, l = write, m // 2, l + 1
+        prev_out, m, l = write, m // 2, l + 1
     return {"by": by, "src": src, "parts": parts, "count": count, "levels": levels}
 
 
 def tower_plan(n: int) -> dict:
     """Kernel D's decomposition of an (8, n) digest layer: G = n / count
-    blocks of count / 2 threads (count = min(n, TOWER_BLOCK)); block b folds
-    input columns [b * count, (b + 1) * count) and writes each level's slice
-    out; the block that draws the last ticket (any of them) folds the G roots,
-    read back from the output, to the root. Asserts that every level's
-    shared words are those the next level reads, that every warp access to
-    shared memory is conflict-free, that the top fold's reads are the roots
-    the blocks wrote, and that every flat output index of [0, 8 (n - 1)) is
-    written exactly once. Returns {"blocks", "threads", "ranges", "folds"}."""
+    blocks of 2 * count threads, at least a warp (count = min(n,
+    TOWER_BLOCK)), one quad of
+    4 lanes a permutation (lane q holds state words 4q .. 4q + 3; its
+    shuffle partners are q ^ 1 and q ^ 2, and lane 0 broadcasts the
+    partial S-box); block b folds input columns [b * count, (b + 1) * count)
+    and writes each level's slice out; the block that draws the last ticket
+    (any of them) folds the G roots, read back from the output, to the root.
+    Asserts that every level's loads are the shared words the level below
+    stored, that every warp access to shared memory is conflict-free, that
+    the top fold's loads are the roots the blocks wrote, and that every
+    flat output index of [0, 8 (n - 1)) is written exactly once. Returns
+    {"blocks", "threads", "ranges", "folds", "quad"}."""
     if not 2 <= n <= TOWER_MAX or n & (n - 1):
         raise ValueError(f"tower_plan: n = {n} is not a power of two in [2, {TOWER_MAX}]")
     count = min(n, TOWER_BLOCK)
     g = n // count
     if g > count:
-        raise AssertionError(f"tower_plan: {g} roots do not fit one block's {count // 2} threads")
+        raise AssertionError(f"tower_plan: {g} roots do not fit one block's {count // 2} quads")
     folds = [_tower_fold(n, "in", 0, n, torch.arange(g), count, "every block")]
     if g > 1:
         top = _tower_fold(n, "out", DIGEST * (n - 2 * g), g, torch.tensor([0]), g, "the last ticket")
         roots = folds[0]["levels"][-1]["out"].reshape(-1)
-        if not torch.equal(torch.sort(top["levels"][0]["src"].reshape(-1)).values, torch.sort(roots).values):
-            raise AssertionError("tower_plan: the top fold does not read the blocks' roots")
+        if not torch.equal(torch.unique(top["levels"][0]["load"]), torch.sort(roots).values):
+            raise AssertionError("tower_plan: the top fold does not load the blocks' roots")
         folds.append(top)
     written = torch.cat([lvl["out"].reshape(-1) for f in folds for lvl in f["levels"]])
     if not torch.equal(torch.sort(written).values, torch.arange(DIGEST * (n - 1))):
         raise AssertionError("tower_plan: not every output index written exactly once")
+    quad = {"words": [list(range(4 * q, 4 * q + 4)) for q in range(QUAD)],
+            "xor_partners": [[q ^ 1, q ^ 2] for q in range(QUAD)], "broadcast_from": 0}
     ranges = [(b * count, (b + 1) * count) for b in range(g)]
-    return {"blocks": g, "threads": count // 2, "ranges": ranges, "folds": folds}
+    return {"blocks": g, "threads": max(2 * count, _WARP), "ranges": ranges, "folds": folds, "quad": quad}
 
 
 def compress_tower_model(digests) -> list:
     """:func:`compress_tower` on a CPU (8, n) layer by kernel D's plan, step
-    for step with :func:`permute_model`: the subtree folds of every block,
-    each level's shared words in a buffer of its own (canonical values, where
-    the kernel keeps Montgomery form), then the top fold from the roots in
-    the output. Asserts that no read finds a word unwritten and that every
-    output digest is written exactly once."""
+    for step with :func:`permute_quad_model`: the subtree folds of every
+    block, each level's shared words in a buffer of its own (canonical
+    values, where the kernel keeps Montgomery form), then the top fold from
+    the roots in the output. Asserts that no load finds a word unwritten
+    and that every output digest is written exactly once."""
     n = digests.shape[1]
     plan = tower_plan(n)
     flat = torch.full((DIGEST * (n - 1),), -1, dtype=F.DTYPE)
     writes = torch.zeros_like(flat)
     for fold in plan["folds"]:
         src = digests.reshape(-1) if fold["src"] == "in" else flat
-        buf = torch.full((len(fold["parts"]), 2, DIGEST, TOWER_ROW), -1, dtype=F.DTYPE)
+        nb = len(fold["parts"])
+        buf = torch.full((nb, 2, DIGEST * TOWER_ROW), -1, dtype=F.DTYPE)
         for l, lvl in enumerate(fold["levels"], start=1):
-            if lvl["read"] is None:
-                state = src[lvl["src"]]
-            else:
-                prev = buf[:, (l - 1) & 1]
-                state = torch.cat([prev[:, :, lvl["read"][0]], prev[:, :, lvl["read"][1]]], dim=1).transpose(1, 2)
-            if bool((state < 0).any()):
-                raise AssertionError(f"tower model, level {lvl['m']}: a read of a word never written")
-            res = permute_model(state.reshape(-1, WIDTH))[:, :DIGEST].reshape(len(fold["parts"]), lvl["m"], DIGEST)
-            buf[:, l & 1, :, lvl["write"]] = res.transpose(1, 2)
+            m = lvl["m"]
+            words = src[lvl["load"]] if lvl["read"] is None else buf[:, (l - 1) & 1][:, lvl["read"]]
+            if bool((words < 0).any()):
+                raise AssertionError(f"tower model, level {m}: a load of a word never written")
+            state = words[:, : QUAD * m].reshape(nb, m, WIDTH)  # thread 4p + q holds words 4q ..
+            res = permute_quad_model(state)[..., :DIGEST]
+            buf[:, l & 1, lvl["write"]] = res
             flat[lvl["out"]] = res
             writes[lvl["out"]] += 1
     if not bool((writes == 1).all()):

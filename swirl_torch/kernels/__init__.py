@@ -138,7 +138,7 @@ class _Library:
                 vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
                 sigs = {
                     "swirl_ntt": [vp, vp, vp, i64, i32, vp, vp],
-                    "swirl_p2_set_constants": [vp, vp, vp],
+                    "swirl_p2_set_constants": [vp, vp, vp, vp],
                     "swirl_p2_hash_cols": [vp, vp, i32, i64, i32, vp],
                     "swirl_p2_compress": [vp, vp, i64, i64, i32, i64, vp],
                     "swirl_p2_tower": [vp, vp, i32, vp, vp],
@@ -193,7 +193,7 @@ def _upload_poseidon2_constants(lib) -> None:
     r = np.uint64((1 << 32) % P)
     mont = [
         np.ascontiguousarray((np.asarray(c, np.uint64) * r) % np.uint64(P), dtype=np.uint32)
-        for c in constants()[:3]  # the kernels hold the diagonal in their code
+        for c in constants()  # ext_init, internal, ext_final, diagonal
     ]
     rc = lib.swirl_p2_set_constants(*[m.ctypes.data for m in mont])
     if rc != 0:

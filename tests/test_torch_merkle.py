@@ -82,7 +82,7 @@ def test_tower_model_matches_plain_and_jax(log_n):
     blocks cover every input digest and write every output digest once."""
     n = 1 << log_n
     plan = tp2.tower_plan(n)
-    assert plan["blocks"] * plan["threads"] * 2 == n
+    assert plan["blocks"] * plan["threads"] == max(tp2.QUAD * n // 2, 32)  # a quad a pair, whole warps
     assert [c for r in plan["ranges"] for c in range(*r)] == list(range(n))
     written = torch.cat([lvl["out"].reshape(-1) for f in plan["folds"] for lvl in f["levels"]])
     assert torch.equal(torch.sort(written).values, torch.arange(8 * (n - 1)))

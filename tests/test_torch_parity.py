@@ -119,6 +119,14 @@ def test_permute_model_matches_plain_and_numpy():
     assert np.array_equal(got, permute_np(s))
 
 
+def test_permute_quad_model_matches_plain_and_numpy():
+    """Kernel D's permutation split over a quad of lanes."""
+    s = _model_states()
+    got = F.to_host(tp2.permute_quad_model(_t(s)))
+    assert np.array_equal(got, F.to_host(tp2.permute_plain(_t(s))))
+    assert np.array_equal(got, permute_np(s))
+
+
 @pytest.mark.parametrize("k", DIAG_SHIFTS)
 def test_div2k_model_matches_field_mul(k):
     x = np.concatenate([_edge_values(), _rand(np.random.default_rng(k), (500,))])
