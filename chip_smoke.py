@@ -18,9 +18,8 @@ Phases, each printing its result on lines of its own:
    except where the kernel may run faster than the Python that enqueues
    it (``GRAPH_TIMED``: the tower, the 16-point coset NTT): there it is the
    device's own clock, a CUDA graph of 10 calls replayed between two
-   events. The tower is also timed so at every n from 2 to 8192: its time
-   at n = 2 is one permutation's (t_perm), and 13 t_perm is the chain
-   floor of its 13 dependent levels at n = 8192;
+   events. The tower is also timed so at n = 2, one permutation (t_perm):
+   13 t_perm is the chain floor of its 13 dependent levels at n = 8192;
 3. golden: the four golden proofs proved through the port on the card,
    byte for byte against ``tests/golden`` (vk, proof, transcript log);
 4. app: keygen + prove of the 2^20 x 64 ``SyntheticAir`` cell (degree 3)
@@ -200,11 +199,12 @@ def kernel_cases():
     first case of each kernel is the one the ``kernels`` line reports: the
     leaf path's largest. Leaf: the RS encode (A′), the three WHIR
     codewords, the chunk iDFTs (the app's shape too), the 16-point
-    transforms of the univariate-skip coset grid (both paths), the hash of the 2^27-row
-    codeword (w = 2: a partial absorb) and of the first WHIR codeword read
-    in place as (1, 2^26, 4), the first strided compress level read in place
-    from the (8, 2^27) leaf digests at the query stride 2^23 (the work of
-    (16, 2^26) pairs), a level above the tower (stride 1), the tower. App:
+    transforms of the univariate-skip coset grid (both paths), the hash of
+    the 2^27-row codeword (w = 2: a partial absorb) and of the first WHIR
+    codeword read in place as (1, 2^26, 4), the first strided compress
+    level read in place from the (8, 2^27) leaf digests at the query stride
+    2^23 (the work of (16, 2^26) pairs), a level above the tower (stride
+    1), the tower. App:
     the RS encode, its first two WHIR codewords, its leaf hashes, its first strided
     level (stride 2^19) and the (16, n) pairs form of ``compress_cols``.
     ``plain slice`` is None where the plain version takes the whole input,
@@ -248,22 +248,7 @@ def kernel_cases():
 
 # cases that may run faster than the Python that enqueues them
 GRAPH_TIMED = ("coset_chunks", "tower_8192")
-TOWER_LOG_MAX = 13  # log2 of TOWER_MAX, the tower's widest layer
-
-
-def tower_profile(gen, device) -> dict:
-    """{log n: device ms of the tower on a random (8, 2^log n) layer} for
-    log n = 1 .. 13, by CUDA graph replay."""
-    import torch
-
-    from swirl_torch.fields.babybear import P
-    from swirl_torch.hash import poseidon2 as p2
-
-    prof = {}
-    for log_n in range(1, TOWER_LOG_MAX + 1):
-        x = torch.randint(0, P, (8, 1 << log_n), generator=gen, device=device, dtype=torch.int64)
-        prof[log_n] = _graph_time_ms(lambda: p2.compress_tower(x), reps=10)
-    return prof
+TOWER_LEVELS = 13  # of the tower's widest layer, TOWER_MAX = 2^13
 
 
 def _timed_ms(fn):
@@ -297,14 +282,14 @@ def check_kernels(device) -> dict:
 
     from swirl_torch import kernels as K
     from swirl_torch.fields.babybear import P
+    from swirl_torch.hash import poseidon2 as p2
     from swirl_torch.prover import ntt
 
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
-    prof = tower_profile(gen, device)
-    t_perm, floor_ms = prof[1], TOWER_LOG_MAX * prof[1]
-    _say("kernel merkle_tower device ms by n: "
-         + " ".join(f"2^{k}={ms:.4f}" for k, ms in prof.items()))
+    pair = torch.randint(0, P, (8, 2), generator=gen, device=device, dtype=torch.int64)
+    t_perm = _graph_time_ms(lambda: p2.compress_tower(pair), reps=10)
+    floor_ms = TOWER_LEVELS * t_perm
     results = {}
     for kernel, label, fk, fp, shape, work, slices in kernel_cases():
         x = torch.randint(0, P, shape, generator=gen, device=device, dtype=torch.int64)
@@ -331,7 +316,7 @@ def check_kernels(device) -> dict:
             how += f" (ms by CUDA graph replay; by events {ms:.4f})"
             ms = _graph_time_ms(lambda: fk(x), reps=10)
         if kernel is K.TOWER:
-            how += f" t_perm_ms={t_perm:.4f} floor_ms={floor_ms:.4f} ({TOWER_LOG_MAX} t_perm)"
+            how += f" t_perm_ms={t_perm:.4f} floor_ms={floor_ms:.4f} ({TOWER_LEVELS} t_perm)"
             extra["floor_ms"] = floor_ms
         bound_ms, bound_by = bound(work(shape))
         _say(

@@ -51,7 +51,8 @@
 // holds at most 16 SMs: level 1's 4096 permutations at n = 8192 would put
 // 8 warps on each sub-partition. In shared memory a level keeps lane row r
 // of digest k at word r * 68 + k: a warp's pair reads (16 digests, rows r
-// and r + 4) and its stores fall on 32 distinct banks.
+// and r + 4) fall on 32 distinct banks, and its stores (8 digests, rows r
+// and r + 4) on 16.
 #include "field.cuh"
 
 namespace {

@@ -488,9 +488,12 @@ _TICKETS = {}
 
 def _tower_tickets(device):
     key = (device.index, torch.cuda.current_stream(device).cuda_stream)
-    if key not in _TICKETS:
-        _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=device)
-    return _TICKETS[key]
+    tickets = _TICKETS.get(key)
+    if tickets is None:
+        if torch.cuda.is_current_stream_capturing():  # a captured zero fill runs only at replay
+            raise K.KernelError("compress_tower: call it once on this stream before capturing it")
+        tickets = _TICKETS.setdefault(key, torch.zeros(1, dtype=torch.int32, device=device))
+    return tickets
 
 
 def _tower_layers(flat, n: int) -> list:
@@ -597,7 +600,7 @@ def _tower_fold(n: int, src: str, base: int, width: int, parts, count: int, by: 
         p, q = torch.clamp(t // QUAD, max=m - 1), t % QUAD
         k = 2 * p + q // 2
         rows = (4 * (q % 2))[:, None] + j4[None, :]  # (threads, 4)
-        lvl = {"m": m, "width": w, "load": None, "read": None}
+        lvl = {"m": m, "load": None, "read": None}
         if l == 1:
             cols = parts[:, None, None] * count + k[None, :, None]
             lvl["load"] = base + rows[None] * width + cols  # (P, threads, 4)
@@ -610,11 +613,11 @@ def _tower_fold(n: int, src: str, base: int, width: int, parts, count: int, by: 
                 if bank_conflicts(read[:, j]) != 1:
                     raise AssertionError(f"tower level {m}: load {j} conflicts")
             lvl["read"] = read
+        if m > TOWER_ROW:
+            raise AssertionError(f"tower level {m}: its digests leave the rows")
         p_out = torch.arange(m)
         lane = torch.arange(DIGEST)
         write = lane[None, :] * TOWER_ROW + p_out[:, None]  # (m, 8): lane row r of digest p
-        if int(write.max()) >= DIGEST * TOWER_ROW or int(p_out.max()) >= TOWER_ROW:
-            raise AssertionError(f"tower level {m}: its words leave the rows")
         for j in range(4):  # lanes 0 and 1 of each quad store lane rows j and 4 + j
             stores = write[:, [j, 4 + j]].reshape(-1)  # thread order 4p, 4p + 1
             group = (QUAD * p_out[:, None] + torch.arange(2)[None, :]).reshape(-1) // _WARP
@@ -631,8 +634,8 @@ def _tower_fold(n: int, src: str, base: int, width: int, parts, count: int, by: 
 def tower_plan(n: int) -> dict:
     """Kernel D's decomposition of an (8, n) digest layer: G = n / count
     blocks of 2 * count threads, at least a warp (count = min(n,
-    TOWER_BLOCK)), one quad of
-    4 lanes a permutation (lane q holds state words 4q .. 4q + 3; its
+    TOWER_BLOCK)), one quad of 4 lanes a permutation (lane q holds state
+    words 4q .. 4q + 3; its
     shuffle partners are q ^ 1 and q ^ 2, and lane 0 broadcasts the
     partial S-box); block b folds input columns [b * count, (b + 1) * count)
     and writes each level's slice out; the block that draws the last ticket

@@ -3,8 +3,9 @@ over edge shapes (every NTT size from 2 points to the four-step split,
 every four-step strip shape from 2^19 to 2^26 at batch 1 and 3, A′ at
 2^27, sponge widths that are not multiples of 8, extension-field
 codewords hashed in place, digest layers compressed in place at every kind
-of pairing stride, the extreme field values, tower sizes). Skips without a
-card. This file imports no jax, so on a machine without jax run it with
+of pairing stride, the extreme field values, every tower width, and the
+tower's ticket counter across calls, streams and a CUDA graph). Skips
+without a card. This file imports no jax, so on a machine without jax run it with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
@@ -160,6 +161,30 @@ def test_tower_kernel_leaves_its_tickets_clean(rand):
     torch.cuda.current_stream().wait_stream(side)
     for g, want in zip(got, wants):
         assert all(torch.equal(a, b) for a, b in zip(g, want))
+
+
+def test_tower_kernel_replays_in_a_cuda_graph(rand):
+    """Captured after a call on its stream (which makes the stream's ticket
+    counter), replayed twice; captured first on a stream, it raises."""
+    x = rand(8, 8192)
+    want = p2.merkle_tower_plain(x)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        p2.compress_tower(x)
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        got = p2.compress_tower(x)
+    for _ in range(2):
+        for t in got:
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(K.KernelError):
+        with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=torch.cuda.Stream()):
+            p2.compress_tower(x)
 
 
 @pytest.mark.parametrize("value", [0, P - 1])
