@@ -20,20 +20,27 @@ Phases, each printing its result on lines of its own:
    device's own clock, a CUDA graph of 10 calls replayed between two
    events. The tower is also timed so at n = 2, one permutation (t_perm):
    13 t_perm is the chain floor of its 13 dependent levels at n = 8192;
-3. golden: the four golden proofs proved through the port on the card,
-   byte for byte against ``tests/golden`` (vk, proof, transcript log);
-4. app: keygen + prove of the 2^20 x 64 ``SyntheticAir`` cell (degree 3)
-   under ``app_params_with_100_bits_security(22)``;
-5. leaf: keygen + prove of the 2^20 x 64 degree-4 cell under
+3. golden: the four golden proofs through the port's ``run_test`` on the
+   card (debug check, prove, verify), byte for byte against
+   ``tests/golden`` (vk, proof, transcript log);
+4. app: keygen, debug check, prove and verify of the 2^20 x 64
+   ``SyntheticAir`` cell (degree 3) under
+   ``app_params_with_100_bits_security(22)``;
+5. leaf: the same for the 2^20 x 64 degree-4 cell under
    ``leaf_params_with_100_bits_security(25)``: 2 stacked columns of 2^25
    rows, so the RS encode is one (2, 2^27) NTT through A′.
 
-Phases 4 and 5 use a random trace from a seed and print the per-stage
-spans, the prove seconds, the peak device memory and the input shapes
-each kernel was launched on; each proof must
-re-encode identically after a codec round trip. The kernel launch counters
-are reset just before each prove and read just after it, and every kernel
-of that path must have launched during it.
+Phases 4 and 5 use a random trace from a seed. The debug check runs on
+the card before the prove, the port's host verifier on the proof's
+decoded bytes after it; each prints its seconds. They print the
+per-stage spans, the prove seconds, the peak device memory and the input
+shapes each kernel was launched on; each proof must re-encode
+identically after a codec round trip. The kernel launch counters are
+reset just before each prove and read just after it, and every kernel of
+that path must have launched during it. Then two negative checks: the
+proof with 1 added to one column opening must be refused by the
+verifier, and the trace with a 1 in its kill column (column 0) at one
+row must be refused by the debug check at that row.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -340,6 +347,7 @@ def check_kernels(device) -> dict:
 
 
 def check_golden(device) -> None:
+    """The golden cases through ``run_test``: debug check, prove, verify."""
     from swirl_torch.codec import encode_proof, encode_vk
     from swirl_torch.engine import StarkEngine
     from swirl_torch.testing.golden import encode_transcript_log, golden_cases, paths_for
@@ -381,23 +389,35 @@ def recorded_shapes():
         del K.LIB.launch
 
 
+def _synced_seconds(fn):
+    """(result, host seconds) of ``fn`` ending in a device sync."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
 def prove_synthetic(device, params, degree: int, log_rows: int = LOG_ROWS,
                     width: int = WIDTH, seed: int = SEED) -> dict:
-    """Keygen + prove of the bench shape with a random witness (column 0 is
-    the SyntheticAir kill column and stays zero, so any other values are a
-    valid witness). Resets the launch counters just before the prove and
-    returns them with the spans, seconds, the kernels' input shapes and the
-    encoded proof size."""
+    """Keygen, debug check, prove and verify of the bench shape with a
+    random witness (column 0 is the SyntheticAir kill column and stays
+    zero, so any other values are a valid witness). Resets the launch
+    counters just before the prove and returns them with the spans,
+    seconds, the kernels' input shapes and the encoded proof size. Then
+    the two negative checks: a tampered proof and a bad trace."""
     import numpy as np
     import torch
 
     from swirl_torch import kernels as K
     from swirl_torch import metrics
-    from swirl_torch.codec import decode_proof, encode_proof
+    from swirl_torch.codec import decode_proof, decode_vk, encode_proof, encode_vk
     from swirl_torch.engine import StarkEngine
     from swirl_torch.fields.babybear import P
     from swirl_torch.prover.backend import ProvingContext
     from swirl_torch.testing.synthetic import SyntheticAir, uniform_shape
+    from swirl_torch.verifier.errors import VerifierError
 
     air = SyntheticAir(uniform_shape(log_rows, width, num_constraints=16, num_interactions=8, degree=degree))
     trace = np.random.default_rng(seed).integers(0, P, (1 << log_rows, air.common_main_width()), dtype=np.uint64)
@@ -410,6 +430,9 @@ def prove_synthetic(device, params, degree: int, log_rows: int = LOG_ROWS,
     ctx = ProvingContext([eng.context_for(0, trace, [], [])])
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    _, debug_s = _synced_seconds(lambda: eng.debug([air], pk, ctx))
+    # the prove starts from the allocator state it had before the debug check
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
     t0 = time.perf_counter()
@@ -421,25 +444,60 @@ def prove_synthetic(device, params, degree: int, log_rows: int = LOG_ROWS,
     data = encode_proof(proof)
     if encode_proof(decode_proof(data)) != data:
         raise AssertionError("the proof does not survive a codec round trip")
+    vk_read = decode_vk(encode_vk(vk))
+    t0 = time.perf_counter()
+    eng.verify(vk_read, decode_proof(data))
+    verify_s = time.perf_counter() - t0
+
+    # negative checks: both must be refused
+    tampered = decode_proof(data)
+    opening = tampered.batch_constraint_proof.column_openings[0][0][0]
+    opening[0] = (int(opening[0]) + 1) % P
+    try:
+        eng.verify(vk_read, tampered)
+    except VerifierError as err:
+        tamper_refusal = type(err).__name__
+    else:
+        raise AssertionError("the verifier accepted a proof with a tampered column opening")
+    bad_row = (1 << log_rows) // 3
+    bad = trace.copy()
+    bad[bad_row, 0] = 1
+    bad_ctx = ProvingContext([eng.context_for(0, bad, [], [])])
+    try:
+        eng.debug([air], pk, bad_ctx)
+    except AssertionError as err:
+        bad_trace_refusal = str(err)
+    else:
+        raise AssertionError("the debug check passed a trace with a 1 in its kill column")
+    if not bad_trace_refusal.endswith(f"failed at row {bad_row}"):
+        raise AssertionError(f"the debug check refused the bad trace elsewhere: {bad_trace_refusal}")
     return {
         "setup_s": setup_s,
+        "debug_s": debug_s,
         "prove_s": prove_s,
+        "verify_s": verify_s,
         "spans_ms": {k: v for k, v in collector.snapshot().items() if k.endswith("_time_ms")},
         "proof_bytes": len(data),
         "peak_bytes": peak,
         "launches": launches,
         "shapes": shapes,
+        "tamper_refusal": tamper_refusal,
+        "bad_trace_refusal": bad_trace_refusal,
     }
 
 
 def report(tag: str, run: dict, required) -> None:
     _say(f"{tag}: 2^{LOG_ROWS} x {WIDTH}, setup {run['setup_s']:.3f} s, prove {run['prove_s']:.3f} s")
+    _say(f"{tag}: debug check {run['debug_s']:.3f} s (on the card, before the prove)")
+    _say(f"{tag}: verify {run['verify_s']:.3f} s (host verifier, the decoded proof bytes)")
     for name, ms in sorted(run["spans_ms"].items()):
         _say(f"{tag}: span {name} {ms:.1f}")
     _say(f"{tag}: peak device memory {run['peak_bytes']} B, proof {run['proof_bytes']} B, codec round trip ok")
     _say(f"{tag}: kernel launches {run['launches']}")
     for name, shapes in sorted(run["shapes"].items()):
         _say(f"{tag}: {name} input shapes {sorted(shapes, key=lambda s: -math.prod(s))}")
+    _say(f"{tag}: tampered column opening refused by the verifier: {run['tamper_refusal']}")
+    _say(f"{tag}: bad trace refused by the debug check: {run['bad_trace_refusal']}")
     missing = [name for name in required if run["launches"][name] == 0]
     if missing:
         raise AssertionError(f"{tag}: the path never launched {missing}")

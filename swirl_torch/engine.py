@@ -1,11 +1,11 @@
-"""StarkEngine for the torch port: keygen, context construction, prove.
+"""StarkEngine for the torch port: keygen, context construction, debug
+check, prove and verify.
 
 Peer of ``swirl/engine.py`` on the default BabyBear-Poseidon2 scheme with a
-fresh :class:`~swirl_torch.transcript.Transcript` per proof. The engine
-runs on the CUDA card unless the caller passes another device
-(``device="cpu"`` for the tests). The port has no verifier yet: a proof is
-checked by encoding it with :mod:`swirl_torch.codec` and verifying the
-bytes with the JAX package's verifier.
+fresh :class:`~swirl_torch.transcript.Transcript` per proof and per
+verification. The engine runs on the CUDA card unless the caller passes
+another device (``device="cpu"`` for the tests); the debug check runs on
+the traces' device, the verifier on the host (:mod:`swirl_torch.verifier`).
 """
 
 from __future__ import annotations
@@ -16,10 +16,12 @@ import numpy as np
 import torch
 
 from .air import Air
+from .debug import check_constraints_and_interactions
 from .keygen import MultiStarkKeygenBuilder, MultiStarkProvingKey, MultiStarkVerifyingKey
 from .params import SystemParams
 from .proof import Proof
 from .transcript import Transcript
+from .verifier import verify as verify_proof
 
 from .prover.backend import (
     AirContext,
@@ -60,7 +62,8 @@ class StarkEngine:
         cached_mains: Optional[List[np.ndarray]] = None,
     ) -> Tuple[int, AirContext]:
         """``common_main``: (height, width) canonical host array, or a
-        (width, height) int64 tensor already on the engine's device."""
+        (width, height) int64 tensor already on the engine's device (taken
+        as it is; ``SWIRL_SANITIZE=1`` range-checks it in the prover)."""
         if not isinstance(common_main, torch.Tensor):
             common_main = to_device_matrix(common_main, self.device)
         cached = [
@@ -87,16 +90,35 @@ class StarkEngine:
     ) -> Proof:
         return Coordinator(self.backend, transcript or Transcript()).prove(dpk, ctx)
 
+    def verify(
+        self,
+        vk: MultiStarkVerifyingKey,
+        proof: Proof,
+        transcript: Optional[Transcript] = None,
+    ) -> None:
+        verify_proof(self.params, vk, proof, transcript)
+
+    def debug(self, airs: List[Air], pk: MultiStarkProvingKey, ctx: ProvingContext):
+        """Every constraint on every row and the bus balance, on the device."""
+        check_constraints_and_interactions(airs, pk, ctx)
+
     def run_test(
         self,
         airs: List[Air],
         ctxs: List[Tuple[np.ndarray, List[int], List[np.ndarray]]],
         transcript: Optional[Transcript] = None,
+        debug: bool = True,
     ) -> Tuple[MultiStarkVerifyingKey, Proof]:
-        """keygen -> contexts -> prove; ctxs: per AIR (common_main,
-        public_values, cached_mains). Returns (vk, proof) unverified."""
+        """keygen -> contexts -> debug check -> prove -> verify; ctxs: per
+        AIR (common_main, public_values, cached_mains). ``transcript`` is
+        the prover's (a recording one keeps the prover's events); the
+        verifier always takes a fresh one."""
         pk, vk = self.keygen(airs)
         ctx = ProvingContext(
             [self.context_for(i, cm, pvs, cached) for i, (cm, pvs, cached) in enumerate(ctxs)]
         )
-        return vk, self.prove(self.transport_pk(pk), ctx, transcript)
+        if debug:
+            self.debug(airs, pk, ctx)
+        proof = self.prove(self.transport_pk(pk), ctx, transcript)
+        self.verify(vk, proof)
+        return vk, proof

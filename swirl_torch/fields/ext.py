@@ -33,6 +33,12 @@ def from_base(a) -> np.ndarray:
     return out
 
 
+def from_coeffs(cs) -> np.ndarray:
+    a = np.asarray(cs, U64) % U64(P)
+    assert a.shape[-1] == D
+    return a
+
+
 def eadd(a, b):
     return (np.asarray(a, U64) + np.asarray(b, U64)) % U64(P)
 
@@ -99,6 +105,12 @@ def is_zero(a) -> bool:
     return bool(np.all(np.asarray(a, U64) % U64(P) == 0))
 
 
+def eeq(a, b) -> bool:
+    return bool(
+        np.all((np.asarray(a, U64) % U64(P)) == (np.asarray(b, U64) % U64(P)))
+    )
+
+
 def epowers(a: np.ndarray, n: int) -> np.ndarray:
     """[1, a, a^2, ..., a^{n-1}] with shape (n, 4)."""
     out = np.zeros((n, D), dtype=U64)
@@ -119,3 +131,8 @@ def esum(a: np.ndarray, axis=0) -> np.ndarray:
         return np.zeros(shape, dtype=U64)
     # chunked accumulate to stay within u64: each element < 2^31, u64 allows 2^33 adds
     return a.sum(axis=axis, dtype=np.uint64) % U64(P)
+
+
+def edot(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Dot product sum_i a_i * b_i for (n,4) arrays."""
+    return esum(emul(a, b), axis=0)

@@ -24,6 +24,7 @@ from .fields import ext
 from .fields.babybear import (
     P,
     U64,
+    batch_inverse,
     finv,
     roots_of_unity,
     two_adic_generator,
@@ -51,6 +52,19 @@ def eval_eq_mle(x: np.ndarray, y: np.ndarray) -> EF:
     return acc
 
 
+def eval_mobius_eq_mle(u: np.ndarray, x: np.ndarray) -> EF:
+    """prod_i ((1-2u_i)(1-x_i) + u_i x_i)."""
+    u = np.asarray(u, U64).reshape(-1, 4)
+    x = np.asarray(x, U64).reshape(-1, 4)
+    acc = ext.eone()
+    one = ext.eone()
+    for ui, xi in zip(u, x):
+        w0 = ext.esub(one, ext.eadd(ui, ui))
+        term = ext.eadd(ext.emul(w0, ext.esub(one, xi)), ext.emul(ui, xi))
+        acc = ext.emul(acc, term)
+    return acc
+
+
 def evals_eq_hypercube(x: np.ndarray) -> np.ndarray:
     """eq(x, y) for all y in H_n: (2^n, 4), mask bit i <-> x[i]."""
     x = np.asarray(x, U64).reshape(-1, 4)
@@ -62,6 +76,34 @@ def evals_eq_hypercube(x: np.ndarray) -> np.ndarray:
         out[1 << i : 2 << i] = ext.emul(lo, x[i])
         out[: 1 << i] = ext.emul(lo, ext.esub(ext.eone(), x[i]))
     return out
+
+
+def evals_mobius_eq_hypercube(u: np.ndarray) -> np.ndarray:
+    """mobius_eq kernel table over H_n: per-bit weights (1-2u_i, u_i)."""
+    u = np.asarray(u, U64).reshape(-1, 4)
+    n = u.shape[0]
+    out = np.zeros((1 << n, 4), dtype=U64)
+    out[0] = ext.eone()
+    one = ext.eone()
+    for i in range(n):
+        w0 = ext.esub(one, ext.eadd(u[i], u[i]))
+        lo = out[: 1 << i].copy()
+        out[1 << i : 2 << i] = ext.emul(lo, u[i])
+        out[: 1 << i] = ext.emul(lo, w0)
+    return out
+
+
+def eval_mle_evals_at_point(evals: np.ndarray, x: np.ndarray) -> EF:
+    """Evaluate an MLE given by hypercube evals (2^n, 4) at x ((n, 4))."""
+    evals = np.asarray(evals, U64).reshape(-1, 4).copy()
+    x = np.asarray(x, U64).reshape(-1, 4)
+    assert evals.shape[0] == 1 << x.shape[0]
+    n = evals.shape[0]
+    for xj in reversed(x):
+        n >>= 1
+        lo, hi = evals[:n], evals[n : 2 * n]
+        evals[:n] = ext.eadd(lo, ext.emul(ext.esub(hi, lo), xj))
+    return evals[0]
 
 
 def eval_eq_rot_cube(x: np.ndarray, y: np.ndarray):
@@ -130,6 +172,33 @@ def eval_in_uni(l_skip: int, n: int, z: EF) -> EF:
     return eval_eq_uni_at_one(-n, zp)
 
 
+def eval_eq_prism(l_skip: int, x: Sequence[EF], y: Sequence[EF]) -> EF:
+    return ext.emul(
+        eval_eq_uni(l_skip, x[0], y[0]),
+        eval_eq_mle(np.asarray(x[1:], U64), np.asarray(y[1:], U64))
+        if len(x) > 1
+        else ext.eone(),
+    )
+
+
+def eval_rot_kernel_prism(l_skip: int, x: Sequence[EF], y: Sequence[EF]) -> EF:
+    """Prismatic rotation kernel kappa_rot(x, y) = delta_{x, rot(y)}."""
+    omega = two_adic_generator(l_skip)
+    x = np.asarray(x, U64)
+    y = np.asarray(y, U64)
+    if len(x) > 1:
+        eq_cube, rot_cube = eval_eq_rot_cube(x[1:], y[1:])
+    else:
+        eq_cube, rot_cube = ext.eone(), ext.eone()
+    y0w = ext.escale(y[0], omega)
+    term1 = ext.emul(eval_eq_uni(l_skip, x[0], y0w), eq_cube)
+    term2 = ext.emul(
+        ext.emul(eval_eq_uni_at_one(l_skip, x[0]), eval_eq_uni_at_one(l_skip, y0w)),
+        ext.esub(rot_cube, eq_cube),
+    )
+    return ext.eadd(term1, term2)
+
+
 def eval_eq_sharp_uni(l_skip: int, xi_1: np.ndarray, z: EF) -> EF:
     """eq#: sum over omega in D of eq_D(z, omega) * eq(xi_1, bits(omega))."""
     xi_1 = np.asarray(xi_1, U64).reshape(-1, 4)
@@ -176,6 +245,55 @@ def horner_eval(coeffs: np.ndarray, x: EF) -> EF:
     acc = ext.ezero()
     for c in reversed(coeffs):
         acc = ext.eadd(ext.emul(acc, x), c)
+    return acc
+
+
+def interpolate_linear_at_01(evals, x: EF) -> EF:
+    p = ext.esub(evals[1], evals[0])
+    return ext.eadd(ext.emul(p, x), evals[0])
+
+
+def interpolate_quadratic_at_012(evals, x: EF) -> EF:
+    s1 = ext.esub(evals[1], evals[0])
+    s2 = ext.esub(evals[2], evals[1])
+    half = (P + 1) // 2
+    pq = ext.escale(ext.esub(s2, s1), half)
+    q = ext.esub(s1, pq)
+    return ext.eadd(ext.emul(ext.eadd(ext.emul(pq, x), q), x), evals[0])
+
+
+def interpolate_cubic_at_0123(evals, x: EF) -> EF:
+    inv6 = pow(6, P - 2, P)
+    s1 = ext.esub(evals[1], evals[0])
+    s2 = ext.esub(evals[2], evals[0])
+    s3 = ext.esub(evals[3], evals[0])
+    d3 = ext.esub(s3, ext.escale(ext.esub(s2, s1), 3))
+    p_ = ext.escale(d3, inv6)
+    q_ = ext.esub(ext.escale(ext.esub(s2, d3), (P + 1) // 2), s1)
+    r_ = ext.esub(ext.esub(s1, p_), q_)
+    acc = ext.eadd(ext.emul(ext.eadd(ext.emul(ext.eadd(ext.emul(p_, x), q_), x), r_), x), evals[0])
+    return acc
+
+
+def lagrange_interpolate_at_integers(evals: np.ndarray, x: EF) -> EF:
+    """Interpolate through (i, evals[i]) for i = 0..d and evaluate at x."""
+    evals = np.asarray(evals, U64).reshape(-1, 4)
+    d = evals.shape[0] - 1
+    fact = [1] * (d + 1)
+    for i in range(1, d + 1):
+        fact[i] = fact[i - 1] * i % P
+    invfact = [finv(f) for f in fact]
+    pref = [ext.eone()]
+    for i in range(d):
+        pref.append(ext.emul(pref[-1], ext.esub(x, ext.from_base(i))))
+    suf = [ext.eone()]
+    for i in range(d):
+        suf.append(ext.emul(suf[-1], ext.esub(ext.from_base(d - i), x)))
+    acc = ext.ezero()
+    for i in range(d + 1):
+        term = ext.emul(pref[i], suf[d - i])
+        scale = invfact[i] * invfact[d - i] % P
+        acc = ext.eadd(acc, ext.escale(ext.emul(term, evals[i]), scale))
     return acc
 
 
@@ -288,3 +406,22 @@ def from_geometric_cosets_evals(
         for c in range(width):
             out[c * height + t] = poly_c[c]
     return out
+
+
+def univariate_from_evals_on_subgroup(evals: np.ndarray) -> np.ndarray:
+    """Coefficients from evaluations on the full two-adic subgroup (iDFT)."""
+    return idft_ef(evals)
+
+
+def sum_over_subgroup_from_coeffs(coeffs: np.ndarray, l_skip: int) -> EF:
+    """sum_{z in D} poly(z) = |D| * (c_0 + c_{|D|} + c_{2|D|} + ...)."""
+    coeffs = np.asarray(coeffs, U64).reshape(-1, 4)
+    n = 1 << l_skip
+    acc = ext.ezero()
+    for j in range(0, coeffs.shape[0], n):
+        acc = ext.eadd(acc, coeffs[j])
+    return ext.escale(acc, n % P)
+
+
+def powers_ef(x: EF, n: int) -> np.ndarray:
+    return ext.epowers(x, n)

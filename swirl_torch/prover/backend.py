@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from .. import metrics
+from .. import sanitize
 from ..fields import ext as hext
 from ..keygen import MultiStarkProvingKey
 from ..params import SystemParams
@@ -37,6 +38,11 @@ MAX_BACKEND_L_SKIP = 9
 def to_device_matrix(trace: np.ndarray, device) -> torch.Tensor:
     """(height, width) canonical host trace -> (width, height) tensor."""
     return F.const_arr(np.asarray(trace, dtype=np.uint64).T, device).contiguous()
+
+
+def from_device_matrix(mat: torch.Tensor) -> np.ndarray:
+    """(width, height) tensor -> (height, width) canonical host trace."""
+    return F.to_host(mat).T
 
 
 @dataclass
@@ -147,25 +153,21 @@ class Coordinator:
         self.backend = backend
         self.transcript = transcript
 
-    def prove(self, mpk: DeviceMultiStarkProvingKey, unsorted_ctx: ProvingContext) -> Proof:
-        with metrics.span("stark_prove_excluding_trace"):
-            proof = self._prove(mpk, unsorted_ctx)
-            _sync(self.backend.device)
-        return proof
-
-    def _prove(self, mpk: DeviceMultiStarkProvingKey, unsorted_ctx: ProvingContext) -> Proof:
-        params = mpk.params
+    def commit_and_observe(self, mpk: DeviceMultiStarkProvingKey, ctx: ProvingContext):
+        """The main-trace stacked commit and the transcript's preamble, on
+        the sorted context. Returns (common_commit, common_data,
+        trace_vdata, public_values)."""
         transcript = self.transcript
         device = self.backend.device
         transcript.observe_commit(mpk.vk_pre_hash)
 
-        ctx = unsorted_ctx.sorted_for_stacking()
         num_airs = len(mpk.per_air)
+        common_traces = [tc.common_main for _, tc in ctx.per_trace]
+        sanitize.check_traces(common_traces, "common_main")
         with metrics.span("prover.main_trace_commit"):
-            common_commit, common_data = self.backend.commit_traces(
-                [tc.common_main for _, tc in ctx.per_trace]
-            )
+            common_commit, common_data = self.backend.commit_traces(common_traces)
             _sync(device)
+        sanitize.check_canonical(common_data.matrix, "stacked_matrix")
 
         trace_vdata: List[Optional[TraceVData]] = [None] * num_airs
         public_values: List[List[int]] = [[] for _ in range(num_airs)]
@@ -191,28 +193,22 @@ class Coordinator:
                     transcript.observe_commit(c)
             for pv in public_values[air_id]:
                 transcript.observe(pv)
+        return common_commit, common_data, trace_vdata, public_values
+
+    def prove(self, mpk: DeviceMultiStarkProvingKey, unsorted_ctx: ProvingContext) -> Proof:
+        with metrics.span("stark_prove_excluding_trace"):
+            proof = self._prove(mpk, unsorted_ctx)
+            _sync(self.backend.device)
+        return proof
+
+    def _prove(self, mpk: DeviceMultiStarkProvingKey, unsorted_ctx: ProvingContext) -> Proof:
+        params = mpk.params
+        transcript = self.transcript
+        ctx = unsorted_ctx.sorted_for_stacking()
+        common_commit, common_data, trace_vdata, public_values = self.commit_and_observe(mpk, ctx)
 
         # stage: RAP constraints (GKR + batch sumcheck)
-        traces = []
-        for air_id, tc in ctx.per_trace:
-            pk = mpk.per_air[air_id]
-            vk = pk.vk
-            traces.append(
-                TraceProver(
-                    air_id=air_id,
-                    dag=vk.symbolic_constraints,
-                    needs_next=vk.params.need_rot,
-                    d_air=vk.max_constraint_degree,
-                    public_values=list(tc.public_values),
-                    height=tc.height,
-                    n=tc.height.bit_length() - 1 - params.l_skip,
-                    preprocessed=(
-                        pk.preprocessed_data.trace if pk.preprocessed_data is not None else None
-                    ),
-                    cached=[cd.trace for cd in tc.cached_mains],
-                    common=tc.common_main,
-                )
-            )
+        traces = trace_provers(mpk, ctx)
         with metrics.span("prove_rap_constraints"):
             gkr_proof, batch_proof, r = prove_zerocheck_and_logup(
                 transcript, params, mpk.max_constraint_degree, traces
@@ -261,3 +257,28 @@ class Coordinator:
             stacking_proof=stacking_proof,
             whir_proof=whir_proof,
         )
+
+
+def trace_provers(mpk: DeviceMultiStarkProvingKey, ctx: ProvingContext) -> List[TraceProver]:
+    """The RAP stage's per-trace inputs, in the sorted context's order."""
+    traces = []
+    for air_id, tc in ctx.per_trace:
+        pk = mpk.per_air[air_id]
+        vk = pk.vk
+        traces.append(
+            TraceProver(
+                air_id=air_id,
+                dag=vk.symbolic_constraints,
+                needs_next=vk.params.need_rot,
+                d_air=vk.max_constraint_degree,
+                public_values=list(tc.public_values),
+                height=tc.height,
+                n=tc.height.bit_length() - 1 - mpk.params.l_skip,
+                preprocessed=(
+                    pk.preprocessed_data.trace if pk.preprocessed_data is not None else None
+                ),
+                cached=[cd.trace for cd in tc.cached_mains],
+                common=tc.common_main,
+            )
+        )
+    return traces

@@ -87,6 +87,10 @@ class HostEvaluator:
         return self.sels[_SELECTORS[kind]]
 
 
+def eval_nodes(dag: ConstraintsDag, evaluator) -> list:
+    return eval_dag_nodes(dag, evaluator)
+
+
 def _times_ef(ev: DeviceEvaluator, value, weight):
     """node value (base or EF) times an EF weight (4,) -> EF."""
     return F.ext_mul(value, weight) if ev.ext_mode else F.mul(value[..., None], weight)

@@ -174,3 +174,57 @@ class MultiCachedAir(Air):
         p2 = rng.integers(0, P, (n, 1), dtype=np.uint64)
         common = ((p1[:, 0] + p1[:, 1] + p2[:, 0]) % np.uint64(P)).reshape(n, 1)
         return common, [p1, p2]
+
+
+class SelfInteractionAir(Air):
+    """Width-w AIR sending each row's key on a bus twice and receiving it
+    twice (balanced on a single trace); plus a dummy constraint."""
+
+    def __init__(self, width: int, bus_index: int = 0):
+        assert width >= 3
+        self.width = width
+        self.bus_index = bus_index
+
+    def common_main_width(self) -> int:
+        return self.width
+
+    def eval(self, b):
+        row = b.common_main.local
+        # send with count = row[0], receive with count = row[1]; traces set
+        # row[0] == row[1] so each message balances within the trace.
+        msg = row[2:]
+        b.push_interaction(self.bus_index, msg, row[0], 1)
+        b.push_interaction(self.bus_index, msg, -row[1], 1)
+        b.assert_eq(row[0], row[1])
+
+    def generate_trace(self, height: int, seed: int = 0) -> np.ndarray:
+        rng = np.random.default_rng(seed)
+        w = self.width
+        tr = rng.integers(0, P, (height, w), dtype=np.uint64)
+        counts = rng.integers(0, 100, height, dtype=np.uint64)
+        tr[:, 0] = counts
+        tr[:, 1] = counts
+        return tr
+
+
+class MixtureAir(Air):
+    """Simple constraint-only AIR of arbitrary width/degree for mixing."""
+
+    def __init__(self, width: int = 3):
+        assert width >= 2
+        self.width = width
+
+    def common_main_width(self) -> int:
+        return self.width
+
+    def eval(self, b):
+        row = b.common_main.local
+        # col0 * col1 == col1 * col0 style non-trivial but always satisfiable:
+        # enforce col_{w-1} = col_0 * col_1
+        b.assert_eq(row[self.width - 1], row[0] * row[1])
+
+    def generate_trace(self, height: int, seed: int = 1) -> np.ndarray:
+        rng = np.random.default_rng(seed)
+        tr = rng.integers(0, P, (height, self.width), dtype=np.uint64)
+        tr[:, self.width - 1] = (tr[:, 0] * tr[:, 1]) % np.uint64(P)
+        return tr

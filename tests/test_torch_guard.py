@@ -27,6 +27,13 @@ sys.meta_path.insert(0, _BlockJax())
 """
 
 
+# the verifier and the pre-prove checks, which the walk must reach
+NEW_MODULES = {f"swirl_torch.verifier.{m}" for m in (
+    "errors", "proof_shape", "gkr", "stacked_reduction", "whir", "batch_constraints",
+    "transcript_extractor")} | {
+    "swirl_torch.verifier", "swirl_torch.debug", "swirl_torch.sanitize", "swirl_torch.testing.pipeline"}
+
+
 def _is_blocked(module: str) -> bool:
     return module in ("jax", "swirl") or module.startswith(("jax.", "jaxlib", "swirl."))
 
@@ -49,6 +56,9 @@ def test_port_imports_with_jax_blocked():
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m in ('jax', 'swirl') or m.startswith(('jax.', 'swirl.'))]\n"
         "assert not bad, bad\n"
+        "walked = {m for m in sys.modules if m.startswith('swirl_torch')}\n"
+        f"missing = {sorted(NEW_MODULES)!r}\n"
+        "assert not [m for m in missing if m not in walked], walked\n"
         "print('imported', sum(m.startswith('swirl_torch') for m in sys.modules))"
     )
     r = _run(code)

@@ -131,3 +131,76 @@ def test_codec_round_trips_golden_bytes(name):
     assert tcodec.encode_proof(tcodec.decode_proof(proof_bytes)) == proof_bytes
     assert jcodec.encode_vk(jcodec.decode_vk(vk_bytes)) == vk_bytes
     assert _fields(vk.params) == _fields(jcodec.decode_vk(vk_bytes).params)
+
+
+def _ef(rng, *shape):
+    return rng.integers(0, P, shape + (4,), dtype=np.uint64)
+
+
+# the verifier's polynomial helpers: name -> arguments from a seeded rng
+POLY_ARGS = {
+    "interpolate_linear_at_01": lambda rng: (_ef(rng, 2), _ef(rng)),
+    "interpolate_quadratic_at_012": lambda rng: (_ef(rng, 3), _ef(rng)),
+    "interpolate_cubic_at_0123": lambda rng: (_ef(rng, 4), _ef(rng)),
+    "lagrange_interpolate_at_integers": lambda rng: (_ef(rng, 7), _ef(rng)),
+    "eval_eq_prism": lambda rng: (3, list(_ef(rng, 4)), list(_ef(rng, 4))),
+    "eval_rot_kernel_prism": lambda rng: (3, list(_ef(rng, 4)), list(_ef(rng, 4))),
+    "eval_mobius_eq_mle": lambda rng: (_ef(rng, 5), _ef(rng, 5)),
+    "evals_mobius_eq_hypercube": lambda rng: (_ef(rng, 4),),
+    "eval_mle_evals_at_point": lambda rng: (_ef(rng, 16), _ef(rng, 4)),
+    "sum_over_subgroup_from_coeffs": lambda rng: (_ef(rng, 40), 3),
+    "univariate_from_evals_on_subgroup": lambda rng: (_ef(rng, 8),),
+    "powers_ef": lambda rng: (_ef(rng), 9),
+}
+
+
+@pytest.mark.parametrize("name", sorted(POLY_ARGS))
+def test_verifier_poly_helpers_match_jax(name):
+    import swirl.poly as jpoly
+    import swirl_torch.poly as tpoly
+
+    for seed in range(3):
+        args = POLY_ARGS[name](np.random.default_rng(seed))
+        assert np.array_equal(getattr(tpoly, name)(*args), getattr(jpoly, name)(*args))
+
+
+def test_ext_helpers_match_jax():
+    import swirl.fields.ext as jext
+    import swirl_torch.fields.ext as text
+
+    rng = np.random.default_rng(5)
+    a, b = _ef(rng, 6), _ef(rng, 6)
+    assert np.array_equal(text.edot(a, b), jext.edot(a, b))
+    raw = rng.integers(0, 1 << 40, (3, 4), dtype=np.uint64)
+    assert np.array_equal(text.from_coeffs(raw), jext.from_coeffs(raw))
+    for x, y in ((a[0], a[0]), (a[0], b[0]), (a[1], a[1] + np.uint64(P))):
+        assert text.eeq(x, y) == jext.eeq(x, y)
+    assert text.eeq(a[1], a[1] + np.uint64(P)) and not text.eeq(a[0], b[0])
+
+
+def test_eval_nodes_matches_jax():
+    """The verifier's single-point DAG evaluation of a SyntheticAir at a
+    random EF point, rotations, selectors and public values included."""
+    import swirl
+    import swirl_torch
+
+    from swirl.prover import dag_eval as jde
+    from swirl_torch.prover import dag_eval as tde
+
+    def dag_of(pkg):
+        from importlib import import_module
+
+        syn = import_module(f"{pkg.__name__}.testing.synthetic")
+        params = import_module(f"{pkg.__name__}.params")
+        keygen = import_module(f"{pkg.__name__}.keygen")
+        air = syn.SyntheticAir(syn.uniform_shape(4, 6, num_constraints=5, num_interactions=2, degree=3))
+        vk, _ = keygen.keygen_air(air, params.test_system_params_small(2, 4, 3), False)
+        return vk.symbolic_constraints
+
+    rng = np.random.default_rng(6)
+    sels = tuple(_ef(rng, 3))
+    parts = [[(c, n) for c, n in zip(_ef(rng, 6), _ef(rng, 6))]]
+    got = tde.eval_nodes(dag_of(swirl_torch), tde.HostEvaluator(sels, None, parts, [7]))
+    want = jde.eval_nodes(dag_of(swirl), jde.HostEvaluator(sels, None, parts, [7]))
+    assert len(got) == len(want) > 0
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))

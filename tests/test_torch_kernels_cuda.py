@@ -211,3 +211,47 @@ def test_kernels_refuse_bad_operands(rand):
         p2.hash_cols(rand(2, 8, 3))
     with pytest.raises(ValueError):
         ntt.ntt_rows(rand(2, 12))
+
+
+def _debug_verdict(device, case):
+    """The port's debug check on ``device``: its AssertionError text, or
+    None if the traces pass."""
+    import numpy as np
+
+    from swirl_torch.engine import StarkEngine
+    from swirl_torch.params import test_system_params_small
+    from swirl_torch.prover.backend import ProvingContext
+    from swirl_torch.testing.fixtures import DummyInteractionAir
+    from swirl_torch.testing.synthetic import SyntheticAir, uniform_shape
+
+    mk = DummyInteractionAir.make_trace
+    air = SyntheticAir(uniform_shape(12, 16, num_constraints=6, num_interactions=4, degree=3))
+    trace = np.random.default_rng(3).integers(0, P, (1 << 12, air.common_main_width()), dtype=np.uint64)
+    trace[:, 0] = 0
+    if case == "broken":
+        trace[1234, 0] = 1  # the kill column: the constraints fail at row 1234
+    sender = DummyInteractionAir(2, is_send=True, bus_index=40)
+    receiver = DummyInteractionAir(2, is_send=False, bus_index=40)
+    sends = [[1 + i % 3, i % 25, 100 + i % 25] for i in range(64)]
+    recvs = sends if case != "unbalanced" else [[1, 0, 100]] + [[0, 0, 0]] * 63
+    airs = [air, sender, receiver]
+    ctxs = [(trace, [], []), (mk(sends), [], []), (mk(recvs), [], [])]
+    eng = StarkEngine(test_system_params_small(2, 12, 3), device=device)
+    pk, _ = eng.keygen(airs)
+    ctx = ProvingContext([eng.context_for(i, t, pv, c) for i, (t, pv, c) in enumerate(ctxs)])
+    assert ctx.per_trace[0][1].common_main.device.type == torch.device(device).type
+    try:
+        eng.debug(airs, pk, ctx)
+    except AssertionError as e:
+        return str(e)
+    return None
+
+
+@pytest.mark.parametrize("case", ["valid", "broken", "unbalanced"])
+def test_debug_check_on_the_card_matches_the_cpu(rand, case):
+    """The debug check on CUDA traces gives the CPU's verdict and text."""
+    got = _debug_verdict("cuda", case)
+    assert got == _debug_verdict("cpu", case)
+    assert (got is None) == (case == "valid")
+    if case == "broken":
+        assert got.endswith("failed at row 1234")

@@ -42,7 +42,10 @@ def test_port_reproduces_golden_proof(name):
 
 
 def test_unbalanced_interactions_are_refused():
-    """A receiver row that no sender matches leaves a non-zero LogUp sum."""
+    """A receiver row that no sender matches leaves a non-zero LogUp sum.
+    The debug check is off, as in the reference's ``test_unbalanced_fails``,
+    so that the prover itself refuses (the debug check's own refusal is in
+    ``tests/test_torch_debug.py``)."""
     from swirl_torch.testing.fixtures import DummyInteractionAir
 
     params, airs, ctxs = golden_cases()["interactions"]()
@@ -50,7 +53,7 @@ def test_unbalanced_interactions_are_refused():
     recv[0, 1] = 8  # (7, 9) -> (8, 9)
     ctxs = [ctxs[0], (DummyInteractionAir.make_trace(recv.tolist()), [], [])]
     with pytest.raises(ValueError, match="fractional sum is non-zero"):
-        StarkEngine(params, device="cpu").run_test(airs, ctxs)
+        StarkEngine(params, device="cpu").run_test(airs, ctxs, debug=False)
 
 
 def synthetic_pair(pkg, shapes, seed: int, degree: int):
