@@ -10,7 +10,8 @@ Phases, each printing its result on lines of its own:
 1. device: the card's name and power limit, the kernels' build time, and
    whether the host C++ library (transcript grinding) loaded;
 2. kernels: every hand-written CUDA kernel against its plain PyTorch
-   version at the shapes of both main paths, bit for bit, with both times
+   version at the shapes of the main paths, bit for bit (the Keccak
+   shapes just before the Keccak phase), with both times
    and the least time the card could take for the same work (where the
    plain version cannot hold the whole input, it takes it in column
    slices and is held to the same slices of the kernel's output). A
@@ -28,9 +29,15 @@ Phases, each printing its result on lines of its own:
    ``app_params_with_100_bits_security(22)``;
 5. leaf: the same for the 2^20 x 64 degree-4 cell under
    ``leaf_params_with_100_bits_security(25)``: 2 stacked columns of 2^25
-   rows, so the RS encode is one (2, 2^27) NTT through A′.
+   rows, so the RS encode is one (2, 2^27) NTT through A′;
+6. keccak: the same for ``KeccakAir`` on 2^10 random permutations, the
+   reference keccakf example's inputs and parameters (a 2^15 x 2633 trace,
+   ``app_params_with_100_bits_security(17)``, RS encode (659, 2^18)); its
+   40,535-node DAG runs through the level-scheduled interpreter, whose
+   levels and ``max_live`` the phase prints, with the trace generation's
+   seconds.
 
-Phases 4 and 5 use a random trace from a seed. The debug check runs on
+Phases 4 to 6 use a random trace from a seed. The debug check runs on
 the card before the prove, the port's host verifier on the proof's
 decoded bytes after it; each prints its seconds. They print the
 per-stage spans, the prove seconds, the peak device memory and the input
@@ -39,8 +46,9 @@ identically after a codec round trip. The kernel launch counters are
 reset just before each prove and read just after it, and every kernel of
 that path must have launched during it. Then two negative checks: the
 proof with 1 added to one column opening must be refused by the
-verifier, and the trace with a 1 in its kill column (column 0) at one
-row must be refused by the debug check at that row.
+verifier, and a bad trace must be refused by the debug check at its bad
+row: a 1 in the SyntheticAir kill column (column 0) at one row, one
+a_prime bit of Keccak flipped at a row in the middle of the trace.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -49,6 +57,7 @@ before those lines. Without a CUDA device it stops at once with exit code 2.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import subprocess
@@ -61,6 +70,12 @@ WIDTH = 64
 APP_LOG_STACKED = 22
 LEAF_LOG_STACKED = 25
 SEED = 0
+# the reference's keccakf example (examples/keccakf.py): 2^10 permutations,
+# a (2^15, 2633) trace, app parameters at log_stacked_height
+# max(15 + 2, 16) = 17, so four columns of 2^15 rows stack into one and the
+# stacked matrix is 659 columns of 2^17 rows (RS encode (659, 2^18))
+KECCAK_LOG_PERMS = 10
+KECCAK_STACKED = 659
 GOLDEN_CASES = ("fib", "interactions", "preprocessed", "cached_preprocessed")
 
 # The least time of a kernel's work is the larger of its bytes over the
@@ -214,6 +229,8 @@ def kernel_cases():
     1), the tower. App:
     the RS encode, its first two WHIR codewords, its leaf hashes, its first strided
     level (stride 2^19) and the (16, n) pairs form of ``compress_cols``.
+    Keccak: the RS encode of the 659 stacked columns and their leaf hash
+    (83 permutations a leaf, the last absorbing 3 words).
     ``plain slice`` is None where the plain version takes the whole input,
     else (columns of the output it takes at a time, the input columns of
     them); the kernel always runs on the whole input."""
@@ -237,12 +254,14 @@ def kernel_cases():
         (K.NTT, "app_rs_encode", fwd, pfwd, (16, 1 << 23), ntt_work, None),
         (K.NTT, "app_whir_codeword", fwd, pfwd, (4, 1 << 22), ntt_work, None),
         (K.NTT, "app_whir_codeword_2", fwd, pfwd, (4, 1 << 21), ntt_work, None),
+        (K.NTT, "keccak_rs_encode", fwd, pfwd, (KECCAK_STACKED, 1 << 18), ntt_work, None),
         (K.NTT_RECURSIVE, "leaf_rs_encode", fwd, pfwd, (2, 1 << 27), ntt_work, None),
         (K.NTT_RECURSIVE, "leaf_rs_encode_inverse", inv, pinv, (2, 1 << 27), ntt_work, None),
         (K.HASH_COLS, "leaf_codeword_hash", *hash_, (2, 1 << 27), hash_work, (1 << 24, _cols)),
         (K.HASH_COLS, "leaf_whir_hash", *hash_, (1, 1 << 26, 4), hash_work, (1 << 24, _cols)),
         (K.HASH_COLS, "app_codeword_hash", *hash_, (16, 1 << 23), hash_work, None),
         (K.HASH_COLS, "app_whir_hash", *hash_, (1, 1 << 22, 4), hash_work, None),
+        (K.HASH_COLS, "keccak_codeword_hash", *hash_, (KECCAK_STACKED, 1 << 18), hash_work, None),
         (K.COMPRESS, "leaf_strided_level", *layer(1 << 23), (8, 1 << 27), layer_work,
          (1 << 23, _layer_cols(1 << 23))),
         (K.COMPRESS, "leaf_tower_level", *layer(1), (8, 1 << 23), layer_work, None),
@@ -282,9 +301,12 @@ def _max_abs_err(got, want) -> int:
     return int((got - want).abs().max().item()) if got.numel() else 0
 
 
-def check_kernels(device) -> dict:
+def check_kernels(device, keccak: bool = False) -> dict:
     """Each kernel against its plain version on seeded random inputs, bit
-    for bit; returns the results of each kernel's first case."""
+    for bit; returns the results of each kernel's first case. The Keccak
+    cases run apart (``keccak=True``), just before the Keccak phase: the
+    2^18-point twiddle table they leave cached would otherwise count in
+    the app's and the leaf's peak memory."""
     import torch
 
     from swirl_torch import kernels as K
@@ -294,11 +316,14 @@ def check_kernels(device) -> dict:
 
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
-    pair = torch.randint(0, P, (8, 2), generator=gen, device=device, dtype=torch.int64)
-    t_perm = _graph_time_ms(lambda: p2.compress_tower(pair), reps=10)
-    floor_ms = TOWER_LEVELS * t_perm
+    if not keccak:
+        pair = torch.randint(0, P, (8, 2), generator=gen, device=device, dtype=torch.int64)
+        t_perm = _graph_time_ms(lambda: p2.compress_tower(pair), reps=10)
+        floor_ms = TOWER_LEVELS * t_perm
     results = {}
     for kernel, label, fk, fp, shape, work, slices in kernel_cases():
+        if label.startswith("keccak_") != keccak:
+            continue
         x = torch.randint(0, P, shape, generator=gen, device=device, dtype=torch.int64)
         got = fk(x)
         if slices is None:
@@ -371,15 +396,17 @@ def check_golden(device) -> None:
 
 @contextmanager
 def recorded_shapes():
-    """Collects {kernel name: set of input shapes} of every launch inside
+    """Collects {kernel name: {input shape: launches}} of every launch inside
     the block; the launches and their counts are unchanged."""
+    from collections import Counter
+
     from swirl_torch import kernels as K
 
     shapes = {}
     launch = K.LIB.launch
 
     def record(kernel, fn_name, t, *args):
-        shapes.setdefault(kernel.name, set()).add(tuple(t.shape))
+        shapes.setdefault(kernel.name, Counter())[tuple(t.shape)] += 1
         return launch(kernel, fn_name, t, *args)
 
     K.LIB.launch = record
@@ -399,15 +426,13 @@ def _synced_seconds(fn):
     return out, time.perf_counter() - t0
 
 
-def prove_synthetic(device, params, degree: int, log_rows: int = LOG_ROWS,
-                    width: int = WIDTH, seed: int = SEED) -> dict:
-    """Keygen, debug check, prove and verify of the bench shape with a
-    random witness (column 0 is the SyntheticAir kill column and stays
-    zero, so any other values are a valid witness). Resets the launch
-    counters just before the prove and returns them with the spans,
-    seconds, the kernels' input shapes and the encoded proof size. Then
-    the two negative checks: a tampered proof and a bad trace."""
-    import numpy as np
+def prove_and_check(device, params, air, trace, bad_trace, bad_row: int) -> dict:
+    """Keygen, debug check, prove and verify of ``air`` on ``trace``. Resets
+    the launch counters just before the prove and returns them with the
+    spans, seconds, the kernels' input shapes and the encoded proof size.
+    Then the two negative checks: the proof with 1 added to a column
+    opening must be refused by the verifier, and ``bad_trace`` by the debug
+    check at ``bad_row``."""
     import torch
 
     from swirl_torch import kernels as K
@@ -416,12 +441,7 @@ def prove_synthetic(device, params, degree: int, log_rows: int = LOG_ROWS,
     from swirl_torch.engine import StarkEngine
     from swirl_torch.fields.babybear import P
     from swirl_torch.prover.backend import ProvingContext
-    from swirl_torch.testing.synthetic import SyntheticAir, uniform_shape
     from swirl_torch.verifier.errors import VerifierError
-
-    air = SyntheticAir(uniform_shape(log_rows, width, num_constraints=16, num_interactions=8, degree=degree))
-    trace = np.random.default_rng(seed).integers(0, P, (1 << log_rows, air.common_main_width()), dtype=np.uint64)
-    trace[:, 0] = 0
 
     eng = StarkEngine(params, device)
     t0 = time.perf_counter()
@@ -459,16 +479,13 @@ def prove_synthetic(device, params, degree: int, log_rows: int = LOG_ROWS,
         tamper_refusal = type(err).__name__
     else:
         raise AssertionError("the verifier accepted a proof with a tampered column opening")
-    bad_row = (1 << log_rows) // 3
-    bad = trace.copy()
-    bad[bad_row, 0] = 1
-    bad_ctx = ProvingContext([eng.context_for(0, bad, [], [])])
+    bad_ctx = ProvingContext([eng.context_for(0, bad_trace, [], [])])
     try:
         eng.debug([air], pk, bad_ctx)
     except AssertionError as err:
         bad_trace_refusal = str(err)
     else:
-        raise AssertionError("the debug check passed a trace with a 1 in its kill column")
+        raise AssertionError("the debug check passed a bad trace")
     if not bad_trace_refusal.endswith(f"failed at row {bad_row}"):
         raise AssertionError(f"the debug check refused the bad trace elsewhere: {bad_trace_refusal}")
     return {
@@ -478,24 +495,84 @@ def prove_synthetic(device, params, degree: int, log_rows: int = LOG_ROWS,
         "verify_s": verify_s,
         "spans_ms": {k: v for k, v in collector.snapshot().items() if k.endswith("_time_ms")},
         "proof_bytes": len(data),
+        "proof_sha256": hashlib.sha256(data).hexdigest(),
         "peak_bytes": peak,
         "launches": launches,
         "shapes": shapes,
         "tamper_refusal": tamper_refusal,
         "bad_trace_refusal": bad_trace_refusal,
+        "dag": vk.per_air[0].symbolic_constraints,
     }
 
 
+def prove_synthetic(device, params, degree: int, log_rows: int = LOG_ROWS,
+                    width: int = WIDTH, seed: int = SEED) -> dict:
+    """The bench shape with a random witness (column 0 is the SyntheticAir
+    kill column and stays zero, so any other values are a valid witness);
+    the bad trace has a 1 in the kill column at one row."""
+    import numpy as np
+
+    from swirl_torch.fields.babybear import P
+    from swirl_torch.testing.synthetic import SyntheticAir, uniform_shape
+
+    air = SyntheticAir(uniform_shape(log_rows, width, num_constraints=16, num_interactions=8, degree=degree))
+    trace = np.random.default_rng(seed).integers(0, P, (1 << log_rows, air.common_main_width()), dtype=np.uint64)
+    trace[:, 0] = 0
+    bad_row = (1 << log_rows) // 3
+    bad = trace.copy()
+    bad[bad_row, 0] = 1
+    run = prove_and_check(device, params, air, trace, bad, bad_row)
+    run["size"] = f"2^{log_rows} x {width}"
+    return run
+
+
+def prove_keccak(device, log_perms: int = KECCAK_LOG_PERMS, seed: int = SEED) -> dict:
+    """The reference keccakf example's run: 2^log_perms random permutations
+    (``examples/keccakf.py``'s inputs), app parameters. The bad trace has one
+    a_prime bit flipped in the middle of the trace, which breaks theta's
+    parity link and A's recomposition at that row only."""
+    import numpy as np
+
+    from swirl_torch.models.keccak import Cols, KeccakAir
+    from swirl_torch.params import app_params_with_100_bits_security
+    from swirl_torch.prover.dag_vectorized import get_schedule
+
+    air = KeccakAir()
+    inputs = np.random.default_rng(seed).integers(0, 1 << 63, (1 << log_perms, 5, 5), dtype=np.uint64)
+    t0 = time.perf_counter()
+    trace = air.generate_trace(inputs)
+    trace_s = time.perf_counter() - t0
+    log_height = trace.shape[0].bit_length() - 1
+    params = app_params_with_100_bits_security(max(log_height + 2, 16))
+    bad_row = trace.shape[0] // 2 + 5
+    bad = trace.copy()
+    bad[bad_row, Cols.a_prime(2, 3, 17)] ^= 1
+    run = prove_and_check(device, params, air, trace, bad, bad_row)
+    sched = get_schedule(run["dag"])
+    run["size"] = f"2^{log_perms} permutations, trace 2^{log_height} x {trace.shape[1]}"
+    run["extra"] = [
+        f"trace generation {trace_s:.3f} s (host numpy)",
+        f"DAG {len(run['dag'].nodes)} nodes, {len(run['dag'].constraint_idx)} constraints; "
+        f"schedule {len(sched.levels)} levels, {len(sched.leaf_kinds)} live leaves, max_live {sched.max_live}",
+    ]
+    return run
+
+
 def report(tag: str, run: dict, required) -> None:
-    _say(f"{tag}: 2^{LOG_ROWS} x {WIDTH}, setup {run['setup_s']:.3f} s, prove {run['prove_s']:.3f} s")
+    _say(f"{tag}: {run['size']}, setup {run['setup_s']:.3f} s, prove {run['prove_s']:.3f} s")
+    for line in run.get("extra", []):
+        _say(f"{tag}: {line}")
     _say(f"{tag}: debug check {run['debug_s']:.3f} s (on the card, before the prove)")
     _say(f"{tag}: verify {run['verify_s']:.3f} s (host verifier, the decoded proof bytes)")
     for name, ms in sorted(run["spans_ms"].items()):
         _say(f"{tag}: span {name} {ms:.1f}")
-    _say(f"{tag}: peak device memory {run['peak_bytes']} B, proof {run['proof_bytes']} B, codec round trip ok")
+    _say(f"{tag}: peak device memory {run['peak_bytes']} B, proof {run['proof_bytes']} B "
+         f"(sha256 {run['proof_sha256'][:16]}), codec round trip ok")
     _say(f"{tag}: kernel launches {run['launches']}")
     for name, shapes in sorted(run["shapes"].items()):
         _say(f"{tag}: {name} input shapes {sorted(shapes, key=lambda s: -math.prod(s))}")
+        by_shape = ", ".join(f"{s}: {n}" for s, n in sorted(shapes.items(), key=lambda kv: -math.prod(kv[0])))
+        _say(f"{tag}: {name} launches by input shape {{{by_shape}}}")
     _say(f"{tag}: tampered column opening refused by the verifier: {run['tamper_refusal']}")
     _say(f"{tag}: bad trace refused by the debug check: {run['bad_trace_refusal']}")
     missing = [name for name in required if run["launches"][name] == 0]
@@ -517,6 +594,7 @@ def main() -> int:
     )
 
     device = torch.device("cuda", 0)
+    start = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -542,6 +620,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     leaf = prove_synthetic(device, leaf_params_with_100_bits_security(LEAF_LOG_STACKED), 4)
     report("leaf", leaf, [k.name for k in K.KERNELS])
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    check_kernels(device, keccak=True)
+    keccak = prove_keccak(device)
+    report("keccak", keccak, app_kernels)
+    _say(f"keccak: phase {time.perf_counter() - t0:.1f} s (kernel cases, trace, setup, debug, prove, "
+         f"verify, refusals)")
+    _say(f"total: {time.perf_counter() - start:.1f} s (build included)")
 
     # launches: the leaf path, the one path that runs all five kernels
     kernels = [

@@ -3,9 +3,11 @@ before proving, and checks LogUp bus balance across all traces (cf.
 reference ``crates/stark-backend/src/air_builders/debug/``).
 
 Peer of ``swirl/debug.py`` with the same inputs, order and messages, run on
-the traces' own device: every DAG node is one int64 tensor op over all rows
-of a trace, the first failing row of each constraint comes from one
-reduction, and the buses balance by grouping the messages with
+the traces' own device: the DAG is evaluated over all rows of a trace as
+int64 tensor ops (node by node, or through the level-scheduled interpreter
+for a DAG of 128 nodes or more, as the prover does), the first failing row
+of every constraint comes from one reduction, and the buses balance by
+grouping the messages with
 ``torch.unique`` and summing their counts with ``scatter_add``. Only the
 verdict, and the unbalanced messages for the report, reach the host.
 """
@@ -17,7 +19,9 @@ import torch
 from .fields import field as F
 from .fields.babybear import P
 from .keygen import MultiStarkProvingKey
-from .symbolic import ConstraintsDag, eval_dag_nodes
+from .prover.dag_eval import _eval_nodes_device
+from .prover.dag_vectorized import NodeValues
+from .symbolic import ConstraintsDag
 
 _DEBUG_ENABLED = [True]
 
@@ -51,7 +55,7 @@ class _RowEvaluator:
         ]
 
     def eval_const(self, c):
-        return torch.tensor(int(c) % P, dtype=F.DTYPE, device=self.device)
+        return torch.full((), int(c) % P, dtype=F.DTYPE, device=self.device)
 
     def eval_var(self, entry, part, offset, index):
         if entry == "public":
@@ -75,12 +79,12 @@ def _first_failing_rows(nodes, constraint_idx, height, device):
     ``height`` where it holds on every row; one host read in all."""
     if not constraint_idx:
         return []
+    if isinstance(nodes, NodeValues):
+        vals = nodes.gather(constraint_idx)
+    else:
+        vals = torch.stack([nodes[idx].expand(height) for idx in constraint_idx])
     rows = torch.arange(height, device=device)
-    firsts = [
-        torch.where(nodes[idx].expand(height) != 0, rows, height).min()
-        for idx in constraint_idx
-    ]
-    return torch.stack(firsts).tolist()
+    return torch.where(vals != 0, rows, height).amin(dim=1).tolist()
 
 
 class _BusRows:
@@ -104,7 +108,7 @@ def check_constraints_and_interactions(airs, pk: MultiStarkProvingKey, ctx):
         device, h = common.device, int(common.shape[1])
         prep = spk.preprocessed_data.trace if spk.preprocessed_data is not None else None
         parts = [cd.trace for cd in tc.cached_mains] + [common]
-        nodes = eval_dag_nodes(dag, _RowEvaluator(prep, parts, tc.public_values, h, device))
+        nodes = _eval_nodes_device(dag, _RowEvaluator(prep, parts, tc.public_values, h, device))
         for ci, row in enumerate(_first_failing_rows(nodes, dag.constraint_idx, h, device)):
             if row < h:
                 raise AssertionError(

@@ -1,4 +1,5 @@
-"""Where the host verifier's time goes, for the app and leaf proofs.
+"""Where the host verifier's time goes, for the app and leaf proofs (and,
+with ``--profile``, the Keccak proof).
 
     python -m swirl_torch.tools.verify_cost            # estimate, any host
     python -m swirl_torch.tools.verify_cost --profile  # measure, on the card
@@ -17,10 +18,11 @@ this host:
   coefficient) at every query point and at each round's out-of-domain
   point.
 
-``--profile`` proves the two cells of ``chip_smoke.py`` on the card (the
-same AIRs, params and seeded witness) and runs the verifier once on each
-proof's decoded bytes under ``cProfile``, printing its seconds and the
-functions that take the most of them.
+``--profile`` proves the app and leaf cells and the Keccak workload of
+``chip_smoke.py`` on the card (the same AIRs, params and seeded inputs)
+and runs the verifier once on each proof's decoded bytes under
+``cProfile``, printing its seconds and the functions that take the most
+of them.
 """
 
 from __future__ import annotations
@@ -103,10 +105,18 @@ def profile() -> None:
     from ..testing.synthetic import SyntheticAir, uniform_shape
     from ..verifier import verify
 
-    for name, params, degree in CELLS:
-        air = SyntheticAir(uniform_shape(ROWS_LOG, WIDTH, num_constraints=16, num_interactions=8, degree=degree))
-        trace = np.random.default_rng(SEED).integers(0, P, (1 << ROWS_LOG, air.common_main_width()), dtype=np.uint64)
-        trace[:, 0] = 0
+    from .prove_profile import keccak_workload
+
+    def workloads():
+        for name, params, degree in CELLS:
+            air = SyntheticAir(uniform_shape(ROWS_LOG, WIDTH, num_constraints=16, num_interactions=8, degree=degree))
+            trace = np.random.default_rng(SEED).integers(0, P, (1 << ROWS_LOG, air.common_main_width()),
+                                                         dtype=np.uint64)
+            trace[:, 0] = 0
+            yield name, params, air, trace
+        yield ("keccak", *keccak_workload())
+
+    for name, params, air, trace in workloads():
         eng = StarkEngine(params)
         pk, vk = eng.keygen([air])
         proof = eng.prove(eng.transport_pk(pk), ProvingContext([eng.context_for(0, trace, [], [])]))
@@ -118,7 +128,7 @@ def profile() -> None:
         prof.runcall(verify, params, vk, proof)
         seconds = time.perf_counter() - t0
         out = io.StringIO()
-        pstats.Stats(prof, stream=out).sort_stats("cumulative").print_stats(12)
+        pstats.Stats(prof, stream=out).sort_stats("cumulative").print_stats(16)
         print(f"{name}: verify {seconds:.3f} s under cProfile")
         print(out.getvalue())
 

@@ -91,7 +91,28 @@ def verify_stacked_reduction(
         claim = hpoly.interpolate_quadratic_at_012([s_j_0, s_j_1, s_j_2], u_j)
         u.append(u_j)
 
-    # final check: claim == sum over stacked columns of q * kernel coeffs
+    # final check: claim == sum over stacked columns of q * kernel coeffs.
+    # The lift indicator and the prism kernels depend on a column's height
+    # alone, so each height computes them once (a trace of 2,633 columns
+    # would otherwise repeat them 2,633 times).
+    by_height = {}
+
+    def prism_kernels(n: int):
+        if n not in by_height:
+            n_lift = max(n, 0)
+            if n < 0:
+                l_eff = l_skip + n
+                rs_n = [ext.epow(r[0], 1 << (-n))]
+            else:
+                l_eff = l_skip
+                rs_n = r[: n_lift + 1]
+            by_height[n] = (
+                hpoly.eval_in_uni(l_skip, n, u[0]),
+                hpoly.eval_eq_prism(l_eff, u[: n_lift + 1], rs_n),
+                hpoly.eval_rot_kernel_prism(l_eff, u[: n_lift + 1], rs_n),
+            )
+        return by_height[n]
+
     q_coeffs = [
         [ZERO] * len(openings) for openings in proof.stacking_openings
     ]
@@ -110,17 +131,9 @@ def verify_stacked_reduction(
                 if bits
                 else ONE
             )
-            ind = hpoly.eval_in_uni(l_skip, n, u[0])
-            if n < 0:
-                l_eff = l_skip + n
-                rs_n = [ext.epow(r[0], 1 << (-n))]
-            else:
-                l_eff = l_skip
-                rs_n = r[: n_lift + 1]
-            eq_prism = hpoly.eval_eq_prism(l_eff, u[: n_lift + 1], rs_n)
+            ind, eq_prism, rot_k = prism_kernels(n)
             batched = ext.emul(lam_sqr_pows[lam_i], eq_prism)
             if need_rot:
-                rot_k = hpoly.eval_rot_kernel_prism(l_eff, u[: n_lift + 1], rs_n)
                 batched = ext.eadd(
                     batched,
                     ext.emul(ext.emul(lam_sqr_pows[lam_i], lam), rot_k),

@@ -27,11 +27,13 @@ sys.meta_path.insert(0, _BlockJax())
 """
 
 
-# the verifier and the pre-prove checks, which the walk must reach
+# the verifier, the pre-prove checks, the models and the DAG interpreter,
+# which the walk must reach
 NEW_MODULES = {f"swirl_torch.verifier.{m}" for m in (
     "errors", "proof_shape", "gkr", "stacked_reduction", "whir", "batch_constraints",
     "transcript_extractor")} | {
-    "swirl_torch.verifier", "swirl_torch.debug", "swirl_torch.sanitize", "swirl_torch.testing.pipeline"}
+    "swirl_torch.verifier", "swirl_torch.debug", "swirl_torch.sanitize", "swirl_torch.testing.pipeline",
+    "swirl_torch.models", "swirl_torch.models.keccak", "swirl_torch.prover.dag_vectorized"}
 
 
 def _is_blocked(module: str) -> bool:
