@@ -17,13 +17,18 @@ Phases, each printing its result on lines of its own:
    slices and is held to the same slices of the kernel's output). A
    kernel's time is the mean of 10 back-to-back calls by CUDA events,
    except where the kernel may run faster than the Python that enqueues
-   it (``GRAPH_TIMED``: the tower, the 16-point coset NTT): there it is the
+   it (``GRAPH_TIMED``: the tower, the 16-point coset NTT; kernels E and
+   F): there it is the
    device's own clock, a CUDA graph of 10 calls replayed between two
-   events. The tower is also timed so at n = 2, one permutation (t_perm):
-   13 t_perm is the chain floor of its 13 dependent levels at n = 8192;
+   events. The tower and E run chains of dependent permutations: their
+   floor is the chain's length times one quad permutation's longest
+   dependent chain of field operations (``tools/isa.py``
+   ``QUAD_PERM_CHAIN``) at the latencies its latency bench measures on the
+   card, at the boost clock (the tower at n = 8192: 13 levels);
 3. golden: the four golden proofs through the port's ``run_test`` on the
    card (debug check, prove, verify), byte for byte against
-   ``tests/golden`` (vk, proof, transcript log);
+   ``tests/golden`` (vk, proof, transcript log), then proved again on a
+   ``DeviceTranscript`` (the proof's bytes);
 4. app: keygen, debug check, prove and verify of the 2^20 x 64
    ``SyntheticAir`` cell (degree 3) under
    ``app_params_with_100_bits_security(22)``;
@@ -35,7 +40,15 @@ Phases, each printing its result on lines of its own:
    ``app_params_with_100_bits_security(17)``, RS encode (659, 2^18)); its
    40,535-node DAG runs through the level-scheduled interpreter, whose
    levels and ``max_live`` the phase prints, with the trace generation's
-   seconds.
+   seconds;
+7. device transcript: kernels E (the sponge's duplex launches) and F (the
+   proof-of-work grind) against their plain versions at the cases of the
+   path (a GKR sub-round's absorb of 12 felts and squeeze of 4 from every
+   entry cursor, an EF squeeze from every sample cursor, the absorb of the
+   2^10-coefficient final polynomial, the query indices of a WHIR round;
+   the folding, mu and query-phase grinds), and, in the app and Keccak
+   phases, a second prove on ``DeviceTranscript()``: its proof's sha256
+   must equal the host-transcript proof's, and E and F must have launched.
 
 Phases 4 to 6 use a random trace from a seed. The debug check runs on
 the card before the prove, the port's host verifier on the proof's
@@ -98,7 +111,8 @@ GOLDEN_CASES = ("fib", "interactions", "preprocessed", "cached_preprocessed")
 # multiply-add and 2 others; a product by 2^-k without a Montgomery
 # product 1 multiply-add (hi - 15 * 2^(27-k) * lo) and 3 others.
 HBM_BYTES_PER_S = 3.35e12
-INT32_LANE_OPS_PER_S = 64 * 132 * 1.98e9
+BOOST_HZ = 1.98e9
+INT32_LANE_OPS_PER_S = 64 * 132 * BOOST_HZ
 MONT_MUL, ADD = (3, 2), (0, 2)  # (multiplies, other operations)
 SBOX = (12, 7)  # x^7: x^2, x^4 and x^3 * x^4 reduced, x^3 left in (0, 2P)
 HALVE, DIV2K = (1, 2), (1, 3)
@@ -276,6 +290,116 @@ def kernel_cases():
 GRAPH_TIMED = ("coset_chunks", "tower_8192")
 TOWER_LEVELS = 13  # of the tower's widest layer, TOWER_MAX = 2^13
 
+# Kernel E's cases: (label, absorb cursor, sample cursor, device felts, host
+# felts, squeezes, bits). A GKR sub-round absorbs its 12 evaluation felts
+# and squeezes an EF challenge, from every entry cursor; an EF squeeze from
+# every sample cursor (1 to 3 squeeze across a permutation); the app's
+# WHIR final polynomial, 2^10 EF coefficients; the app's first WHIR round's
+# 193 query indices of 19 bits, after the query grind (cursor (0, 7)); a
+# run with host felts.
+DUPLEX_CASES = (
+    [(f"gkr_subround_from_{c}", c % 8, c, 12, 0, 4, -1) for c in range(9)]
+    + [(f"sample_ext_from_{c}", 0, c, 0, 0, 4, -1) for c in range(9)]
+    + [("final_poly_absorb", 0, 4, 4 << 10, 0, 0, -1),
+       ("query_indices", 0, 7, 0, 0, 193, 19),
+       ("host_felts", 3, 5, 5, 7, 1, -1)]
+)
+# Kernel F's cases: (label, absorb cursor, bits): the query-phase grind
+# (after observe_ext(y0)), the mu grind, the folding grind (after an absorb
+# of 8)
+GRIND_CASES = (("query_grind", 4, 20), ("mu_grind", 0, 15), ("folding_grind", 0, 5))
+
+
+def duplex_perms(a, s, k, n_squeeze) -> int:
+    """The permutations, all in one dependent chain, of a duplex launch."""
+    perms = (a + k) // 8
+    a = (a + k) % 8
+    if perms:
+        s = 8
+    for _ in range(n_squeeze):
+        if a != 0 or s == 0:
+            perms, a, s = perms + 1, 0, 8
+        s -= 1
+    return perms
+
+
+def check_transcript_kernels(device, perm_floor_ms: float) -> dict:
+    """Kernels E and F against their plain versions on seeded random states
+    and felts, bit for bit (the new state, the squeezed values, the
+    witness). Both timed by CUDA graph replay (they run faster than Python
+    enqueues them). E's ms beside the bound and its floor, the chain of its
+    launch's dependent permutations times ``perm_floor_ms`` (one quad
+    permutation's latency floor), and its ms per permutation; F's with its input state
+    restored before every call, the bound counted from the witness found
+    (w + 1 candidates and the advance)."""
+    import torch
+
+    from swirl_torch import kernels as K
+    from swirl_torch.fields.babybear import P
+    from swirl_torch.hash import poseidon2 as p2
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 1)
+
+    def rand(*shape):
+        return torch.randint(0, P, shape, generator=gen, device=device, dtype=torch.int64)
+
+    results = {}
+    for label, a, s, k, n_host, n_squeeze, bits in DUPLEX_CASES:
+        st0, absorb = rand(16), rand(k) if k else None
+        host = [int(v) for v in rand(n_host).cpu()]
+        st = st0.clone()
+        got = torch.cat([p2.duplex(st, absorb, host, a, s, n_squeeze, bits), st])
+        new, out = p2.duplex_plain(st0, absorb, host, a, s, n_squeeze, bits)
+        err = _max_abs_err(got, torch.cat([out, new]))
+        if err:
+            raise AssertionError(f"kernel duplex [{label}]: max_abs_err {err}")
+        plain_ms = _cuda_time_ms(lambda: p2.duplex_plain(st0, absorb, host, a, s, n_squeeze, bits), reps=2)
+        ms = _graph_time_ms(lambda: p2.duplex(st, absorb, host, a, s, n_squeeze, bits), reps=10)
+        perms = duplex_perms(a, s, k + n_host, n_squeeze)
+        work = ((16 + k) * 8 + (16 + n_squeeze) * 8, _times(PERM, perms))
+        bound_ms, bound_by = bound(work)
+        floor_ms = perms * perm_floor_ms
+        per = f" ({1e3 * ms / perms:.2f} us a permutation)" if perms else ""
+        _say(
+            f"kernel duplex [{label}] cursors=({a}, {s}) absorb={k}+{n_host} squeeze={n_squeeze} bits={bits} "
+            f"equal=True max_abs_err={err} ms={ms:.4f} (by CUDA graph replay){per} plain_ms={plain_ms:.4f} "
+            f"bound_ms={bound_ms:.6f} ({bound_by}) floor_ms={floor_ms:.4f} ({perms} x the permutation's floor)"
+        )
+        results.setdefault(K.DUPLEX.name, {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "floor_ms": floor_ms,
+        })
+    for label, a, bits in GRIND_CASES:
+        st0 = rand(16)
+        st = st0.clone()
+        w = p2.grind(st, a, bits)
+        new, want_w = p2.grind_plain(st0, a, bits)
+        err = max(_max_abs_err(st, new), _max_abs_err(w, want_w))
+        if err:
+            raise AssertionError(f"kernel grind [{label}]: max_abs_err {err}")
+        witness = int(w.item())
+
+        def fk():
+            st.copy_(st0)
+            p2.grind(st, a, bits)
+
+        plain_ms = _cuda_time_ms(lambda: p2.grind_plain(st0, a, bits), reps=2)
+        ms = _graph_time_ms(fk, reps=10)
+        work = (2 * 16 * 8 + 8, _times(PERM, witness + 2))
+        bound_ms, bound_by = bound(work)
+        _say(
+            f"kernel grind [{label}] cursor={a} bits={bits} witness={witness} (expected 2^{bits} = "
+            f"{1 << bits} candidates) equal=True max_abs_err={err} ms={ms:.4f} (by CUDA graph replay, "
+            f"the state's restore included) plain_ms={plain_ms:.4f} "
+            f"bound_ms={bound_ms:.6f} ({bound_by}; {witness + 1} candidates and the advance)"
+        )
+        results.setdefault(K.GRIND.name, {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+        })
+    return results
+
 
 def _timed_ms(fn):
     """(result, ms) of one call, by CUDA events."""
@@ -301,9 +425,10 @@ def _max_abs_err(got, want) -> int:
     return int((got - want).abs().max().item()) if got.numel() else 0
 
 
-def check_kernels(device, keccak: bool = False) -> dict:
+def check_kernels(device, perm_floor_ms: float, keccak: bool = False) -> dict:
     """Each kernel against its plain version on seeded random inputs, bit
-    for bit; returns the results of each kernel's first case. The Keccak
+    for bit; returns the results of each kernel's first case; the tower's
+    floor is its levels times ``perm_floor_ms``. The Keccak
     cases run apart (``keccak=True``), just before the Keccak phase: the
     2^18-point twiddle table they leave cached would otherwise count in
     the app's and the leaf's peak memory."""
@@ -316,10 +441,6 @@ def check_kernels(device, keccak: bool = False) -> dict:
 
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
-    if not keccak:
-        pair = torch.randint(0, P, (8, 2), generator=gen, device=device, dtype=torch.int64)
-        t_perm = _graph_time_ms(lambda: p2.compress_tower(pair), reps=10)
-        floor_ms = TOWER_LEVELS * t_perm
     results = {}
     for kernel, label, fk, fp, shape, work, slices in kernel_cases():
         if label.startswith("keccak_") != keccak:
@@ -348,8 +469,8 @@ def check_kernels(device, keccak: bool = False) -> dict:
             how += f" (ms by CUDA graph replay; by events {ms:.4f})"
             ms = _graph_time_ms(lambda: fk(x), reps=10)
         if kernel is K.TOWER:
-            how += f" t_perm_ms={t_perm:.4f} floor_ms={floor_ms:.4f} ({TOWER_LEVELS} t_perm)"
-            extra["floor_ms"] = floor_ms
+            extra["floor_ms"] = TOWER_LEVELS * perm_floor_ms
+            how += f" floor_ms={extra['floor_ms']:.4f} ({TOWER_LEVELS} x the permutation's floor)"
         bound_ms, bound_by = bound(work(shape))
         _say(
             f"kernel {kernel.name} [{label}] shape={shape} equal=True "
@@ -372,9 +493,11 @@ def check_kernels(device, keccak: bool = False) -> dict:
 
 
 def check_golden(device) -> None:
-    """The golden cases through ``run_test``: debug check, prove, verify."""
+    """The golden cases through ``run_test``: debug check, prove, verify;
+    on the host transcript, then on a device transcript."""
     from swirl_torch.codec import encode_proof, encode_vk
     from swirl_torch.engine import StarkEngine
+    from swirl_torch.prover.device_transcript import DeviceTranscript
     from swirl_torch.testing.golden import encode_transcript_log, golden_cases, paths_for
     from swirl_torch.transcript import Transcript
 
@@ -383,15 +506,19 @@ def check_golden(device) -> None:
         transcript = Transcript(record=True)
         vk, proof = StarkEngine(params, device).run_test(airs, ctxs, transcript)
         paths = paths_for(name)
+        got_proof = encode_proof(proof)
         for what, got in (
             ("vk", encode_vk(vk)),
-            ("proof", encode_proof(proof)),
+            ("proof", got_proof),
             ("transcript", encode_transcript_log(transcript.log)),
         ):
             with open(paths[what], "rb") as f:
                 if f.read() != got:
                     raise AssertionError(f"golden {name}: {what} bytes differ")
-        _say(f"golden {name}: vk, proof and transcript byte-identical")
+        _, proof = StarkEngine(params, device).run_test(airs, ctxs, DeviceTranscript(device))
+        if encode_proof(proof) != got_proof:
+            raise AssertionError(f"golden {name}: the device-transcript proof's bytes differ")
+        _say(f"golden {name}: vk, proof and transcript byte-identical; the proof on a device transcript too")
 
 
 @contextmanager
@@ -426,13 +553,15 @@ def _synced_seconds(fn):
     return out, time.perf_counter() - t0
 
 
-def prove_and_check(device, params, air, trace, bad_trace, bad_row: int) -> dict:
+def prove_and_check(device, params, air, trace, bad_trace, bad_row: int, on_card: bool = False) -> dict:
     """Keygen, debug check, prove and verify of ``air`` on ``trace``. Resets
     the launch counters just before the prove and returns them with the
     spans, seconds, the kernels' input shapes and the encoded proof size.
     Then the two negative checks: the proof with 1 added to a column
     opening must be refused by the verifier, and ``bad_trace`` by the debug
-    check at ``bad_row``."""
+    check at ``bad_row``. With ``on_card``, last, the same prove on a
+    ``DeviceTranscript`` (its counters, spans, seconds and peak under
+    "on_card"), whose bytes must be the verified proof's."""
     import torch
 
     from swirl_torch import kernels as K
@@ -488,7 +617,10 @@ def prove_and_check(device, params, air, trace, bad_trace, bad_row: int) -> dict
         raise AssertionError("the debug check passed a bad trace")
     if not bad_trace_refusal.endswith(f"failed at row {bad_row}"):
         raise AssertionError(f"the debug check refused the bad trace elsewhere: {bad_trace_refusal}")
+    del bad_ctx  # its trace on the card would count in the next prove's peak
+    card = prove_on_card(eng, dpk, ctx, hashlib.sha256(data).hexdigest()) if on_card else None
     return {
+        "on_card": card,
         "setup_s": setup_s,
         "debug_s": debug_s,
         "prove_s": prove_s,
@@ -505,8 +637,42 @@ def prove_and_check(device, params, air, trace, bad_trace, bad_row: int) -> dict
     }
 
 
+def prove_on_card(eng, dpk, ctx, want_sha256: str) -> dict:
+    """The prove again on a ``DeviceTranscript`` on the engine's card: the
+    launch counters reset just before it, its proof's sha256 held to the
+    host-transcript proof's (already verified, so equal bytes need no
+    second verify)."""
+    import torch
+
+    from swirl_torch import kernels as K
+    from swirl_torch import metrics
+    from swirl_torch.codec import encode_proof
+    from swirl_torch.prover.device_transcript import DeviceTranscript
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    transcript = DeviceTranscript(eng.device)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with metrics.run_with_metric_collection() as collector:
+        proof = eng.prove(dpk, ctx, transcript)
+    prove_s = time.perf_counter() - t0
+    launches = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    sha = hashlib.sha256(encode_proof(proof)).hexdigest()
+    if sha != want_sha256:
+        raise AssertionError(f"the device-transcript proof differs: sha256 {sha[:16]} against {want_sha256[:16]}")
+    return {
+        "prove_s": prove_s,
+        "spans_ms": {k: v for k, v in collector.snapshot().items() if k.endswith("_time_ms")},
+        "peak_bytes": peak,
+        "launches": launches,
+        "proof_sha256": sha,
+    }
+
+
 def prove_synthetic(device, params, degree: int, log_rows: int = LOG_ROWS,
-                    width: int = WIDTH, seed: int = SEED) -> dict:
+                    width: int = WIDTH, seed: int = SEED, on_card: bool = False) -> dict:
     """The bench shape with a random witness (column 0 is the SyntheticAir
     kill column and stays zero, so any other values are a valid witness);
     the bad trace has a 1 in the kill column at one row."""
@@ -521,12 +687,12 @@ def prove_synthetic(device, params, degree: int, log_rows: int = LOG_ROWS,
     bad_row = (1 << log_rows) // 3
     bad = trace.copy()
     bad[bad_row, 0] = 1
-    run = prove_and_check(device, params, air, trace, bad, bad_row)
+    run = prove_and_check(device, params, air, trace, bad, bad_row, on_card)
     run["size"] = f"2^{log_rows} x {width}"
     return run
 
 
-def prove_keccak(device, log_perms: int = KECCAK_LOG_PERMS, seed: int = SEED) -> dict:
+def prove_keccak(device, log_perms: int = KECCAK_LOG_PERMS, seed: int = SEED, on_card: bool = False) -> dict:
     """The reference keccakf example's run: 2^log_perms random permutations
     (``examples/keccakf.py``'s inputs), app parameters. The bad trace has one
     a_prime bit flipped in the middle of the trace, which breaks theta's
@@ -547,7 +713,7 @@ def prove_keccak(device, log_perms: int = KECCAK_LOG_PERMS, seed: int = SEED) ->
     bad_row = trace.shape[0] // 2 + 5
     bad = trace.copy()
     bad[bad_row, Cols.a_prime(2, 3, 17)] ^= 1
-    run = prove_and_check(device, params, air, trace, bad, bad_row)
+    run = prove_and_check(device, params, air, trace, bad, bad_row, on_card)
     sched = get_schedule(run["dag"])
     run["size"] = f"2^{log_perms} permutations, trace 2^{log_height} x {trace.shape[1]}"
     run["extra"] = [
@@ -578,6 +744,17 @@ def report(tag: str, run: dict, required) -> None:
     missing = [name for name in required if run["launches"][name] == 0]
     if missing:
         raise AssertionError(f"{tag}: the path never launched {missing}")
+    card = run["on_card"]
+    if card is None:
+        return
+    _say(f"{tag}, device transcript: prove {card['prove_s']:.3f} s, peak device memory "
+         f"{card['peak_bytes']} B, proof sha256 {card['proof_sha256'][:16]} (the host-transcript proof's)")
+    for name, ms in sorted(card["spans_ms"].items()):
+        _say(f"{tag}, device transcript: span {name} {ms:.1f}")
+    _say(f"{tag}, device transcript: kernel launches {card['launches']}")
+    missing = [name for name in [*required, "duplex", "grind"] if card["launches"][name] == 0]
+    if missing:
+        raise AssertionError(f"{tag}, device transcript: the path never launched {missing}")
 
 
 def main() -> int:
@@ -592,6 +769,7 @@ def main() -> int:
         app_params_with_100_bits_security,
         leaf_params_with_100_bits_security,
     )
+    from swirl_torch.tools import isa
 
     device = torch.device("cuda", 0)
     start = time.perf_counter()
@@ -607,36 +785,44 @@ def main() -> int:
     for line in K.ptxas_summary(K.LIB.build_log):
         _say(f"build: {line}")
     _say(f"native host library loaded: {native.available()}")
+    cycles, ghz = isa.latency_bench()
+    clocks = isa.quad_perm_clocks(cycles)
+    perm_floor_ms = clocks / BOOST_HZ * 1e3
+    _say(f"latency: SM clocks a dependent operation {cycles} (at {ghz:.3f} GHz); one quad permutation's "
+         f"chain {isa.QUAD_PERM_CHAIN}: {clocks:.0f} clocks, floor {perm_floor_ms:.6f} ms at the boost clock")
 
-    results = check_kernels(device)
+    results = check_kernels(device, perm_floor_ms)
+    results.update(check_transcript_kernels(device, perm_floor_ms))
     K.reset_launch_counts()
     check_golden(device)
     counts = K.launch_counts()
     _say(f"golden: kernel launches {counts}")
 
-    app_kernels = [k.name for k in K.KERNELS if k is not K.NTT_RECURSIVE]
-    app = prove_synthetic(device, app_params_with_100_bits_security(APP_LOG_STACKED), 3)
+    # the host-transcript prove launches neither E nor F
+    app_kernels = [k.name for k in (K.NTT, K.HASH_COLS, K.COMPRESS, K.TOWER)]
+    app = prove_synthetic(device, app_params_with_100_bits_security(APP_LOG_STACKED), 3, on_card=True)
     report("app", app, app_kernels)
     torch.cuda.empty_cache()
     leaf = prove_synthetic(device, leaf_params_with_100_bits_security(LEAF_LOG_STACKED), 4)
-    report("leaf", leaf, [k.name for k in K.KERNELS])
+    report("leaf", leaf, [*app_kernels, K.NTT_RECURSIVE.name])
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    check_kernels(device, keccak=True)
-    keccak = prove_keccak(device)
+    check_kernels(device, perm_floor_ms, keccak=True)
+    keccak = prove_keccak(device, on_card=True)
     report("keccak", keccak, app_kernels)
     _say(f"keccak: phase {time.perf_counter() - t0:.1f} s (kernel cases, trace, setup, debug, prove, "
          f"verify, refusals)")
     _say(f"total: {time.perf_counter() - start:.1f} s (build included)")
 
-    # launches: the leaf path, the one path that runs all five kernels
+    # launches: the leaf path, the one path that runs A-D and A′; E and F
+    # on the app's device-transcript prove
     kernels = [
         {
             "name": k.name,
             "route": "cuda",
             "source": k.source,
             "replaces": k.replaces,
-            "launches": leaf["launches"][k.name],
+            "launches": (app["on_card"] if k in (K.DUPLEX, K.GRIND) else leaf)["launches"][k.name],
             **results[k.name],
         }
         for k in K.KERNELS

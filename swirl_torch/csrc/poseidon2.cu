@@ -1,4 +1,5 @@
-// Kernels B, C, D: Poseidon2-BabyBear-16 for Merkle trees.
+// Kernels B, C, D: Poseidon2-BabyBear-16 for Merkle trees; E, F: for the
+// Fiat-Shamir transcript.
 //
 // B  hash_cols    replaces swirl/tpu/poseidon2_pallas.py _hash_kernel (:143)
 //                 via _hash_cols_fn (:189) / hash_cols (:247): padding-free
@@ -10,6 +11,12 @@
 // D  tower        replaces _tower_kernel (:327) via _tower_fn (:365) /
 //                 compress_tower (:408): every level from <= 8192 digests
 //                 to the root in one launch, subtrees spread over the SMs.
+// E  duplex       the transcript's sponge on the card (no Pallas kernel: the
+//                 JAX package runs its device transcript,
+//                 swirl/prover/device_transcript.py, as jitted permutations):
+//                 a run of absorbs and squeezes in one launch.
+// F  grind        the transcript's proof-of-work search and its state
+//                 advance, on the card (device_transcript.py grind :290).
 //
 // What bounds it on the H100: the multiply pipe. A Montgomery product
 // needs the high halves of two 32x32-bit products (IMAD.WIDE, IMAD.HI),
@@ -374,6 +381,123 @@ __global__ void __launch_bounds__(2 * TOWER_BLOCK) tower_kernel(const int64_t* i
   }
 }
 
+// Kernel E (duplex): one run of the transcript's duplex-sponge events from
+// cursors the host knows (the event schedule is static): absorb the k felts
+// of `absorb` and then the n_host felts of `host` (overwrite mode: word a
+// takes the felt, a full rate permutes and resets the squeeze cursor),
+// then squeeze n_squeeze values (permute when an absorb is pending or the
+// rate is drained; take word --s), each masked with `mask`. One warp; every
+// quad runs the same permutation (`permute_quad`, the lanes that hold a
+// word do the loads and stores of quad 0), so a chain of p dependent
+// permutations takes p times one quad permutation: the launch is latency-
+// bound, and a GKR sub-round or a WHIR fold's absorb is one launch.
+constexpr int HOST_MAX = 32;  // host felts a launch takes by value
+struct HostFelts {
+  uint32_t v[HOST_MAX];
+};
+
+__device__ __forceinline__ uint32_t word(const uint32_t* x, int i) {
+  return i == 0 ? x[0] : i == 1 ? x[1] : i == 2 ? x[2] : x[3];
+}
+
+__global__ void __launch_bounds__(32) duplex_kernel(int64_t* state, const int64_t* absorb, long long k,
+                                                    const HostFelts host, int n_host, int a, int s,
+                                                    int n_squeeze, uint32_t mask, int64_t* out) {
+  const int q = threadIdx.x & (QUAD - 1);
+  const QuadRc c = quad_rc(q);
+  uint32_t x[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) x[i] = to_mont((uint32_t)state[4 * q + i]);
+  const long long total = k + n_host;
+  for (long long off = 0; off < total;) {
+    const long long len = min((long long)(RATE - a), total - off);
+    if (q < RATE / 4) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int p = 4 * q + i;
+        if (p >= a && p < a + len) {
+          const long long j = off + p - a;
+          x[i] = to_mont(j < k ? (uint32_t)absorb[j] : host.v[j - k]);
+        }
+      }
+    }
+    a += (int)len;
+    off += len;
+    if (a == RATE) {
+      permute_quad(x, c, q);
+      a = 0;
+      s = RATE;
+    }
+  }
+  for (int t = 0; t < n_squeeze; ++t) {
+    if (a != 0 || s == 0) {
+      permute_quad(x, c, q);
+      a = 0;
+      s = RATE;
+    }
+    --s;
+    if ((int)threadIdx.x == s >> 2) out[t] = from_mont(word(x, s & 3)) & mask;
+  }
+  if (threadIdx.x < QUAD) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) state[4 * q + i] = from_mont(x[i]);
+  }
+}
+
+// Kernel F (grind), the search: the smallest w in [0, P) such that
+// observe(w) at absorb cursor a, then sample_bits, gives 0 under `mask`.
+// Whatever the cursors, that is one permutation of the state with word a
+// set to w (a full rate permutes at the observe, else the sample does),
+// and the sample is word RATE - 1. Threads take the candidates of a sweep
+// of gridDim * blockDim in index order and keep the least hit with
+// atomicMin; a thread leaves once the least hit so far lies below its
+// sweep, so every candidate below the final minimum was tried and the
+// minimum is the host scan's witness. `found` starts above P (the wrapper
+// fills its bytes with 0x7f). Bound: the multiply pipe, one permutation a
+// candidate (the scalar `permute` of B and C).
+__global__ void __launch_bounds__(128) grind_kernel(const int64_t* __restrict__ state, int a,
+                                                    uint32_t mask, unsigned long long* found) {
+  uint32_t s0[WIDTH];
+#pragma unroll
+  for (int i = 0; i < WIDTH; ++i) s0[i] = to_mont((uint32_t)state[i]);
+  const unsigned long long sweep = (unsigned long long)gridDim.x * blockDim.x;
+  for (unsigned long long base = 0; base < P; base += sweep) {
+    if (*(volatile unsigned long long*)found < base) return;
+    const unsigned long long w = base + (unsigned long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (w >= P) return;
+    const uint32_t wm = to_mont((uint32_t)w);
+    uint32_t s[WIDTH];
+#pragma unroll
+    for (int i = 0; i < WIDTH; ++i) s[i] = i == a ? wm : s0[i];
+    permute(s);
+    if ((from_mont(s[RATE - 1]) & mask) == 0) atomicMin(found, w);
+  }
+}
+
+// Kernel F, the state advance of check_witness: observe the witness, sample
+// once (one permutation, as above). With no witness in [0, P) the state is
+// left as it is and the witness reads -1, which the prover refuses when it
+// fetches the proof.
+__global__ void __launch_bounds__(32) grind_advance_kernel(int64_t* state, int a,
+                                                           unsigned long long* found) {
+  const unsigned long long w = *(volatile unsigned long long*)found;
+  __syncwarp();
+  if (w >= P) {
+    if (threadIdx.x == 0) *found = ~0ull;
+    return;
+  }
+  const int q = threadIdx.x & (QUAD - 1);
+  const QuadRc c = quad_rc(q);
+  uint32_t x[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) x[i] = 4 * q + i == a ? to_mont((uint32_t)w) : to_mont((uint32_t)state[4 * q + i]);
+  permute_quad(x, c, q);
+  if (threadIdx.x < QUAD) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) state[4 * q + i] = from_mont(x[i]);
+  }
+}
+
 }  // namespace
 
 // Round constants in Montgomery form: ext_init/ext_final (4, 16) and
@@ -412,5 +536,40 @@ extern "C" int swirl_p2_tower(const int64_t* in, int64_t* out, int n, unsigned* 
   const int count = n < TOWER_BLOCK ? n : TOWER_BLOCK;
   const int threads = 2 * count < 32 ? 32 : 2 * count;  // whole warps: the shuffles name all 32 lanes
   tower_kernel<<<n / count, threads, 0, (cudaStream_t)stream>>>(in, out, n, tickets);
+  return (int)cudaGetLastError();
+}
+
+// a: absorb cursor in [0, 8); s: squeeze cursor in [0, 8]; bits in [0, 30],
+// or -1 for unmasked squeezes; out: n_squeeze int64 values.
+extern "C" int swirl_p2_duplex(int64_t* state, const int64_t* absorb, long long k, const uint32_t* host,
+                               int n_host, int a, int s, int n_squeeze, int bits, int64_t* out,
+                               void* stream) {
+  if (a < 0 || a >= RATE || s < 0 || s > RATE || k < 0 || n_host < 0 || n_host > HOST_MAX ||
+      n_squeeze < 0 || bits < -1 || bits > 30)
+    return (int)cudaErrorInvalidValue;
+  HostFelts h = {};
+  for (int i = 0; i < n_host; ++i) h.v[i] = host[i];
+  const uint32_t mask = bits < 0 ? ~0u : (1u << bits) - 1u;
+  duplex_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(state, absorb, k, h, n_host, a, s, n_squeeze, mask,
+                                                    out);
+  return (int)cudaGetLastError();
+}
+
+// The search sweeps twice the expected 2^bits candidates at once, at most
+// as many blocks as the card holds; then the advance. witness: one int64.
+extern "C" int swirl_p2_grind(int64_t* state, int a, int bits, int64_t* witness, void* stream) {
+  if (a < 0 || a >= RATE || bits < 1 || bits > 30) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, grind_kernel, 128, 0);
+  const long long want = ((2LL << bits) + 127) / 128;
+  const long long most = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  const unsigned blocks = (unsigned)(want < most ? want : most);
+  unsigned long long* found = reinterpret_cast<unsigned long long*>(witness);
+  cudaMemsetAsync(found, 0x7f, sizeof(*found), st);
+  grind_kernel<<<blocks, 128, 0, st>>>(state, a, (1u << bits) - 1u, found);
+  grind_advance_kernel<<<1, 32, 0, st>>>(state, a, found);
   return (int)cudaGetLastError();
 }

@@ -3,7 +3,8 @@ check, prove and verify.
 
 Peer of ``swirl/engine.py`` on the default BabyBear-Poseidon2 scheme with a
 fresh :class:`~swirl_torch.transcript.Transcript` per proof and per
-verification. The engine runs on the CUDA card unless the caller passes
+verification, unless the caller hands the prover a transcript (a device
+one among them). The engine runs on the CUDA card unless the caller passes
 another device (``device="cpu"`` for the tests); the debug check runs on
 the traces' device, the verifier on the host (:mod:`swirl_torch.verifier`).
 """
@@ -86,8 +87,12 @@ class StarkEngine:
         self,
         dpk: DeviceMultiStarkProvingKey,
         ctx: ProvingContext,
-        transcript: Optional[Transcript] = None,
+        transcript=None,
     ) -> Proof:
+        """A fresh host :class:`Transcript` by default; a
+        :class:`~swirl_torch.prover.device_transcript.DeviceTranscript` on the
+        engine's device keeps the sponge on it through GKR and WHIR (the
+        same proof bytes)."""
         return Coordinator(self.backend, transcript or Transcript()).prove(dpk, ctx)
 
     def verify(

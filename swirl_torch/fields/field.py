@@ -107,6 +107,50 @@ def to_host(x) -> np.ndarray:
 ext_to_host = to_host
 
 
+def to_host_all(values) -> list:
+    """Canonical numpy arrays of a list of tensors in ONE device-to-host
+    copy (host values pass through as they are): the proof's values that a
+    stage kept on the device until its end."""
+    tensors = [v for v in values if isinstance(v, torch.Tensor)]
+    flat = to_host(torch.cat([t.reshape(-1) for t in tensors])) if tensors else None
+    out, off = [], 0
+    for v in values:
+        if isinstance(v, torch.Tensor):
+            out.append(flat[off : off + v.numel()].reshape(tuple(v.shape)))
+            off += v.numel()
+        else:
+            out.append(v)
+    return out
+
+
+def ext_one(device):
+    """The EF4 value 1 as a (4,) tensor, made on ``device`` (no host copy,
+    which on the card would wait for the stream)."""
+    return (torch.arange(4, device=device) == 0).to(DTYPE)
+
+
+def epowers(a, n: int):
+    """[1, a, ..., a^(n-1)] of a (4,) EF tensor as (n, 4), by log-depth
+    doubling on its device; peer of ``swirl/fields/text.py`` epowers :113."""
+    out = ext_one(a.device)[None]
+    cur = a
+    while out.shape[0] < n:
+        out = torch.cat([out, ext_mul(out, cur)])
+        cur = ext_mul(cur, cur)
+    return out[:n]
+
+
+def pow_exps(base: int, e, bits: int):
+    """base^e for a tensor of exponents e < 2^bits, square and multiply on
+    e's device (the WHIR query points omega^index)."""
+    out = torch.ones_like(e)
+    cur = int(base) % P
+    for b in range(bits):
+        out = torch.where(((e >> b) & 1) == 1, mul(out, cur), out)
+        cur = cur * cur % P
+    return out
+
+
 def powers(base: int, n: int, device=None):
     """[base^0, ..., base^(n-1)] as an (n,) tensor, by log-depth doubling."""
     out = torch.ones(1, dtype=DTYPE, device=device)

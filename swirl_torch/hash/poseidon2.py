@@ -524,6 +524,114 @@ def compress_tower(digests) -> list:
 
 
 # ---------------------------------------------------------------------------
+# Kernels E (duplex) and F (grind): the Fiat-Shamir sponge of the device
+# transcript (prover/device_transcript.py) on the card. The state is a (16,)
+# canonical int64 tensor, updated in place; the cursors are host ints.
+# ---------------------------------------------------------------------------
+
+HOST_MAX = 32  # host felts one duplex launch takes by value (csrc HOST_MAX)
+
+
+def _check_duplex(state, a: int, s: int, n_host: int, n_squeeze: int, bits: int) -> None:
+    if tuple(state.shape) != (WIDTH,):
+        raise ValueError(f"duplex: the state is {tuple(state.shape)}, not ({WIDTH},)")
+    if not (0 <= a < RATE and 0 <= s <= RATE):
+        raise ValueError(f"duplex: cursors (absorb {a}, sample {s}) out of range")
+    if not 0 <= n_host <= HOST_MAX or n_squeeze < 0 or not -1 <= bits <= 30:
+        raise ValueError(f"duplex: {n_host} host felts, {n_squeeze} squeezes, bits {bits}")
+
+
+def duplex_plain(state, absorb, host, a: int, s: int, n_squeeze: int, bits: int = -1):
+    """Kernel E's function: absorb the felts of ``absorb`` (a flat tensor or
+    None) and then the host ints ``host`` from the cursors (a, s), overwrite
+    mode, then squeeze ``n_squeeze`` values masked to ``bits`` low bits (-1:
+    unmasked). Returns (new state, (n_squeeze,) values)."""
+    vals = [] if absorb is None else [absorb.reshape(-1)]
+    if len(host):
+        vals.append(torch.tensor([int(v) for v in host], dtype=F.DTYPE, device=state.device))
+    vals = torch.cat(vals) if vals else state[:0]
+    off = 0
+    while off < vals.shape[0]:
+        n = min(RATE - a, vals.shape[0] - off)
+        state = torch.cat([state[:a], vals[off : off + n], state[a + n :]])
+        a, off = a + n, off + n
+        if a == RATE:
+            state, a, s = permute_plain(state), 0, RATE
+    out = []
+    for _ in range(n_squeeze):
+        if a != 0 or s == 0:
+            state, a, s = permute_plain(state), 0, RATE
+        s -= 1
+        out.append(state[s])
+    out = torch.stack(out) if out else state[:0]
+    return state, out if bits < 0 else out & ((1 << bits) - 1)
+
+
+def duplex(state, absorb, host, a: int, s: int, n_squeeze: int, bits: int = -1):
+    """Kernel E: :func:`duplex_plain` in one launch, the (16,) state updated
+    in place; returns the squeezed values. ``host`` holds at most
+    :data:`HOST_MAX` canonical ints, taken after ``absorb``."""
+    _check_duplex(state, a, s, len(host), n_squeeze, bits)
+    if not state.is_cuda:
+        new, out = duplex_plain(state, absorb, host, a, s, n_squeeze, bits)
+        state.copy_(new)
+        return out
+    K.require(state, 1, "duplex")
+    k = 0
+    if absorb is not None:
+        K.require(absorb, 1, "duplex")
+        k = absorb.shape[0]
+    out = torch.empty(n_squeeze, dtype=F.DTYPE, device=state.device)
+    h = np.ascontiguousarray(host, dtype=np.uint32)
+    K.LIB.launch(
+        K.DUPLEX, "swirl_p2_duplex", state, state.data_ptr(), absorb.data_ptr() if k else None, k,
+        h.ctypes.data if len(h) else None, len(h), a, s, n_squeeze, bits, out.data_ptr(),
+    )
+    return out
+
+
+def _check_grind(state, a: int, bits: int) -> None:
+    if tuple(state.shape) != (WIDTH,) or not 0 <= a < RATE:
+        raise ValueError(f"grind: state {tuple(state.shape)}, absorb cursor {a}")
+    if not 1 <= bits <= 30:  # 2^bits < P
+        raise ValueError(f"grind: {bits} bits; a witness needs 1 to 30")
+
+
+def grind_plain(state, a: int, bits: int):
+    """Kernel F's function: the smallest w in [0, P) such that observe(w) at
+    absorb cursor ``a`` and then ``sample_bits(bits)`` give 0, and the
+    state after both (one permutation with word a set to w; the sample is
+    word RATE - 1). Returns (new state, w), or (state, -1) with no witness."""
+    mask = (1 << bits) - 1
+    batch = 1 << 16 if state.is_cuda else 1 << 12
+    for start in range(0, P, batch):
+        cand = torch.arange(start, min(start + batch, P), dtype=F.DTYPE, device=state.device)
+        states = state.expand(cand.shape[0], WIDTH).clone()
+        states[:, a] = cand
+        out = permute_plain(states)
+        hits = (out[:, RATE - 1] & mask) == 0
+        if bool(hits.any()):
+            i = int(torch.argmax(hits.to(torch.int8)))
+            return out[i], cand[i]
+    return state, torch.tensor(-1, dtype=F.DTYPE, device=state.device)
+
+
+def grind(state, a: int, bits: int):
+    """Kernel F: :func:`grind_plain` on the card, the (16,) state advanced in
+    place (the squeeze cursor is then RATE - 1, the absorb cursor 0);
+    returns the witness as a 0-d tensor, -1 if there is none."""
+    _check_grind(state, a, bits)
+    if not state.is_cuda:
+        new, w = grind_plain(state, a, bits)
+        state.copy_(new)
+        return w
+    K.require(state, 1, "grind")
+    w = torch.empty((), dtype=F.DTYPE, device=state.device)
+    K.LIB.launch(K.GRIND, "swirl_p2_grind", state, state.data_ptr(), a, bits, w.data_ptr())
+    return w
+
+
+# ---------------------------------------------------------------------------
 # Kernel D (csrc/poseidon2.cu tower_kernel): its permutation split over a
 # quad of lanes, and its plan, checked on index arrays; a CPU model runs
 # both step for step.

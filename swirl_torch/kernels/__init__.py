@@ -64,7 +64,17 @@ TOWER = Kernel(
     "merkle_tower", "swirl_torch/csrc/poseidon2.cu",
     "swirl/tpu/poseidon2_pallas.py:327 (_tower_kernel)",
 )
-KERNELS = (NTT, NTT_RECURSIVE, HASH_COLS, COMPRESS, TOWER)
+# the port's own kernels: the JAX package runs its device transcript as
+# jitted permutations, with no Pallas kernel
+DUPLEX = Kernel(
+    "duplex", "swirl_torch/csrc/poseidon2.cu",
+    "none: swirl/prover/device_transcript.py:134 (DeviceTranscript, jitted permutations)",
+)
+GRIND = Kernel(
+    "grind", "swirl_torch/csrc/poseidon2.cu",
+    "none: swirl/prover/device_transcript.py:290 (grind, a jitted while loop)",
+)
+KERNELS = (NTT, NTT_RECURSIVE, HASH_COLS, COMPRESS, TOWER, DUPLEX, GRIND)
 
 
 def reset_launch_counts() -> None:
@@ -142,6 +152,8 @@ class _Library:
                     "swirl_p2_hash_cols": [vp, vp, i32, i64, i32, vp],
                     "swirl_p2_compress": [vp, vp, i64, i64, i32, i64, vp],
                     "swirl_p2_tower": [vp, vp, i32, vp, vp],
+                    "swirl_p2_duplex": [vp, vp, i64, vp, i32, i32, i32, i32, i32, vp, vp],
+                    "swirl_p2_grind": [vp, i32, i32, vp, vp],
                 }
                 for name, args in sigs.items():
                     fn = getattr(lib, name)

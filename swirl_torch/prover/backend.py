@@ -1,10 +1,14 @@
 """Torch prover backend: device data, transport, commitment, and the proof
-coordinator on the host transcript.
+coordinator.
 
 Peer of ``swirl/prover/backend.py``: ``TorchBackend`` plays ``JaxBackend``
-and :class:`Coordinator` is the host-transcript branch of its
-``Coordinator._prove`` (:294-396). Stages: main-trace stacked commit, RAP
-constraints (LogUp GKR + batch sumcheck), stacked opening reduction, WHIR.
+and :class:`Coordinator` is its ``Coordinator._prove`` (:294-396). Stages:
+main-trace stacked commit, RAP constraints (LogUp GKR + batch sumcheck),
+stacked opening reduction, WHIR. On a
+:class:`~.device_transcript.DeviceTranscript` (as ``swirl/prover/fused.py:387``
+runs the Coordinator on one) the GKR fractional sumcheck and WHIR run on
+it, and every other stage on a host transcript that takes the sponge over
+at their boundaries.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from .errors import ProverError
 from ..transcript import Transcript
 
 from ..fields import field as F
+from .device_transcript import DeviceTranscript, device_view, handed_over
 from .logup_zerocheck import TraceProver, prove_zerocheck_and_logup
 from .stacked_pcs import StackedPcsData, stacked_commit
 from .stacked_reduction import prove_stacked_opening_reduction
@@ -147,17 +152,19 @@ class TorchBackend:
 
 
 class Coordinator:
-    """Drives the full prove flow on the host transcript."""
+    """Drives the full prove flow on a host :class:`Transcript` or a
+    :class:`DeviceTranscript` on the backend's device."""
 
-    def __init__(self, backend: TorchBackend, transcript: Transcript):
+    def __init__(self, backend: TorchBackend, transcript):
         self.backend = backend
         self.transcript = transcript
 
-    def commit_and_observe(self, mpk: DeviceMultiStarkProvingKey, ctx: ProvingContext):
+    def commit_and_observe(self, mpk: DeviceMultiStarkProvingKey, ctx: ProvingContext, transcript=None):
         """The main-trace stacked commit and the transcript's preamble, on
-        the sorted context. Returns (common_commit, common_data,
+        the sorted context, observed into ``transcript`` (a host one; by
+        default the coordinator's). Returns (common_commit, common_data,
         trace_vdata, public_values)."""
-        transcript = self.transcript
+        transcript = self.transcript if transcript is None else transcript
         device = self.backend.device
         transcript.observe_commit(mpk.vk_pre_hash)
 
@@ -203,15 +210,22 @@ class Coordinator:
 
     def _prove(self, mpk: DeviceMultiStarkProvingKey, unsorted_ctx: ProvingContext) -> Proof:
         params = mpk.params
-        transcript = self.transcript
+        # a device transcript takes the sponge for GKR and WHIR only; the
+        # other stages run on a host transcript at its state
+        on_card, transcript = None, self.transcript
+        if isinstance(transcript, DeviceTranscript):
+            on_card = device_view(transcript, self.backend.device)  # refuses another device
+            transcript = on_card.to_host()
         ctx = unsorted_ctx.sorted_for_stacking()
-        common_commit, common_data, trace_vdata, public_values = self.commit_and_observe(mpk, ctx)
+        common_commit, common_data, trace_vdata, public_values = self.commit_and_observe(
+            mpk, ctx, transcript
+        )
 
         # stage: RAP constraints (GKR + batch sumcheck)
         traces = trace_provers(mpk, ctx)
         with metrics.span("prove_rap_constraints"):
             gkr_proof, batch_proof, r = prove_zerocheck_and_logup(
-                transcript, params, mpk.max_constraint_degree, traces
+                transcript, params, mpk.max_constraint_degree, traces, on_card
             )
 
         # stage: openings (stacked reduction + WHIR)
@@ -242,10 +256,9 @@ class Coordinator:
             cur = hext.emul(cur, cur)
         u_cube.extend(u[1:])
 
-        with metrics.span("prove_whir"):
+        with metrics.span("prove_whir"), handed_over(transcript, on_card) as t:
             whir_proof = prove_whir_opening(
-                transcript, params, stacked_per_commit, u_cube,
-                tree_builder=self.backend.tree_builder,
+                t, params, stacked_per_commit, u_cube, tree_builder=self.backend.tree_builder
             )
 
         return Proof(

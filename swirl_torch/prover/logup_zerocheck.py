@@ -4,7 +4,9 @@ Peer of the host-transcript branches of ``swirl/prover/logup_zerocheck.py``:
 ``prove_gkr_phase`` (:461), ``_gkr_input_pq`` (:612), ``prove_batch_phase``
 (:704) and ``prove_zerocheck_and_logup`` (:2536). O(height) work (coset
 grids, DAG evaluation, folds, hypercube sums) runs on tensors; O(degree)
-polynomial assembly and the transcript run on the host in canonical numpy.
+polynomial assembly and the transcript run on the host in canonical numpy,
+but for the GKR fractional sumcheck, which takes the device transcript
+when the prover has one (``prove_gkr_phase``).
 The JAX package's ``zerocheck_save_memory`` chunking is not ported: it
 produces the same bytes, and the full round-0 grid fits the card.
 """
@@ -37,6 +39,7 @@ from .dag_eval import (
     acc_interactions_host,
     interactions_pq,
 )
+from .device_transcript import handed_over
 from .gkr import fractional_sumcheck
 from .stacked_pcs import StackedLayout
 from .sumcheck import (
@@ -172,9 +175,13 @@ def _bus_terms(beta_pows, t: TraceProver, device):
     return ef_dev(ef_stack(rows), device)
 
 
-def prove_gkr_phase(transcript: Transcript, params: SystemParams, traces: List[TraceProver]):
+def prove_gkr_phase(
+    transcript: Transcript, params: SystemParams, traces: List[TraceProver], device_transcript=None
+):
     """LogUp grind, GKR input evaluation, fractional sumcheck and the xi
-    extension sampling. Returns (gkr_proof, xi, beta)."""
+    extension sampling. Returns (gkr_proof, xi, beta). With a
+    ``device_transcript`` the fractional sumcheck runs on it, the sponge
+    handed over from ``transcript`` and back."""
     l_skip = params.l_skip
     n_max, n_logup, inter_layout, max_msg_len = _phase_common(params, traces)
     device = traces[0].common.device
@@ -189,8 +196,8 @@ def prove_gkr_phase(transcript: Transcript, params: SystemParams, traces: List[T
         p_dev, q_dev = _gkr_input_pq(
             traces, inter_layout, l_skip, n_logup, beta_pows, alpha, device
         )
-        with metrics.span("fractional_sumcheck"):
-            frac = fractional_sumcheck(transcript, p_dev, q_dev, assert_zero=True)
+        with metrics.span("fractional_sumcheck"), handed_over(transcript, device_transcript) as t:
+            frac = fractional_sumcheck(t, p_dev, q_dev, assert_zero=True)
     else:
         frac = fractional_sumcheck(transcript, None, None)
 
@@ -624,8 +631,10 @@ def prove_zerocheck_and_logup(
     params: SystemParams,
     global_degree: int,
     traces: List[TraceProver],
+    device_transcript=None,
 ) -> Tuple[GkrProof, BatchConstraintProof, List[np.ndarray]]:
-    """The RAP stage: GKR phase, then the batch-constraint phase."""
-    gkr_proof, xi, beta = prove_gkr_phase(transcript, params, traces)
+    """The RAP stage: GKR phase, then the batch-constraint phase (its
+    fractional sumcheck on ``device_transcript`` when one is given)."""
+    gkr_proof, xi, beta = prove_gkr_phase(transcript, params, traces, device_transcript)
     batch_proof, r = prove_batch_phase(transcript, params, global_degree, traces, xi, beta)
     return gkr_proof, batch_proof, r

@@ -7,7 +7,7 @@ by kernel B); the first
 log2(rows_per_query) levels pair leaves at stride ``height /
 rows_per_query`` so one query index opens that many coset-aligned rows with
 one path, and ``layers[0]`` is the layer after those strided levels. Query
-proofs and opened rows leave as canonical numpy.
+paths and opened rows are gathered on the device for all queries at once.
 """
 
 from __future__ import annotations
@@ -37,17 +37,19 @@ class MerkleTree:
     def query_stride(self) -> int:
         return int(self.layers[0].shape[1])
 
-    def batch_query_proofs(self, indices) -> List[List[np.ndarray]]:
-        """proofs[qi][level] = sibling digest (8,) canonical uint64."""
-        cur = np.asarray(indices, dtype=np.int64)
-        if not np.all((0 <= cur) & (cur < self.query_stride)):
-            raise StackedPcsError("MerkleTree.query_proof: query index out of bounds")
+    def batch_query_proofs_arr(self, indices) -> torch.Tensor:
+        """The sibling paths of a (nq,) index tensor as one (nq, depth, 8)
+        tensor on the tree's device, a gather a level and no read (peer of
+        ``swirl/prover/merkle.py:88-100``); the indices are below
+        :attr:`query_stride` by construction (sampled bits)."""
+        cur = indices
         per_level = []
         for layer in self.layers[:-1]:
-            sib = layer[:, torch.as_tensor(cur ^ 1, device=layer.device)]
-            per_level.append(F.to_host(sib).T)  # (nq, 8)
+            per_level.append(layer[:, cur ^ 1].T)  # (nq, 8)
             cur = cur >> 1
-        return [[lvl[qi] for lvl in per_level] for qi in range(len(cur))]
+        if not per_level:
+            return torch.zeros((cur.shape[0], 0, 8), dtype=F.DTYPE, device=cur.device)
+        return torch.stack(per_level, dim=1)
 
 
 def build_merkle_tree(matrix, rows_per_query: int, ext: bool = False) -> MerkleTree:
@@ -73,10 +75,12 @@ def build_merkle_tree(matrix, rows_per_query: int, ext: bool = False) -> MerkleT
     return MerkleTree(layers=[cur] + p2.merkle_tower(cur), rows_per_query=rows_per_query)
 
 
-def get_opened_rows(matrix, index: int, rows_per_query: int, ext: bool) -> np.ndarray:
-    """Rows {index + t * query_stride} of the matrix as canonical numpy
-    (rows_per_query, width[, 4])."""
+def get_opened_rows_batch(matrix, indices, rows_per_query: int) -> torch.Tensor:
+    """Rows {index + t * query_stride} of the matrix for a (nq,) index
+    tensor, in one gather and no read: (nq, rows_per_query, width[, 4]) on
+    the matrix's device (peer of ``swirl/prover/merkle.py:157-170``)."""
     query_stride = int(matrix.shape[1]) // rows_per_query
-    row_ids = index + query_stride * torch.arange(rows_per_query, device=matrix.device)
-    host = F.to_host(matrix[:, row_ids])
-    return host.transpose(1, 0, 2) if ext else host.transpose(1, 0)
+    row_ids = indices[:, None] + query_stride * torch.arange(rows_per_query, device=matrix.device)
+    rows = torch.index_select(matrix, 1, row_ids.reshape(-1))
+    rows = rows.reshape((matrix.shape[0],) + tuple(row_ids.shape) + tuple(matrix.shape[2:]))
+    return rows.movedim(0, 2)

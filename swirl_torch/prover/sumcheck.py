@@ -7,7 +7,8 @@ values that reach the transcript are the same.
 
 Matrices: base (w, h) or EF (w, h, 4) canonical int64; the hypercube or
 prism index is the data axis. Protocol-small values (points, challenges)
-are the host's canonical numpy EF values.
+are the host's canonical numpy EF values, or device tensors where the
+device transcript sampled them.
 """
 
 from __future__ import annotations
@@ -96,50 +97,65 @@ def ef_stack(values) -> np.ndarray:
     return np.stack(values) if len(values) else np.zeros((0, 4), U64)
 
 
-def _doubling_table(factors, device):
-    """Table over H_n from per-variable (weight0, weight1) host EF pairs,
-    bit i of the index <-> factors[i] (each new variable is the high bit)."""
-    out = ef_dev(hext.eone(), device).reshape(1, 4)
-    for w0, w1 in factors:
-        out = torch.cat([F.ext_mul(out, ef_dev(w0, device)), F.ext_mul(out, ef_dev(w1, device))])
+def _ef_rows(v, device):
+    """EF point(s), a device tensor or host values, as an (n, 4) tensor."""
+    if isinstance(v, torch.Tensor):
+        return v.reshape(-1, 4)
+    return ef_dev(np.asarray(v, U64).reshape(-1, 4), device)
+
+
+def _doubling_table(w0, w1):
+    """Table over H_n from per-variable weights w0, w1 (each (n, 4) on the
+    device): bit i of the index <-> variable i (each new variable is the
+    high bit)."""
+    out = F.ext_one(w0.device)[None]
+    for i in range(w0.shape[0]):
+        out = torch.cat([F.ext_mul(out, w0[i]), F.ext_mul(out, w1[i])])
     return out
 
 
 def eq_hypercube(xi_vec, device):
-    """eq(xi, y) over H_n as a (2^n, 4) tensor; xi_vec: host (n, 4)."""
-    xi = np.asarray(xi_vec, U64).reshape(-1, 4)
-    return _doubling_table([(hext.esub(hext.eone(), x), x) for x in xi], device)
+    """eq(xi, y) over H_n as a (2^n, 4) tensor; xi_vec: (n, 4), a device
+    tensor or host values (peer of ``eq_hypercube_dev`` :166)."""
+    xi = _ef_rows(xi_vec, device)
+    return _doubling_table(F.sub(F.ext_one(xi.device), xi), xi)
 
 
 def mobius_eq_hypercube(u_vec, device):
     """Mobius-adjusted eq table over H_n: per-variable weights (1 - 2u, u)."""
-    u = np.asarray(u_vec, U64).reshape(-1, 4)
-    return _doubling_table([(hext.esub(hext.eone(), hext.eadd(x, x)), x) for x in u], device)
+    u = _ef_rows(u_vec, device)
+    return _doubling_table(F.sub(F.ext_one(u.device), F.add(u, u)), u)
 
 
-def _squares(z, n: int):
-    """Host EF [z, z^2, z^4, ..., z^(2^(n-1))]."""
+def _squares(z, n: int, device):
+    """[z, z^2, z^4, ..., z^(2^(n-1))] of an EF point z as an (n, 4) tensor."""
+    cur = _ef_rows(z, device)[0]
     out = []
-    cur = np.asarray(z, U64)
     for _ in range(n):
         out.append(cur)
-        cur = hext.emul(cur, cur)
-    return out
+        cur = F.ext_mul(cur, cur)
+    return torch.stack(out) if out else cur.new_zeros((0, 4))
 
 
 def eq_pows_hypercube(z, n: int, device):
-    """eq((z, z^2, z^4, ...), y) over H_n for a host EF point z."""
-    return eq_hypercube(ef_stack(_squares(z, n)), device)
+    """eq((z, z^2, z^4, ...), y) over H_n for an EF point z (peer of
+    ``eq_pows_hypercube_dev`` :244)."""
+    return eq_hypercube(_squares(z, n, device), device)
 
 
 def pow_hypercube(z, n: int, device):
-    """T[y] = z^y over H_n (y read as an integer) for a host EF point z."""
-    return _doubling_table([(hext.eone(), s) for s in _squares(z, n)], device)
+    """T[y] = z^y over H_n (y read as an integer) for an EF point z."""
+    squares = _squares(z, n, device)
+    out = F.ext_one(squares.device)[None]
+    for s in squares:
+        out = torch.cat([out, F.ext_mul(out, s)])
+    return out
 
 
 def eq_pows_base_batch(zvec, n: int):
     """Batched eq(pow(z_i), y) tables for base-field points zvec (Q,):
-    (Q, 2^n) base field, one doubling ladder for all points."""
+    (Q, 2^n) base field, one doubling ladder for all points (peer of
+    ``eq_pows_base_batch_dev`` :269)."""
     out = torch.ones((zvec.shape[0], 1), dtype=F.DTYPE, device=zvec.device)
     z = zvec
     for _ in range(n):

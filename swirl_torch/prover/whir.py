@@ -1,11 +1,19 @@
-"""WHIR opening proof on torch tensors (host transcript).
+"""WHIR opening proof on torch tensors.
 
-Peer of the host-transcript branch of ``prove_whir_opening``
-(``swirl/prover/whir.py:115-391``): all committed stacked columns batch into
-one MLE with mu powers; each WHIR round runs k sumcheck folds of
-sum_x f(x) * w(x), commits RS(g) (NTT + Merkle tree over EF leaves), takes
-an out-of-domain value, grinds, opens the queries and adds the gamma terms
-to the weight polynomial.
+Peer of ``prove_whir_opening`` (``swirl/prover/whir.py:115-391``) and its
+device-transcript form (``_fold_round_jit`` :38, ``_whir_device``): all
+committed stacked columns batch into one MLE with mu powers; each WHIR
+round runs k sumcheck folds of sum_x f(x) * w(x), commits RS(g) (NTT +
+Merkle tree over EF leaves), takes an out-of-domain value, grinds, opens
+the queries and adds the gamma terms to the weight polynomial.
+
+Every value stays on the device, and the proof is assembled from one copy
+at the end (``whir.py:737-745``). On a
+:class:`~.device_transcript.DeviceTranscript` nothing is read back before
+that copy: a fold round is a sponge launch for its evaluations, the
+folding grind (kernel F), a launch for alpha and the two folds; the query
+indices are one launch, the openings one gather a tree (a level a tree for
+the paths). On a host transcript each observe reads its value first.
 """
 
 from __future__ import annotations
@@ -15,19 +23,17 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from ..fields import ext as hext
 from ..fields.babybear import P, two_adic_generator
 from ..params import SystemParams
 from ..proof import WhirProof
 from .errors import WhirProverError
-from ..transcript import Transcript
 
 from ..fields import field as F
-from .merkle import build_merkle_tree, get_opened_rows
+from .device_transcript import device_view
+from .merkle import build_merkle_tree, get_opened_rows_batch
 from .ntt import mobius_transform, ntt, zeta_transform
 from .stacked_pcs import StackedPcsData, rs_message
 from .sumcheck import (
-    ef_dev,
     eq_pows_base_batch,
     eq_pows_hypercube,
     fold_mle,
@@ -40,15 +46,18 @@ QUERY_CHUNK = 32  # queries per eq-table batch: bounds the (chunk, 2^m) buffer
 
 
 def prove_whir_opening(
-    transcript: Transcript,
+    transcript,
     params: SystemParams,
     committed: Sequence[StackedPcsData],
     u: List[np.ndarray],
     tree_builder=None,
 ) -> WhirProof:
-    """``tree_builder``: when set, ``(matrix, rows_per_query, ext) -> (root,
+    """``transcript``: a host :class:`~swirl_torch.transcript.Transcript` or
+    a :class:`~.device_transcript.DeviceTranscript` on the data's device.
+    ``tree_builder``: when set, ``(matrix, rows_per_query, ext) -> (root,
     tree)`` replaces the Poseidon2 Merkle build of the codeword commits
-    (the hash-scheme hook; None for the default scheme)."""
+    (the hash-scheme hook; None for the default scheme); its tree answers
+    ``batch_query_proofs_arr``."""
     whir = params.whir
     l_skip = params.l_skip
     k = whir.k
@@ -61,11 +70,11 @@ def prove_whir_opening(
         if h != expected_h:
             raise WhirProverError(f"prove_whir_opening: tree height {h} != expected {expected_h}")
     device = committed[0].matrix.device
+    tr = device_view(transcript, device)
 
-    mu_pow_witness = transcript.grind(whir.mu_pow_bits)
-    mu = transcript.sample_ext()
+    mu_pow_witness = tr.grind(whir.mu_pow_bits)
     total_width = sum(int(d.matrix.shape[0]) for d in committed)
-    mu_pows = hext.epowers(mu, total_width)
+    mu_pows = F.epowers(tr.sample_ext(), total_width)
 
     m = expected_h.bit_length() - 1
     log_rs = m + params.log_blowup
@@ -76,21 +85,19 @@ def prove_whir_opening(
     for d in committed:
         hatf = zeta_transform(rs_message(l_skip, d.matrix), m)  # (w, 2^m) base
         for j in range(hatf.shape[0]):
-            term = F.mul(hatf[j][:, None], ef_dev(mu_pows[off + j], device))
+            term = F.mul(hatf[j][:, None], mu_pows[off + j])
             f_evals = term if f_evals is None else F.add(f_evals, term)
         off += hatf.shape[0]
         del hatf
+    del mu_pows  # not live at the rounds' peaks
     w_evals = mobius_eq_hypercube(np.stack(u), device)  # (2^m, 4)
 
-    whir_sumcheck_polys: List[List[np.ndarray]] = []
-    codeword_commits: List[np.ndarray] = []
-    ood_values: List[np.ndarray] = []
-    folding_pow_witnesses: List[int] = []
-    query_phase_pow_witnesses: List[int] = []
-    initial_opened_rows: List[List[np.ndarray]] = [[] for _ in committed]
-    initial_merkle_proofs: List[List[List[np.ndarray]]] = [[] for _ in committed]
-    codeword_opened_values: List[List[np.ndarray]] = []
-    codeword_merkle_proofs: List[List[List[np.ndarray]]] = []
+    # the proof's values: on the device until the one copy at the end (a
+    # host transcript hands back the host copies it observed)
+    sumcheck_polys, folding_wits, query_wits = [], [], []
+    commits, oods = [], []
+    initial_rows, initial_paths = [], []
+    codeword_rows, codeword_paths = [], []
     final_poly = None
     rs_tree = None
     rs_codeword = None  # (1, H, 4)
@@ -101,25 +108,21 @@ def prove_whir_opening(
         num_queries = whir.rounds[whir_round].num_queries
 
         for _ in range(k):
-            evals = F.to_host(
-                torch.stack(
-                    [
-                        F.ext_sum(
-                            F.ext_mul(interp_mle_at_int(f_evals, x), interp_mle_at_int(w_evals, x)),
-                            axis=0,
-                        )
-                        for x in (1, 2)
-                    ]
-                )
+            evals = torch.stack(
+                [
+                    F.ext_sum(
+                        F.ext_mul(interp_mle_at_int(f_evals, x), interp_mle_at_int(w_evals, x)),
+                        axis=0,
+                    )
+                    for x in (1, 2)
+                ]
             )
-            evals = [evals[0], evals[1]]
-            for e in evals:
-                transcript.observe_ext(e)
-            whir_sumcheck_polys.append(evals)
-            folding_pow_witnesses.append(transcript.grind(whir.folding_pow_bits))
-            a_dev = ef_dev(transcript.sample_ext(), device)
-            f_evals = fold_mle(f_evals, a_dev)
-            w_evals = fold_mle(w_evals, a_dev)
+            sumcheck_polys.append(tr.observe_slice(evals))
+            del evals  # kept only as observed (a host copy on a host transcript)
+            folding_wits.append(tr.grind(whir.folding_pow_bits))
+            alpha = tr.sample_ext()
+            f_evals = fold_mle(f_evals, alpha)
+            w_evals = fold_mle(w_evals, alpha)
         cur_m -= k
 
         g_coeffs = mobius_transform(f_evals[None], cur_m, ext=True)[0]  # (2^cur_m, 4)
@@ -129,71 +132,73 @@ def prove_whir_opening(
             g_rs = ntt(padded[None], ext=True)  # (1, H, 4)
             if tree_builder is None:
                 g_tree = build_merkle_tree(g_rs, 1 << k, ext=True)
-                g_commit = g_tree.root
+                g_commit = g_tree.layers[-1][:, 0]
             else:
                 g_commit, g_tree = tree_builder(g_rs, 1 << k, True)
-            transcript.observe_commit(g_commit)
-            codeword_commits.append(g_commit)
+            commits.append(tr.observe_commit(g_commit))
 
-            z0 = transcript.sample_ext()
+            z0 = tr.sample_ext()
             # OOD value: the MLE at (z0, z0^2, ...) is the univariate value at z0
-            y0 = F.to_host(F.ext_sum(F.ext_mul(g_coeffs, pow_hypercube(z0, cur_m, device)), axis=0))
-            transcript.observe_ext(y0)
-            ood_values.append(y0)
+            y0 = F.ext_sum(F.ext_mul(g_coeffs, pow_hypercube(z0, cur_m, device)), axis=0)
+            oods.append(tr.observe_ext(y0))
         else:
-            fp = F.to_host(g_coeffs)
-            final_poly = [fp[i] for i in range(fp.shape[0])]
-            for c in final_poly:
-                transcript.observe_ext(c)
+            final_poly = tr.observe_slice(g_coeffs)
 
-        query_phase_pow_witnesses.append(transcript.grind(whir.query_phase_pow_bits))
-        indices = [transcript.sample_bits(log_rs - k) for _ in range(num_queries)]
+        query_wits.append(tr.grind(whir.query_phase_pow_bits))
+        indices = tr.sample_bits_batch(log_rs - k, num_queries)  # (nq,) on the device
         if whir_round == 0:
-            for com_idx, d in enumerate(committed):
-                proofs = d.tree.batch_query_proofs(indices) if num_queries else []
-                for qi, index in enumerate(indices):
-                    initial_opened_rows[com_idx].append(
-                        get_opened_rows(d.rs_matrix, index, 1 << k, ext=False)
-                    )
-                    initial_merkle_proofs[com_idx].append(proofs[qi])
+            for d in committed:
+                initial_rows.append(get_opened_rows_batch(d.rs_matrix, indices, 1 << k))
+                initial_paths.append(d.tree.batch_query_proofs_arr(indices))
         else:
-            proofs = rs_tree.batch_query_proofs(indices) if num_queries else []
-            codeword_opened_values.append(
-                [get_opened_rows(rs_codeword, index, 1 << k, ext=True)[:, 0, :] for index in indices]
-            )
-            codeword_merkle_proofs.append(proofs)
-        omega = two_adic_generator(log_rs - k)
-        zs = [pow(omega, int(i), P) for i in indices]
+            codeword_rows.append(get_opened_rows_batch(rs_codeword, indices, 1 << k)[:, :, 0])
+            codeword_paths.append(rs_tree.batch_query_proofs_arr(indices))
 
         if not is_last:
             rs_tree = g_tree
             rs_codeword = g_rs
 
-        gamma = transcript.sample_ext()
+        gamma = tr.sample_ext()
         if not is_last:
             # w += gamma * eq(pow(z0)) + sum_i gamma^(2+i) * eq(pow(z_i))
-            upd = F.ext_mul(ef_dev(gamma, device), eq_pows_hypercube(z0, cur_m, device))
-            gamma_pows = hext.epowers(gamma, num_queries + 2)
+            upd = F.ext_mul(gamma, eq_pows_hypercube(z0, cur_m, device))
             if num_queries:
-                zs_vec = F.const_arr(zs, device)
-                gp_dev = ef_dev(gamma_pows[2 : num_queries + 2], device)
+                zs = F.pow_exps(two_adic_generator(log_rs - k), indices, log_rs - k)
+                gamma_pows = F.epowers(gamma, num_queries + 2)[2:]
                 for base in range(0, num_queries, QUERY_CHUNK):
-                    tab = eq_pows_base_batch(zs_vec[base : base + QUERY_CHUNK], cur_m)
-                    gc = gp_dev[base : base + QUERY_CHUNK]
+                    tab = eq_pows_base_batch(zs[base : base + QUERY_CHUNK], cur_m)
+                    gc = gamma_pows[base : base + QUERY_CHUNK]
                     upd = F.add(upd, F.ext_sum(F.mul(tab[:, :, None], gc[:, None, :]), axis=0))
             w_evals = F.add(w_evals, upd)
         log_rs -= 1
 
+    values = [mu_pow_witness, *folding_wits, *query_wits, *sumcheck_polys, *commits, *oods,
+              final_poly, *initial_rows, *initial_paths, *codeword_rows, *codeword_paths]
+    host = iter(F.to_host_all(values))
+
+    def take(n):
+        return [next(host) for _ in range(n)]
+
+    witnesses = take(1 + len(folding_wits) + len(query_wits))
+    if any(int(w) >= P for w in witnesses):
+        raise RuntimeError("failed to find PoW witness")
+    witnesses = [int(w) for w in witnesses]
+    polys = take(len(sumcheck_polys))
+    commits_h, oods_h = take(len(commits)), take(len(oods))
+    (final_h,) = take(1)
+    n_com = len(committed)
+    rows0, paths0 = take(n_com), take(n_com)
+    rows_cw, paths_cw = take(len(codeword_rows)), take(len(codeword_paths))
     return WhirProof(
-        mu_pow_witness=mu_pow_witness,
-        whir_sumcheck_polys=whir_sumcheck_polys,
-        codeword_commits=codeword_commits,
-        ood_values=ood_values,
-        folding_pow_witnesses=folding_pow_witnesses,
-        query_phase_pow_witnesses=query_phase_pow_witnesses,
-        initial_round_opened_rows=initial_opened_rows,
-        initial_round_merkle_proofs=initial_merkle_proofs,
-        codeword_opened_values=codeword_opened_values,
-        codeword_merkle_proofs=codeword_merkle_proofs,
-        final_poly=final_poly,
+        mu_pow_witness=witnesses[0],
+        whir_sumcheck_polys=[[e[0], e[1]] for e in polys],
+        codeword_commits=commits_h,
+        ood_values=oods_h,
+        folding_pow_witnesses=witnesses[1 : 1 + len(folding_wits)],
+        query_phase_pow_witnesses=witnesses[1 + len(folding_wits) :],
+        initial_round_opened_rows=[list(r) for r in rows0],
+        initial_round_merkle_proofs=[[list(p) for p in paths] for paths in paths0],
+        codeword_opened_values=[list(r) for r in rows_cw],
+        codeword_merkle_proofs=[[list(p) for p in paths] for paths in paths_cw],
+        final_poly=list(final_h),
     )

@@ -17,6 +17,13 @@ thread over enough blocks to fill every SM, reads the SM clock with
 ``clock64`` against ``%globaltimer``, and prints lane operations a clock
 per SM next to the SASS classes the bench's loop compiled to, so a rate is
 read against what was issued.
+
+The latency bench times one field operation of ``csrc/field.cuh`` (and a
+quad's shuffle) in one dependent chain a lane on one warp, in SM clocks.
+The longest dependent chain of kernel D's and E's quad permutation
+(:data:`QUAD_PERM_CHAIN`) at those latencies is the least time one
+permutation can take on one quad: the floor of a launch that runs a chain
+of dependent permutations.
 """
 
 from __future__ import annotations
@@ -185,11 +192,13 @@ extern "C" int isa_bench(int op, int blocks, int threads, int iters, uint32_t* o
 """
 
 
-def _build_bench() -> str:
-    src_dir = os.path.join(K.BUILD_DIR, "isa_bench")
+def _build_bench(name: str, source: str) -> str:
+    """Builds ``source`` beside copies of csrc/field.cuh and csrc/poseidon2.cu
+    into ``build/<name>/bench.so``; returns its path."""
+    src_dir = os.path.join(K.BUILD_DIR, name)
     os.makedirs(src_dir, exist_ok=True)
     with open(os.path.join(src_dir, "bench.cu"), "w") as f:
-        f.write(BENCH_CU % {"chains": CHAINS})
+        f.write(source)
     shutil.copy(os.path.join(K.CSRC, "field.cuh"), src_dir)
     shutil.copy(os.path.join(K.CSRC, "poseidon2.cu"), os.path.join(src_dir, "poseidon2_copy.cuh"))
     out = os.path.join(src_dir, "bench.so")
@@ -203,7 +212,7 @@ def _build_bench() -> str:
 def pipe_bench(iters: int = 2048) -> None:
     import torch
 
-    lib_path = _build_bench()
+    lib_path = _build_bench("isa_bench", BENCH_CU % {"chains": CHAINS})
     lib = ctypes.CDLL(lib_path)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.isa_bench.argtypes = [i32, i32, i32, i32, vp, vp, vp]
@@ -239,9 +248,98 @@ def pipe_bench(iters: int = 2048) -> None:
               f"({ms:.3f} ms; loop of {iters} x {CHAINS} chains: {classes})")
 
 
+# ---------------------------------------------------------------------------
+# latency bench: the floor of a chain of quad permutations
+# ---------------------------------------------------------------------------
+
+# The longest dependent chain of ``permute_quad`` (csrc/poseidon2.cu), in
+# field operations, from its source. M_E (``quad_external``): m4's 4
+# dependent adds, then shuffle, add, shuffle, add, add: 7 adds, 2 shuffles.
+# A full round: the constant's add, the S-box's 3 dependent products (x^2,
+# x^4, x^3 * x^4), M_E: 8 adds, 3 products, 2 shuffles. A partial round,
+# through word 0: the constant's add, the S-box's 3 products, the shuffle
+# that broadcasts it, its add into the sum and the add onto the diagonal's
+# product (taken beside the shuffle): 3 adds, 3 products, 1 shuffle. The
+# permutation: M_E, 8 full rounds, 13 partial rounds.
+QUAD_PERM_CHAIN = {"add": 7 + 8 * 8 + 13 * 3, "mont": 8 * 3 + 13 * 3, "shfl": 2 + 8 * 2 + 13}
+LATENCY_OPS = ("add", "mont", "shfl")
+LATENCY_STEPS = 16  # dependent operations a loop trip
+LATENCY_ITERS = 4096  # loop trips: 65,536 dependent operations, 0.7-2 M clocks
+
+LATENCY_CU = r"""
+#include <cstdint>
+#include "field.cuh"
+
+// one warp, one dependent chain a lane: OP 0 bb::fast::add, 1 bb::fast::mont,
+// 2 a quad's __shfl_xor_sync, the operations of permute_quad
+template <int OP>
+__global__ void latency_kernel(uint32_t* out, long long* clocks, int iters, uint32_t seed) {
+  uint32_t a = (seed * (threadIdx.x + 1)) % bb::P;
+  const uint32_t y = (seed ^ threadIdx.x) % bb::P | 1u;
+  long long g0, g1;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g0));
+  const long long t0 = clock64();
+#pragma unroll 1
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      if (OP == 0) a = bb::fast::add(a, y);
+      if (OP == 1) a = bb::fast::mont(a, y);
+      if (OP == 2) a = __shfl_xor_sync(0xffffffffu, a, 1 + (j & 1), 4);
+    }
+  }
+  const long long t1 = clock64();
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g1));
+  out[threadIdx.x] = a;
+  if (threadIdx.x == 0) { clocks[0] = t1 - t0; clocks[1] = g1 - g0; }
+}
+
+#define CASE(k) case k: latency_kernel<k><<<1, 32, 0, (cudaStream_t)stream>>>(out, clocks, iters, 12345u); break;
+extern "C" int isa_latency(int op, int iters, uint32_t* out, long long* clocks, void* stream) {
+  switch (op) { CASE(0) CASE(1) CASE(2) default: return -1; }
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def latency_bench() -> tuple:
+    """({op: SM clocks of one dependent op}, the SM clock in GHz while the
+    chains ran), each op timed on one warp after a warm-up run."""
+    import torch
+
+    lib = ctypes.CDLL(_build_bench("isa_latency", LATENCY_CU))
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.isa_latency.argtypes = [i32, i32, vp, vp, vp]
+    lib.isa_latency.restype = i32
+    dev = torch.device("cuda", 0)
+    out = torch.empty(32, dtype=torch.int32, device=dev)
+    clocks = torch.empty(2, dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    cycles, ghz = {}, []
+    for op, name in enumerate(LATENCY_OPS):
+        for _ in range(2):
+            rc = lib.isa_latency(op, LATENCY_ITERS, out.data_ptr(), clocks.data_ptr(), stream)
+            if rc != 0:
+                raise SystemExit(f"isa_latency {name}: CUDA error {rc}")
+        clk, ns = (int(v) for v in clocks.cpu())
+        cycles[name] = clk / (LATENCY_ITERS * LATENCY_STEPS)
+        ghz.append(clk / ns)
+    return cycles, sorted(ghz)[len(ghz) // 2]
+
+
+def quad_perm_clocks(cycles: dict) -> float:
+    """SM clocks of :data:`QUAD_PERM_CHAIN` at the latencies ``cycles``."""
+    return sum(n * cycles[op] for op, n in QUAD_PERM_CHAIN.items())
+
+
 def main() -> int:
     report_census()
     pipe_bench()
+    cycles, ghz = latency_bench()
+    lat = " ".join(f"{op} {c:.2f}" for op, c in cycles.items())
+    clocks = quad_perm_clocks(cycles)
+    print(f"latency (SM clocks a dependent operation, at {ghz:.3f} GHz): {lat}; one quad permutation's "
+          f"chain {QUAD_PERM_CHAIN}: {clocks:.0f} clocks, {clocks / ghz / 1e3:.3f} us")
     return 0
 
 

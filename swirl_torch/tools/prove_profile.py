@@ -4,8 +4,10 @@ card:
 
     python -m swirl_torch.tools.prove_profile
 
-It proves two workloads, each once to warm up (kernel build, tables) and
-once under ``torch.profiler`` (CPU and CUDA activity):
+It proves two workloads on both transcripts (the host ``Transcript`` and
+the ``DeviceTranscript``), each once to warm up
+(kernel build, tables) and once under ``torch.profiler`` (CPU and CUDA
+activity):
 
 - app: the 2^20 x 64 SyntheticAir (degree 3, 16 constraints, 8
   interactions) under ``app_params_with_100_bits_security(22)``;
@@ -16,10 +18,13 @@ Each stage span of ``swirl_torch.metrics`` is marked in the trace with
 ``record_function``. For each span the tool prints its host wall ms; the
 device-busy ms (the union of the card's kernel, copy and fill intervals
 inside the span's window) and its share; the host's ms blocked in
-synchronize calls; the kernel launches, synchronize calls and
+synchronize calls; the host's ms in the native proof-of-work grind
+(``native.grind``, the host transcript's); the kernel launches, synchronize calls and
 device-to-host and host-to-device copies the host issued inside it. The
 host's remaining time (wall minus blocked) is Python dispatch and host
-work. It fails if the profiler recorded no device activity.
+work. Each span prints a row per transcript, one under the other, so the
+two are read from one run. It fails if the profiler recorded no device
+activity, or if the two transcripts' proofs differ.
 """
 
 from __future__ import annotations
@@ -31,27 +36,33 @@ import time
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
 SPAN = "span:"
+HOST_GRIND = "native.grind"
 
 
 @contextlib.contextmanager
 def annotated_spans():
-    """Marks every ``metrics.span`` in the profiler's trace while active."""
+    """Marks every ``metrics.span``, and every call of the native grind, in
+    the profiler's trace while active."""
     from torch.profiler import record_function
 
-    from .. import metrics
+    from .. import metrics, native
 
-    plain = metrics.span
+    plain, grind = metrics.span, native.grind
 
     @contextlib.contextmanager
     def span(name):
         with record_function(SPAN + name), plain(name):
             yield
 
-    metrics.span = span
+    def marked_grind(*args):
+        with record_function(HOST_GRIND):
+            return grind(*args)
+
+    metrics.span, native.grind = span, marked_grind
     try:
         yield
     finally:
-        metrics.span = plain
+        metrics.span, native.grind = plain, grind
 
 
 class _Union:
@@ -86,13 +97,14 @@ def _count(sorted_times, lo, hi) -> int:
 
 
 def span_table(prof) -> list:
-    """[(span name, occurrences, wall ms, busy ms, blocked ms, launches,
-    syncs, d2h, h2d)] from a finished profile, in order of first start."""
+    """[(span name, occurrences, wall ms, busy ms, blocked ms, host grind
+    ms, launches, syncs, d2h, h2d)] from a finished profile, in order of
+    first start."""
     from torch.autograd import DeviceType
 
     spans = {}
     launches, syncs, d2h, h2d, device = [], [], [], [], []
-    blocked = []
+    blocked, grinds = [], []
     for e in prof.profiler.kineto_results.events():
         name = e.name()
         if e.device_type() != DeviceType.CPU:
@@ -110,20 +122,23 @@ def span_table(prof) -> list:
         elif name in SYNC_CALLS:
             syncs.append(e.start_ns())
             blocked.append((e.start_ns(), e.end_ns()))
+        elif name == HOST_GRIND:
+            grinds.append((e.start_ns(), e.end_ns()))
     if not device:
         raise SystemExit("prove_profile: the profiler recorded no device activity")
     for times in (launches, syncs, d2h, h2d):
         times.sort()
-    busy, waits = _Union(device), _Union(blocked)
+    busy, waits, ground = _Union(device), _Union(blocked), _Union(grinds)
     rows = []
     for name, windows in sorted(spans.items(), key=lambda kv: kv[1][0][0]):
-        row = [name, len(windows)] + [0] * 7
+        row = [name, len(windows)] + [0] * 8
         for lo, hi in windows:
             row[2] += (hi - lo) / 1e6
             row[3] += busy.covered(lo, hi) / 1e6
             row[4] += waits.covered(lo, hi) / 1e6
+            row[5] += ground.covered(lo, hi) / 1e6
             for k, times in enumerate((launches, syncs, d2h, h2d)):
-                row[5 + k] += _count(times, lo, hi)
+                row[6 + k] += _count(times, lo, hi)
         rows.append(tuple(row))
     return rows
 
@@ -154,10 +169,33 @@ def keccak_workload():
     return app_params_with_100_bits_security(max(log_height + 2, 16)), air, trace
 
 
-def profile_workload(tag: str, params, air, trace) -> None:
+def profile_prove(tag: str, eng, dpk, ctx, transcript) -> tuple:
+    """A warm-up prove, then one under the profiler, on a fresh transcript of
+    the kind ``transcript`` makes; returns (span rows, proof bytes)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from ..codec import encode_proof
+
+    t0 = time.perf_counter()
+    eng.prove(dpk, ctx, transcript())
+    torch.cuda.synchronize()
+    print(f"{tag}: warm-up prove {time.perf_counter() - t0:.3f} s (not profiled)", flush=True)
+    torch.cuda.empty_cache()
+    fresh = transcript()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, annotated_spans():
+        t0 = time.perf_counter()
+        proof = eng.prove(dpk, ctx, fresh)
+        torch.cuda.synchronize()
+        prove_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows = span_table(prof)
+    print(f"{tag}: profiled prove {prove_s:.3f} s; trace read in {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    return rows, encode_proof(proof)
+
+
+def profile_workload(tag: str, params, air, trace, transcripts) -> None:
     from ..engine import StarkEngine
     from ..prover.backend import ProvingContext
 
@@ -165,24 +203,22 @@ def profile_workload(tag: str, params, air, trace) -> None:
     pk, _ = eng.keygen([air])
     dpk = eng.transport_pk(pk)
     ctx = ProvingContext([eng.context_for(0, trace, [], [])])
-    t0 = time.perf_counter()
-    eng.prove(dpk, ctx)
-    torch.cuda.synchronize()
-    print(f"{tag}: warm-up prove {time.perf_counter() - t0:.3f} s (not profiled)", flush=True)
-    torch.cuda.empty_cache()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, annotated_spans():
-        t0 = time.perf_counter()
-        eng.prove(dpk, ctx)
-        torch.cuda.synchronize()
-        prove_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    rows = span_table(prof)
-    print(f"{tag}: profiled prove {prove_s:.3f} s; trace read in {time.perf_counter() - t0:.1f} s", flush=True)
-    print(f"{tag}: span | n | wall ms | device busy ms (share) | blocked in syncs ms | "
-          "launches | syncs | DtoH | HtoD")
-    for name, n, wall, busy, blocked, launches, syncs, d2h, h2d in rows:
-        print(f"{tag}: {name} | {n} | {wall:.1f} | {busy:.1f} ({100 * busy / wall:.1f}%) | {blocked:.1f} | "
-              f"{launches} | {syncs} | {d2h} | {h2d}", flush=True)
+    tables, proofs = {}, set()
+    for kind, make in transcripts:
+        tables[kind], data = profile_prove(f"{tag} {kind}", eng, dpk, ctx, make)
+        proofs.add(data)
+    if len(proofs) != 1:
+        raise SystemExit(f"prove_profile: {tag}: the transcripts' proofs differ")
+    print(f"{tag}: span | transcript | n | wall ms | device busy ms (share) | blocked in syncs ms | "
+          "host grind ms | launches | syncs | DtoH | HtoD")
+    names = []
+    for rows in tables.values():
+        names += [r[0] for r in rows if r[0] not in names]
+    for name in names:
+        for kind, rows in tables.items():
+            for _, n, wall, busy, blocked, grind, launches, syncs, d2h, h2d in (r for r in rows if r[0] == name):
+                print(f"{tag}: {name} | {kind} | {n} | {wall:.1f} | {busy:.1f} ({100 * busy / wall:.1f}%) | "
+                      f"{blocked:.1f} | {grind:.1f} | {launches} | {syncs} | {d2h} | {h2d}", flush=True)
 
 
 def main() -> int:
@@ -190,13 +226,17 @@ def main() -> int:
 
     import torch
 
+    from ..prover.device_transcript import DeviceTranscript
+    from ..transcript import Transcript
+
     if not torch.cuda.is_available():
         raise SystemExit("prove_profile: no CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
+    transcripts = [("host", Transcript), ("device", lambda: DeviceTranscript("cuda"))]
     for tag, workload in (("app", app_workload), ("keccak", keccak_workload)):
-        profile_workload(tag, *workload())
+        profile_workload(tag, *workload(), transcripts)
         torch.cuda.empty_cache()
     return 0
 

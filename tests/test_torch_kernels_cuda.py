@@ -4,7 +4,10 @@ every four-step strip shape from 2^19 to 2^26 at batch 1 and 3, A′ at
 2^27, sponge widths that are not multiples of 8, extension-field
 codewords hashed in place, digest layers compressed in place at every kind
 of pairing stride, the extreme field values, every tower width, and the
-tower's ticket counter across calls, streams and a CUDA graph). Skips
+tower's ticket counter across calls, streams and a CUDA graph), and the
+device transcript's kernels E (duplex) and F (grind) at ``chip_smoke.py``'s
+cases, F at every absorb cursor, both refusing bad cursors and bit counts,
+the transcript on the card against the CPU and a golden proof on it. Skips
 without a card. This file imports no jax, so on a machine without jax run it with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
@@ -294,3 +297,110 @@ def test_dag_interpreter_on_the_card_matches_the_cpu(rand, ext):
     got, want = run("cuda"), run("cpu")
     assert len(got) == len(want) == 4 + 2 * 8
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+# ------------------------------------------ the device transcript: E, F ---
+
+import chip_smoke  # noqa: E402
+
+
+@pytest.mark.parametrize("case", chip_smoke.DUPLEX_CASES, ids=[c[0] for c in chip_smoke.DUPLEX_CASES])
+def test_duplex_kernel_matches_plain(rand, case):
+    """Kernel E at chip_smoke.py's cases: the new state and the squeezed
+    values, one launch a call."""
+    _, a, s, k, n_host, n_squeeze, bits = case
+    st0, absorb = rand(16), rand(k) if k else None
+    host = [int(v) for v in rand(n_host).cpu()]
+    st = st0.clone()
+    before = K.DUPLEX.launches
+    out = p2.duplex(st, absorb, host, a, s, n_squeeze, bits)
+    assert K.DUPLEX.launches == before + 1
+    new, want = p2.duplex_plain(st0, absorb, host, a, s, n_squeeze, bits)
+    assert torch.equal(out, want) and torch.equal(st, new)
+
+
+@pytest.mark.parametrize("case", chip_smoke.GRIND_CASES, ids=[c[0] for c in chip_smoke.GRIND_CASES])
+def test_grind_kernel_matches_plain(rand, case):
+    """Kernel F at chip_smoke.py's cases: the smallest witness and the
+    advanced state, one launch a call."""
+    _, a, bits = case
+    st0 = rand(16)
+    st = st0.clone()
+    before = K.GRIND.launches
+    w = p2.grind(st, a, bits)
+    assert K.GRIND.launches == before + 1
+    new, want = p2.grind_plain(st0, a, bits)
+    assert torch.equal(w, want) and torch.equal(st, new)
+
+
+@pytest.mark.parametrize("a", range(8))
+@pytest.mark.parametrize("bits", [1, 8, 13])
+def test_grind_kernel_at_every_absorb_cursor(rand, a, bits):
+    st0 = rand(16)
+    st = st0.clone()
+    w = p2.grind(st, a, bits)
+    new, want = p2.grind_plain(st0, a, bits)
+    assert torch.equal(w, want) and torch.equal(st, new)
+
+
+def test_transcript_kernels_refuse_bad_arguments(rand):
+    st = rand(16)
+    for a, s in ((8, 0), (-1, 0), (0, 9), (0, -1)):
+        with pytest.raises(ValueError):
+            p2.duplex(st, None, [], a, s, 1)
+    with pytest.raises(ValueError):
+        p2.duplex(st, None, list(range(p2.HOST_MAX + 1)), 0, 0, 1)
+    with pytest.raises(ValueError):
+        p2.duplex(st, None, [], 0, 0, 1, 31)
+    with pytest.raises(K.KernelError):
+        p2.duplex(st, rand(4).to(torch.int32), [], 0, 0, 1)
+    for bits in (0, 31, 32):
+        with pytest.raises(ValueError):
+            p2.grind(st, 0, bits)
+    with pytest.raises(ValueError):
+        p2.grind(st, 8, 5)
+    from swirl_torch.prover.device_transcript import DeviceTranscript
+
+    with pytest.raises(ValueError):
+        DeviceTranscript("cuda").grind(31)
+
+
+def test_device_transcript_on_the_card_matches_the_cpu(rand):
+    """One schedule of every event on both devices: equal samples and
+    exit states (the CPU runs the plain versions)."""
+    from swirl_torch.prover.device_transcript import DeviceTranscript
+
+    vec = rand(37)
+    outs = []
+    for device in ("cuda", "cpu"):
+        t = DeviceTranscript(device)
+        got = []
+        t.observe(5)
+        t.observe_slice(vec.to(device))
+        got.append(t.sample_ext())
+        t.observe(7)
+        got += [t.sample(), t.sample_ext(), t.sample_bits(9)]
+        got.append(t.grind(6))
+        got.append(t.sample_bits_batch(11, 21))
+        t.observe_ext(vec[:4].to(device))
+        t.check_witness(3, torch.tensor(12, device=device))
+        got.append(t.sample_ext())
+        h = t.to_host()
+        outs.append(([g.cpu() for g in got], h.state, h.absorb_idx, h.sample_idx))
+    (a, sa, ia, ja), (b, sb, ib, jb) = outs
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert (sa == sb).all() and (ia, ja) == (ib, jb)
+
+
+def test_golden_proof_on_a_device_transcript_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from swirl_torch.codec import encode_proof
+    from swirl_torch.engine import StarkEngine
+    from swirl_torch.prover.device_transcript import DeviceTranscript
+    from swirl_torch.testing.golden import golden_cases, paths_for
+
+    params, airs, ctxs = golden_cases()["interactions"]()
+    _, proof = StarkEngine(params, "cuda").run_test(airs, ctxs, DeviceTranscript("cuda"))
+    with open(paths_for("interactions")["proof"], "rb") as f:
+        assert encode_proof(proof) == f.read()

@@ -9,6 +9,7 @@ its plain PyTorch version. Tolerance: exact equality (finite field).
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 
@@ -245,7 +246,7 @@ def test_stacked_commit_matches_jax(heights):
         assert np.array_equal(F.to_host(a), jf.to_host(b))
     idx = [0, 3, 5]
     assert np.array_equal(
-        np.asarray(t_data.tree.batch_query_proofs(idx)),
+        F.to_host(t_data.tree.batch_query_proofs_arr(torch.as_tensor(idx))),
         np.asarray(j_data.tree.batch_query_proofs(idx)),
     )
 
