@@ -48,7 +48,12 @@ Phases, each printing its result on lines of its own:
    2^10-coefficient final polynomial, the query indices of a WHIR round;
    the folding, mu and query-phase grinds), and, in the app and Keccak
    phases, a second prove on ``DeviceTranscript()``: its proof's sha256
-   must equal the host-transcript proof's, and E and F must have launched.
+   must equal the host-transcript proof's, E and F must have launched, and
+   each stage span's host reads (``swirl_torch.testing.host_reads``: each
+   waits for the card's stream, as does each host write, a tensor made from
+   host data, printed beside them) must not exceed the fixed numbers that
+   the CPU tests hold (``STAGE_READS``): the sponge stays on the card from
+   the RAP stage to the end of WHIR, and no round reads the host.
 
 Phases 4 to 6 use a random trace from a seed. The debug check runs on
 the card before the prove, the port's host verifier on the proof's
@@ -112,6 +117,7 @@ GOLDEN_CASES = ("fib", "interactions", "preprocessed", "cached_preprocessed")
 # product 1 multiply-add (hi - 15 * 2^(27-k) * lo) and 3 others.
 HBM_BYTES_PER_S = 3.35e12
 BOOST_HZ = 1.98e9
+SMS, THREADS_PER_SM = 132, 2048  # the H100 SXM's SMs and resident threads an SM
 INT32_LANE_OPS_PER_S = 64 * 132 * BOOST_HZ
 MONT_MUL, ADD = (3, 2), (0, 2)  # (multiplies, other operations)
 SBOX = (12, 7)  # x^7: x^2, x^4 and x^3 * x^4 reduced, x^3 left in (0, 2P)
@@ -331,7 +337,8 @@ def check_transcript_kernels(device, perm_floor_ms: float) -> dict:
     launch's dependent permutations times ``perm_floor_ms`` (one quad
     permutation's latency floor), and its ms per permutation; F's with its input state
     restored before every call, the bound counted from the witness found
-    (w + 1 candidates and the advance)."""
+    (w + 1 candidates and the advance), the floor from the sweeps up to the
+    witness's and the advance, each one permutation's latency floor."""
     import torch
 
     from swirl_torch import kernels as K
@@ -388,15 +395,22 @@ def check_transcript_kernels(device, perm_floor_ms: float) -> dict:
         ms = _graph_time_ms(fk, reps=10)
         work = (2 * 16 * 8 + 8, _times(PERM, witness + 2))
         bound_ms, bound_by = bound(work)
+        # the latency floor: the sweeps up to the witness's, each one
+        # permutation's dependent chain, then the advance's; a sweep holds at
+        # most twice the expected candidates and the card's resident threads
+        sweep = min(-(-(2 << bits) // 128) * 128, SMS * THREADS_PER_SM)
+        floor_ms = (-(-(witness + 1) // sweep) + 1) * perm_floor_ms
         _say(
             f"kernel grind [{label}] cursor={a} bits={bits} witness={witness} (expected 2^{bits} = "
             f"{1 << bits} candidates) equal=True max_abs_err={err} ms={ms:.4f} (by CUDA graph replay, "
             f"the state's restore included) plain_ms={plain_ms:.4f} "
-            f"bound_ms={bound_ms:.6f} ({bound_by}; {witness + 1} candidates and the advance)"
+            f"bound_ms={bound_ms:.6f} ({bound_by}; {witness + 1} candidates and the advance) "
+            f"floor_ms={floor_ms:.4f} (sweeps of at most {sweep} candidates and the advance, each "
+            f"one permutation's floor)"
         )
         results.setdefault(K.GRIND.name, {
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None,
+            "bound_by": bound_by, "library_ms": None, "floor_ms": floor_ms,
         })
     return results
 
@@ -648,13 +662,14 @@ def prove_on_card(eng, dpk, ctx, want_sha256: str) -> dict:
     from swirl_torch import metrics
     from swirl_torch.codec import encode_proof
     from swirl_torch.prover.device_transcript import DeviceTranscript
+    from swirl_torch.testing.host_reads import STAGE_READS, HostReads
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     transcript = DeviceTranscript(eng.device)
     K.reset_launch_counts()
     t0 = time.perf_counter()
-    with metrics.run_with_metric_collection() as collector:
+    with metrics.run_with_metric_collection() as collector, HostReads() as host:
         proof = eng.prove(dpk, ctx, transcript)
     prove_s = time.perf_counter() - t0
     launches = K.launch_counts()
@@ -662,12 +677,17 @@ def prove_on_card(eng, dpk, ctx, want_sha256: str) -> dict:
     sha = hashlib.sha256(encode_proof(proof)).hexdigest()
     if sha != want_sha256:
         raise AssertionError(f"the device-transcript proof differs: sha256 {sha[:16]} against {want_sha256[:16]}")
+    over = {k: host.reads[k] for k, n in STAGE_READS.items() if host.reads[k] > n}
+    if over:
+        raise AssertionError(f"device-transcript stages read the host more than {STAGE_READS}: {over}")
     return {
         "prove_s": prove_s,
         "spans_ms": {k: v for k, v in collector.snapshot().items() if k.endswith("_time_ms")},
         "peak_bytes": peak,
         "launches": launches,
         "proof_sha256": sha,
+        "host_reads": dict(host.reads),
+        "host_writes": dict(host.writes),
     }
 
 
@@ -752,6 +772,9 @@ def report(tag: str, run: dict, required) -> None:
     for name, ms in sorted(card["spans_ms"].items()):
         _say(f"{tag}, device transcript: span {name} {ms:.1f}")
     _say(f"{tag}, device transcript: kernel launches {card['launches']}")
+    for name in sorted(card["host_reads"].keys() | card["host_writes"].keys()):
+        _say(f"{tag}, device transcript: span {name} host reads {card['host_reads'].get(name, 0)}, "
+             f"host writes {card['host_writes'].get(name, 0)}")
     missing = [name for name in [*required, "duplex", "grind"] if card["launches"][name] == 0]
     if missing:
         raise AssertionError(f"{tag}, device transcript: the path never launched {missing}")

@@ -73,7 +73,8 @@ def ext_scale(a, s):
 
 
 def ext_sum(a, axis: int = 0):
-    """Sum along ``axis`` mod P (int64 holds 2^32 canonical summands)."""
+    """Sum along ``axis`` mod P (int64 holds 2^32 canonical summands); peer
+    of ``text.py`` esum."""
     return a.sum(dim=axis) % P
 
 
@@ -81,7 +82,8 @@ base_sum = ext_sum
 
 
 def ext_from_base(a):
-    """Base field tensor -> EF4 with zero high coefficients."""
+    """Base field tensor -> EF4 with zero high coefficients (peer of
+    ``text.py`` from_base on a device value)."""
     return torch.stack([a] + [torch.zeros_like(a)] * 3, dim=-1)
 
 
@@ -130,14 +132,94 @@ def ext_one(device):
 
 
 def epowers(a, n: int):
-    """[1, a, ..., a^(n-1)] of a (4,) EF tensor as (n, 4), by log-depth
-    doubling on its device; peer of ``swirl/fields/text.py`` epowers :113."""
-    out = ext_one(a.device)[None]
-    cur = a
-    while out.shape[0] < n:
-        out = torch.cat([out, ext_mul(out, cur)])
-        cur = ext_mul(cur, cur)
-    return out[:n]
+    """[1, a, ..., a^(n-1)] of (..., 4) EF tensors as (..., n, 4), by
+    log-depth doubling on their device; peer of ``swirl/fields/text.py``
+    epowers :113."""
+    out = ext_one(a.device).expand(a.shape[:-1] + (1, 4))
+    cur = a[..., None, :]
+    while out.shape[-2] < n:
+        out = torch.cat([out, ext_mul_small(out, cur)], dim=-2)
+        cur = ext_mul_small(cur, cur)
+    return out[..., :n, :]
+
+
+# -- protocol-small EF values: points, challenges, round polynomials --------
+
+_CONSTS: dict = {}
+
+
+def cached_const(key, make, device):
+    """The tensor of the host array ``make()`` on ``device``, made once per
+    ``key`` and device: a host-to-device copy waits for the card's stream,
+    so the provers' constant tables cross once, at their first use."""
+    device = torch.device(device)
+    t = _CONSTS.get((key, device))
+    if t is None:
+        t = _CONSTS[(key, device)] = const_arr(make(), device)
+    return t
+
+
+def _mul_table(device):
+    """(W, K): each of the 16 products a_i * b_j (index 4i + j) weighted by
+    1 or x^4 = 11, and their order by the coefficient (i + j) % 4 they
+    land on, four a coefficient; made on ``device``."""
+    key = ("ext_mul_small", torch.device(device))
+    t = _CONSTS.get(key)
+    if t is None:
+        ij = torch.arange(16, device=device)
+        i, j = ij // 4, ij % 4
+        weight = torch.where(i + j >= 4, EXT_W, 1).to(DTYPE)
+        t = _CONSTS[key] = (weight, torch.argsort((i + j) % 4 * 16 + ij))
+    return t
+
+
+def ext_mul_small(a, b):
+    """EF4 product of small tensors in six launches (:func:`ext_mul` takes
+    about fifty): the 16 products of coefficients at once, weighted by
+    x^4 = 11 and summed onto their coefficient. Its temporary is four times
+    its output, so the tables of the data axis keep :func:`ext_mul`."""
+    a, b = torch.broadcast_tensors(a, b)
+    w, order = _mul_table(a.device)
+    prod = ((a[..., :, None] * b[..., None, :]) % P).reshape(a.shape[:-1] + (16,)) * w
+    return prod.index_select(-1, order).reshape(a.shape + (4,)).sum(-1) % P
+
+
+def _frobenius_table(device):
+    """(3, 4): Frobenius^k, k = 1..3, maps coefficient i to itself times
+    W^(i (p^k - 1) / 4) (peer of ``text.py`` _frob_consts :99)."""
+
+    def make():
+        out = np.zeros((3, 4), dtype=np.uint64)
+        for k in range(1, 4):
+            e = (pow(P, k, P**4) - 1) // 4 % (P - 1)
+            out[k - 1] = [pow(EXT_W, i * e % (P - 1), P) for i in range(4)]
+        return out
+
+    return cached_const("frobenius", make, device)
+
+
+def inv(a):
+    """Base-field inverse a^(P-2) by square and multiply (0 maps to 0)."""
+    out, cur, e = None, a, P - 2
+    while e:
+        if e & 1:
+            out = cur if out is None else mul(out, cur)
+        e >>= 1
+        if e:
+            cur = mul(cur, cur)
+    return out
+
+
+def einv(a):
+    """EF4 inverse of each (..., 4) value through the norm map:
+    a^-1 = a^(p + p^2 + p^3) / N(a), N(a) = a^(1 + p + p^2 + p^3) in the
+    base field; 0 maps to 0. Peer of ``text.py`` einv :80 and, being
+    elementwise over the batch, of ``batch_einv`` :137 (Montgomery's trick
+    saves nothing here)."""
+    frob = _frobenius_table(a.device)
+    conj = ext_mul_small(mul(a, frob[0]), ext_mul_small(mul(a, frob[1]), mul(a, frob[2])))
+    norm = ext_mul_small(a, conj)[..., 0]
+    return ext_scale(conj, inv(norm))
 
 
 def pow_exps(base: int, e, bits: int):

@@ -156,38 +156,52 @@ void swirl_p2_compress_rows(const uint64_t* pairs, int64_t n, uint64_t* out) {
   }
 }
 
+// Whether witness w, observed into the sponge snapshot (state, absorb_idx,
+// sample_idx), makes the next sample's low bits under `mask` zero.
+static inline bool grind_hit(const uint64_t* state, int absorb_idx,
+                             int sample_idx, uint64_t mask, uint64_t w) {
+  uint64_t s[WIDTH];
+  std::memcpy(s, state, sizeof(s));
+  s[absorb_idx] = w;
+  int a = absorb_idx + 1, si = sample_idx;
+  if (a == RATE) {
+    permute(s);
+    a = 0;
+    si = RATE;
+  }
+  if (a != 0 || si == 0) {
+    permute(s);
+    si = RATE;
+  }
+  --si;
+  return (s[si] & mask) == 0;
+}
+
 // Fiat-Shamir PoW grind: find the smallest witness w such that observing w
 // into the sponge snapshot and sampling yields `bits` low zero bits.
-// Mirrors Transcript.grind (swirl/transcript.py). Returns -1 if none.
+// Mirrors Transcript.grind (swirl_torch/transcript.py). Returns -1 if none.
+// Up to 12 bits a hit comes within a few thousand candidates: one thread
+// checks them in index order and returns the first, which is the smallest.
+// Above, threads check blocks of 2^16 candidates and take each block's least.
 int64_t swirl_p2_grind(const uint64_t* state, int absorb_idx, int sample_idx,
                        int bits) {
   const uint64_t mask = (1ULL << bits) - 1;
+  if (bits <= 12) {
+    for (uint64_t w = 0; w < P; ++w)
+      if (grind_hit(state, absorb_idx, sample_idx, mask, w)) return (int64_t)w;
+    return -1;
+  }
   const uint64_t BLOCK = 1 << 16;
   constexpr int64_t NONE = INT64_MAX;
   for (uint64_t base = 0; base < P; base += BLOCK) {
     uint64_t hi = base + BLOCK < P ? base + BLOCK : P;
     int64_t found = NONE;
 #ifdef _OPENMP
-#pragma omp parallel for schedule(static) reduction(min : found) \
-    if (bits > 12)
+#pragma omp parallel for schedule(static) reduction(min : found)
 #endif
-    for (int64_t w = (int64_t)base; w < (int64_t)hi; ++w) {
-      uint64_t s[WIDTH];
-      std::memcpy(s, state, sizeof(s));
-      s[absorb_idx] = (uint64_t)w;
-      int a = absorb_idx + 1, si = sample_idx;
-      if (a == RATE) {
-        permute(s);
-        a = 0;
-        si = RATE;
-      }
-      if (a != 0 || si == 0) {
-        permute(s);
-        si = RATE;
-      }
-      --si;
-      if ((s[si] & mask) == 0 && w < found) found = w;
-    }
+    for (int64_t w = (int64_t)base; w < (int64_t)hi; ++w)
+      if (grind_hit(state, absorb_idx, sample_idx, mask, (uint64_t)w) && w < found)
+        found = w;
     if (found != NONE) return found;
   }
   return -1;

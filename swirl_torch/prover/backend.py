@@ -6,9 +6,9 @@ and :class:`Coordinator` is its ``Coordinator._prove`` (:294-396). Stages:
 main-trace stacked commit, RAP constraints (LogUp GKR + batch sumcheck),
 stacked opening reduction, WHIR. On a
 :class:`~.device_transcript.DeviceTranscript` (as ``swirl/prover/fused.py:387``
-runs the Coordinator on one) the GKR fractional sumcheck and WHIR run on
-it, and every other stage on a host transcript that takes the sponge over
-at their boundaries.
+runs the Coordinator on one) the preamble is observed on a host transcript
+and the sponge handed to the card once, before the RAP stage; every stage
+from there to the end of WHIR runs on it.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import torch
 
 from .. import metrics
 from .. import sanitize
-from ..fields import ext as hext
+from .. import tpoly
 from ..keygen import MultiStarkProvingKey
 from ..params import SystemParams
 from ..proof import Proof, TraceVData
@@ -29,7 +29,7 @@ from .errors import ProverError
 from ..transcript import Transcript
 
 from ..fields import field as F
-from .device_transcript import DeviceTranscript, device_view, handed_over
+from .device_transcript import DeviceTranscript, device_view
 from .logup_zerocheck import TraceProver, prove_zerocheck_and_logup
 from .stacked_pcs import StackedPcsData, stacked_commit
 from .stacked_reduction import prove_stacked_opening_reduction
@@ -210,22 +210,27 @@ class Coordinator:
 
     def _prove(self, mpk: DeviceMultiStarkProvingKey, unsorted_ctx: ProvingContext) -> Proof:
         params = mpk.params
-        # a device transcript takes the sponge for GKR and WHIR only; the
-        # other stages run on a host transcript at its state
+        device = self.backend.device
+        # a device transcript takes the sponge once, after the preamble,
+        # which is observed on a host transcript at its state; every stage
+        # from the RAP stage to the end of WHIR then runs on it
         on_card, transcript = None, self.transcript
         if isinstance(transcript, DeviceTranscript):
-            on_card = device_view(transcript, self.backend.device)  # refuses another device
+            on_card = device_view(transcript, device)  # refuses another device
             transcript = on_card.to_host()
         ctx = unsorted_ctx.sorted_for_stacking()
         common_commit, common_data, trace_vdata, public_values = self.commit_and_observe(
             mpk, ctx, transcript
         )
+        if on_card is not None:
+            on_card.load(transcript)
+        tr = device_view(transcript if on_card is None else on_card, device)
 
         # stage: RAP constraints (GKR + batch sumcheck)
         traces = trace_provers(mpk, ctx)
         with metrics.span("prove_rap_constraints"):
             gkr_proof, batch_proof, r = prove_zerocheck_and_logup(
-                transcript, params, mpk.max_constraint_degree, traces, on_card
+                tr, params, mpk.max_constraint_degree, traces
             )
 
         # stage: openings (stacked reduction + WHIR)
@@ -245,20 +250,15 @@ class Coordinator:
 
         with metrics.span("prove_stacked_reduction"):
             stacking_proof, u = prove_stacked_opening_reduction(
-                transcript, params, stacked_per_commit, need_rot_per_commit, r
+                tr, params, stacked_per_commit, need_rot_per_commit, r
             )
 
         # u_cube: the prism coordinate u0 replaced by its l_skip squarings
-        u_cube = []
-        cur = u[0]
-        for _ in range(params.l_skip):
-            u_cube.append(cur)
-            cur = hext.emul(cur, cur)
-        u_cube.extend(u[1:])
+        u_cube = torch.stack(tpoly.squares(u[0], params.l_skip) + list(u[1:]))
 
-        with metrics.span("prove_whir"), handed_over(transcript, on_card) as t:
+        with metrics.span("prove_whir"):
             whir_proof = prove_whir_opening(
-                t, params, stacked_per_commit, u_cube, tree_builder=self.backend.tree_builder
+                tr, params, stacked_per_commit, u_cube, tree_builder=self.backend.tree_builder
             )
 
         return Proof(

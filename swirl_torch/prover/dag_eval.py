@@ -6,7 +6,8 @@ field); ext mode as EF tensors (..., 4) (the multilinear rounds after
 folding). A DAG of at least :data:`VECTORIZE_THRESHOLD` nodes runs through
 the level-scheduled interpreter (:mod:`.dag_vectorized`), a smaller one node
 by node, as in the reference. The host evaluator runs single EF points for
-the prover's exhausted-trace tail.
+the verifier; the prover evaluates an exhausted trace's single folded point
+on the device.
 """
 
 from __future__ import annotations
@@ -174,24 +175,3 @@ def interactions_pq(dag, ev: DeviceEvaluator, beta_pows, bus_terms):
         (nodes[it.count], _h_beta(ev, nodes, it, bus_terms[s], beta_pows))
         for s, it in enumerate(dag.interactions)
     ]
-
-
-def acc_constraints_host(dag: ConstraintsDag, ev: HostEvaluator, lambda_pows):
-    nodes = eval_dag_nodes(dag, ev)
-    acc = hext.ezero()
-    for i, idx in enumerate(dag.constraint_idx):
-        acc = hext.eadd(acc, hext.emul(nodes[idx], lambda_pows[i]))
-    return acc
-
-
-def acc_interactions_host(dag: ConstraintsDag, ev: HostEvaluator, beta_pows, eq_3bs):
-    nodes = eval_dag_nodes(dag, ev)
-    numer = hext.ezero()
-    denom = hext.ezero()
-    for s, it in enumerate(dag.interactions):
-        h_beta = hext.escale(beta_pows[len(it.message)], (it.bus_index + 1) % P)
-        for j, m_idx in enumerate(it.message):
-            h_beta = hext.eadd(h_beta, hext.emul(beta_pows[j], nodes[m_idx]))
-        numer = hext.eadd(numer, hext.emul(eq_3bs[s], nodes[it.count]))
-        denom = hext.eadd(denom, hext.emul(eq_3bs[s], h_beta))
-    return numer, denom

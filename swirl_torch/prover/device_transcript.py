@@ -15,17 +15,15 @@ PyTorch versions.
 Observes are buffered and absorbed by the next launch: device values as
 they are, host values (ints, numpy) by value in the launch's arguments;
 each returns the value it observed, which is what a stage keeps for its
-proof. Samples return device tensors. The prover runs the GKR fractional
-sumcheck and WHIR on this transcript and hands the sponge to the host
-transcript around every other stage (:func:`handed_over`), as the
-reference's CUDA backend mirrors its sponge between host and device
+proof. Samples return device tensors. The prover observes its preamble on
+a host transcript and hands the sponge over once (:meth:`load`), before
+the RAP stage; from there to the end of WHIR every stage runs on this
+transcript, as the reference's CUDA backend keeps its sponge on the device
 (``cuda-backend/src/sponge.rs``). :func:`device_view` gives a stage the
 same interface over a host transcript.
 """
 
 from __future__ import annotations
-
-import contextlib
 
 import numpy as np
 import torch
@@ -257,7 +255,10 @@ class _HostView:
 
 def device_view(transcript, device):
     """The transcript as a stage that keeps its values on ``device`` uses it:
-    a :class:`DeviceTranscript` as it is, a host one behind :class:`_HostView`."""
+    a :class:`DeviceTranscript` (or a view already) as it is, a host one
+    behind :class:`_HostView`."""
+    if isinstance(transcript, _HostView):
+        return transcript
     if isinstance(transcript, DeviceTranscript):
         if transcript.device != _device(device):
             raise ProverError(
@@ -265,17 +266,3 @@ def device_view(transcript, device):
             )
         return transcript
     return _HostView(transcript, device)
-
-
-@contextlib.contextmanager
-def handed_over(host: Transcript, device_transcript):
-    """Hands the sponge from the host transcript to ``device_transcript`` for
-    the block, and back after it; without a device transcript the block
-    runs on the host one."""
-    if device_transcript is None:
-        yield host
-        return
-    device_transcript.load(host)
-    yield device_transcript
-    back = device_transcript.to_host()
-    host.state, host.absorb_idx, host.sample_idx = back.state, back.absorb_idx, back.sample_idx

@@ -20,7 +20,7 @@ value first.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -61,7 +61,7 @@ class FracSumcheckResult:
     fractional_sum: Tuple[np.ndarray, np.ndarray]  # (p, q) host EF
     claims_per_layer: List[GkrLayerClaims]
     sumcheck_polys: List[List[List[np.ndarray]]]
-    xi: List[np.ndarray]
+    xi: Optional[torch.Tensor]  # (t, 4) on the input's device; None without input
 
 
 def _claims(c) -> GkrLayerClaims:
@@ -76,7 +76,7 @@ def fractional_sumcheck(
     interactions. ``transcript``: a host :class:`Transcript` or a
     :class:`~.device_transcript.DeviceTranscript` on their device."""
     if p_evals is None:
-        return FracSumcheckResult((hext.ezero(), hext.eone()), [], [], [])
+        return FracSumcheckResult((hext.ezero(), hext.eone()), [], [], None)
     total_rounds = int(p_evals.shape[0]).bit_length() - 1
     assert p_evals.shape[0] == 1 << total_rounds
     device = p_evals.device
@@ -118,7 +118,7 @@ def fractional_sumcheck(
         claims.append(tr.observe_slice(torch.stack([c[0] for c in cols[1:]])))
         xi = torch.cat([tr.sample_ext()[None], torch.stack(rho)])
 
-    root_p, root_q, xi, *rest = F.to_host_all([root_p, root_q, xi, *claims, *polys])
+    root_p, root_q, *rest = F.to_host_all([root_p, root_q, *claims, *polys])
     claims_h, polys_h = rest[: len(claims)], rest[len(claims) :]
     sumcheck_polys, off = [], 0
     for rnd in range(1, total_rounds):
@@ -128,5 +128,5 @@ def fractional_sumcheck(
         fractional_sum=(root_p, root_q),
         claims_per_layer=[_claims(c) for c in claims_h],
         sumcheck_polys=sumcheck_polys,
-        xi=list(xi),
+        xi=xi,
     )

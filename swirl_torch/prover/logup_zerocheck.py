@@ -1,12 +1,16 @@
 """Batched zerocheck + LogUp constraint prover on torch tensors.
 
-Peer of the host-transcript branches of ``swirl/prover/logup_zerocheck.py``:
-``prove_gkr_phase`` (:461), ``_gkr_input_pq`` (:612), ``prove_batch_phase``
-(:704) and ``prove_zerocheck_and_logup`` (:2536). O(height) work (coset
-grids, DAG evaluation, folds, hypercube sums) runs on tensors; O(degree)
-polynomial assembly and the transcript run on the host in canonical numpy,
-but for the GKR fractional sumcheck, which takes the device transcript
-when the prover has one (``prove_gkr_phase``).
+Peer of ``swirl/prover/logup_zerocheck.py``: ``prove_gkr_phase`` (:461),
+``_gkr_input_pq`` (:612), ``prove_batch_phase`` (:704, and its device flow
+``_batch_phase_device`` :1409-2535) and ``prove_zerocheck_and_logup``
+(:2536). Every value stays on the traces' device: the O(height) work (coset
+grids, DAG evaluation, folds, hypercube sums) and the O(degree) polynomial
+assembly (:mod:`swirl_torch.tpoly`), batched over traces. One code path
+serves both transcripts (:func:`~.device_transcript.device_view`): on a
+:class:`~.device_transcript.DeviceTranscript` a round reads nothing back,
+and the stage reads the host three times (GKR's root check and copy, the
+batch phase's one copy at its end); on a host transcript each observe reads
+its value first.
 The JAX package's ``zerocheck_save_memory`` chunking is not ported: it
 produces the same bytes, and the full round-0 grid fits the card.
 """
@@ -14,39 +18,26 @@ produces the same bytes, and the full round-0 grid fits the card.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .. import metrics
-from .. import poly as hpoly
-from ..fields import ext as hext
+from .. import tpoly
 from ..fields.babybear import GENERATOR, P, batch_inverse
 from ..params import SystemParams, calculate_n_logup
-from ..proof import BatchConstraintProof, GkrProof, column_openings_by_rot
+from ..proof import BatchConstraintProof, GkrProof
 from .errors import LogupZerocheckError
 from ..symbolic import ConstraintsDag
-from ..transcript import Transcript
 
 from ..fields import field as F
-from .dag_eval import (
-    DeviceEvaluator,
-    HostEvaluator,
-    acc_constraints,
-    acc_constraints_host,
-    acc_interactions,
-    acc_interactions_host,
-    interactions_pq,
-)
-from .device_transcript import handed_over
+from .dag_eval import DeviceEvaluator, acc_constraints, acc_interactions, interactions_pq
+from .device_transcript import device_view
 from .gkr import fractional_sumcheck
 from .stacked_pcs import StackedLayout
 from .sumcheck import (
-    barycentric_weights_host,
     coset_eval_chunks,
-    ef_dev,
-    ef_stack,
     eq_hypercube,
     fold_mle,
     fold_ple,
@@ -54,6 +45,8 @@ from .sumcheck import (
     rot1,
     selectors_matrix,
 )
+
+emul = F.ext_mul_small
 
 
 def sumcheck_round0_deg(l_skip: int, d: int) -> int:
@@ -78,8 +71,6 @@ class TraceProver:
     prep_pair: Optional[Tuple] = None
     main_pairs: Optional[List[Tuple]] = None
     sels: Optional[torch.Tensor] = None  # (3, cur_h, 4) EF
-    zerocheck_tilde: Optional[np.ndarray] = None
-    logup_tilde: Optional[List[np.ndarray]] = None
 
     @property
     def n_lift(self) -> int:
@@ -110,7 +101,7 @@ class _EqTables:
     def __call__(self, start: int, end: int):
         key = (start, end)
         if key not in self._tables:
-            self._tables[key] = eq_hypercube(ef_stack(self.xi[start:end]), self.device)
+            self._tables[key] = eq_hypercube(self.xi[start:end], self.device)
         return self._tables[key]
 
 
@@ -166,44 +157,45 @@ def _phase_common(params, traces):
     return n_max, n_logup, inter_layout, max_msg_len
 
 
-def _bus_terms(beta_pows, t: TraceProver, device):
+def _bus_terms(beta_pows, t: TraceProver):
     """Per-interaction beta^len * (bus + 1) as a (k, 4) tensor."""
-    rows = [
-        hext.escale(beta_pows[len(it.message)], (it.bus_index + 1) % P)
-        for it in t.dag.interactions
-    ]
-    return ef_dev(ef_stack(rows), device)
+    its = t.dag.interactions
+    lens = tuple(len(it.message) for it in its)
+    buses = tuple((it.bus_index + 1) % P for it in its)
+    device = beta_pows.device
+    idx = F.cached_const(("message lengths", lens), lambda: lens, device)
+    bus = F.cached_const(("buses", buses), lambda: buses, device)
+    return F.mul(beta_pows.index_select(0, idx), bus[:, None])
 
 
-def prove_gkr_phase(
-    transcript: Transcript, params: SystemParams, traces: List[TraceProver], device_transcript=None
-):
+def prove_gkr_phase(tr, params: SystemParams, traces: List[TraceProver]):
     """LogUp grind, GKR input evaluation, fractional sumcheck and the xi
-    extension sampling. Returns (gkr_proof, xi, beta). With a
-    ``device_transcript`` the fractional sumcheck runs on it, the sponge
-    handed over from ``transcript`` and back."""
+    extension sampling on the transcript view ``tr``
+    (:func:`~.device_transcript.device_view`). Returns (gkr_proof, xi, beta):
+    xi an (n, 4) and beta a (4,) tensor on the traces' device; the proof's
+    ``logup_pow_witness`` is what the grind returned (a 0-d tensor on the
+    device transcript, read with the batch phase's copy)."""
     l_skip = params.l_skip
     n_max, n_logup, inter_layout, max_msg_len = _phase_common(params, traces)
     device = traces[0].common.device
 
-    logup_pow_witness = transcript.grind(params.logup.pow_bits)
-    alpha = transcript.sample_ext()
-    beta = transcript.sample_ext()
-    beta_pows = hext.epowers(beta, max_msg_len + 1)
+    logup_pow_witness = tr.grind(params.logup.pow_bits)
+    alpha = tr.sample_ext()
+    beta = tr.sample_ext()
+    beta_pows = F.epowers(beta, max_msg_len + 1)
 
+    xi_parts = []
     if inter_layout.sorted_cols:
         metrics.counter("gkr_interaction_cells", 1 << (l_skip + n_logup))
-        p_dev, q_dev = _gkr_input_pq(
-            traces, inter_layout, l_skip, n_logup, beta_pows, alpha, device
-        )
-        with metrics.span("fractional_sumcheck"), handed_over(transcript, device_transcript) as t:
-            frac = fractional_sumcheck(t, p_dev, q_dev, assert_zero=True)
+        p_dev, q_dev = _gkr_input_pq(traces, inter_layout, l_skip, n_logup, beta_pows, alpha, device)
+        with metrics.span("fractional_sumcheck"):
+            frac = fractional_sumcheck(tr, p_dev, q_dev, assert_zero=True)
+        xi_parts.append(frac.xi)
     else:
-        frac = fractional_sumcheck(transcript, None, None)
-
-    xi = list(frac.xi)
-    while len(xi) != l_skip + max(n_max, n_logup):
-        xi.append(transcript.sample_ext())
+        frac = fractional_sumcheck(tr, None, None)
+    have = sum(int(x.shape[0]) for x in xi_parts)
+    xi_parts += [tr.sample_ext()[None] for _ in range(l_skip + max(n_max, n_logup) - have)]
+    xi = torch.cat(xi_parts) if xi_parts else torch.zeros((0, 4), dtype=F.DTYPE, device=device)
 
     gkr_proof = GkrProof(
         logup_pow_witness=logup_pow_witness,
@@ -218,7 +210,6 @@ def _gkr_input_pq(traces, inter_layout, l_skip, n_logup, beta_pows, alpha, devic
     """GKR input (p, q): each interaction's counts and denominators, tiled to
     its lifted length (counts scaled by 1/reps) in the interactions layout
     order, zero-padded to 2^(l_skip + n_logup); q is shifted by alpha."""
-    beta_pows_dev = ef_dev(beta_pows, device)
     per_key = {}
     for t_idx, t in enumerate(traces):
         if not t.dag.interactions:
@@ -229,7 +220,7 @@ def _gkr_input_pq(traces, inter_layout, l_skip, n_logup, beta_pows, alpha, devic
         ev = DeviceEvaluator(
             selectors_matrix(h, 0, device), prep_pair, main_pairs, t.public_values, False
         )
-        pq = interactions_pq(t.dag, ev, beta_pows_dev, _bus_terms(beta_pows, t, device))
+        pq = interactions_pq(t.dag, ev, beta_pows, _bus_terms(beta_pows, t))
         for s_idx, (count, h_beta) in enumerate(pq):
             per_key[(t_idx, s_idx)] = (count, h_beta, h)
     total = 1 << (l_skip + n_logup)
@@ -246,49 +237,71 @@ def _gkr_input_pq(traces, inter_layout, l_skip, n_logup, beta_pows, alpha, devic
         p_dev[pos : pos + length, 0] = count.repeat(reps)
         q_dev[pos : pos + length] = h_beta.repeat(reps, 1)
         pos += length
-    return p_dev, F.add(q_dev, ef_dev(alpha, device))
+    return p_dev, F.add(q_dev, alpha)
+
+
+def _placed(x, start: int, size: int, limit: Optional[int] = None):
+    """The rows of x (..., k, 4), cut at ``limit`` rows, placed from row
+    ``start`` of a (..., size, 4) zero tensor and cut at its end."""
+    out = x.new_zeros(x.shape[:-2] + (size, 4))
+    k = min(x.shape[-2], size - start, x.shape[-2] if limit is None else limit)
+    if k > 0:
+        out[..., start : start + k, :] = x[..., :k, :]
+    return out
+
+
+def _eq_3b(xi, inter_layout, t_idx: int, t: TraceProver, l_skip: int, n_logup: int):
+    """eq(xi[l_skip + n_lift : l_skip + n_logup], b) for the stacked row
+    block b of each of the trace's interactions: a (k, 4) tensor."""
+    lo, hi = l_skip + t.n_lift, l_skip + n_logup
+    m = max(hi - lo, 0)
+    blocks = tuple(
+        inter_layout.get(t_idx, i).row_idx >> lo for i in range(len(t.dag.interactions))
+    )
+    bits = F.cached_const(
+        ("interaction row bits", blocks, m),
+        lambda: np.array([[(b >> j) & 1 for j in range(m)] for b in blocks], dtype=np.uint64).reshape(-1, m),
+        xi.device,
+    )
+    return tpoly.eval_eq_mle(xi[lo : lo + m], F.ext_from_base(bits))
 
 
 def prove_batch_phase(
-    transcript: Transcript,
+    tr,
     params: SystemParams,
     global_degree: int,
     traces: List[TraceProver],
-    xi: List[np.ndarray],
-    beta,
-) -> Tuple[BatchConstraintProof, List[np.ndarray]]:
+    xi: torch.Tensor,
+    beta: torch.Tensor,
+    carry: Sequence = (),
+):
     """The batched zerocheck + LogUp sumcheck (univariate-skip round 0 and
-    the multilinear rounds) and the column openings."""
+    the multilinear rounds) and the column openings, on the transcript view
+    ``tr``; xi (n, 4) and beta (4,) on the traces' device. Every value stays
+    on the device until one copy at the end, which also reads the ``carry``
+    values of the stage before. Returns (proof, r as an (n_max + 1, 4)
+    tensor, the carry values on the host)."""
     l_skip = params.l_skip
     num_traces = len(traces)
     n_max, n_logup, inter_layout, max_msg_len = _phase_common(params, traces)
     device = traces[0].common.device
     d_global = global_degree
-    ZERO = hext.ezero()
     eq_table = _EqTables(xi, device)
-    beta_pows = hext.epowers(beta, max_msg_len + 1)
-    beta_pows_dev = ef_dev(beta_pows, device)
+    beta_pows = F.epowers(beta, max_msg_len + 1)
 
-    lam = transcript.sample_ext()
+    lam = tr.sample_ext()
     max_num_constraints = max(len(t.dag.constraint_idx) for t in traces)
-    lambda_pows = hext.epowers(lam, max(max_num_constraints, 1))
-    lambda_pows_dev = ef_dev(lambda_pows, device)
+    lambda_pows = F.epowers(lam, max(max_num_constraints, 1))
 
-    eq_3b_per_trace: List[np.ndarray] = []
-    for t_idx, t in enumerate(traces):
-        xi_seg = ef_stack(xi[l_skip + t.n_lift : l_skip + n_logup])
-        rows = []
-        for i in range(len(t.dag.interactions)):
-            b_int = inter_layout.get(t_idx, i).row_idx >> (l_skip + t.n_lift)
-            bits = ef_stack(
-                [hext.from_base((b_int >> j) & 1) for j in range(n_logup - t.n_lift)]
-            )
-            rows.append(hpoly.eval_eq_mle(xi_seg, bits))
-        eq_3b_per_trace.append(ef_stack(rows))
+    bus_terms = [_bus_terms(beta_pows, t) if t.dag.interactions else None for t in traces]
+    eq_3b = [
+        _eq_3b(xi, inter_layout, t_idx, t, l_skip, n_logup) if t.dag.interactions else None
+        for t_idx, t in enumerate(traces)
+    ]
 
     # ---- univariate round 0 ---------------------------------------------
-    sp0_logup: List[Tuple[np.ndarray, np.ndarray]] = []
-    sp0_zc: List[np.ndarray] = []
+    sp0_zc: List[Optional[torch.Tensor]] = []  # (sp0_deg_air + 1, 4) coefficients
+    sp0_logup: List[Optional[torch.Tensor]] = []  # (2, d_air << l_skip, 4): numerator, denominator
     g = GENERATOR
     for t_idx, t in enumerate(traces):
         eq_tab = eq_table(l_skip, l_skip + t.n_lift)  # (2^n_lift, 4)
@@ -297,7 +310,7 @@ def prove_batch_phase(
 
         def grid_sums(num_cosets: int, eval_fn):
             """eq-weighted chunk sums of eval_fn's EF outputs on the coset
-            grids: each output (chunks, cosets << l_skip, 4) -> host sums."""
+            grids: (cosets << l_skip, 4) tensors (grouped by coset)."""
             shifts = [pow(g, c + 1, P) for c in range(num_cosets)]
             sels_g = coset_eval_chunks(sels_base, l_skip, shifts, False)
             pairs = [
@@ -309,112 +322,88 @@ def prove_batch_phase(
             ]
             prep_g, main_g = t.split_pairs(pairs)
             ev = DeviceEvaluator(sels_g, prep_g, main_g, t.public_values, False)
-            return tuple(
-                F.to_host(F.ext_sum(F.ext_mul(p, eq_tab[:, None, :]), axis=0))
-                for p in eval_fn(ev)
-            )
+            return [F.ext_sum(F.ext_mul(p, eq_tab[:, None, :]), axis=0) for p in eval_fn(ev)]
 
         # zerocheck: (d_air - 1) cosets, divide by the zerofier, interpolate
         num_zc_cosets = d_air - 1
         sp0_deg_air = sumcheck_round0_deg(l_skip, d_air)
         if num_zc_cosets == 0:
-            sp0_zc.append(np.stack([ZERO] * (sp0_deg_air + 1)))
+            sp0_zc.append(None)
         else:
             (sums,) = grid_sums(
-                num_zc_cosets, lambda ev: (acc_constraints(t.dag, ev, lambda_pows_dev),)
+                num_zc_cosets, lambda ev: (acc_constraints(t.dag, ev, lambda_pows),)
             )
-            zf = []
-            for c in range(num_zc_cosets):
-                sh = pow(g, c + 1, P)
-                zf.extend([(pow(sh, 1 << l_skip, P) - 1) % P] * (1 << l_skip))
-            q_evals = hext.escale(sums, batch_inverse(np.array(zf, dtype=np.uint64)))
-            grid = q_evals.reshape(num_zc_cosets, 1 << l_skip, 4).transpose(1, 0, 2)
-            q_coeffs = hpoly.from_geometric_cosets_evals(grid, g, g)
-            coeffs = []
-            nq = q_coeffs.shape[0]
-            for i in range(sp0_deg_air + 1):
-                c = hext.eneg(q_coeffs[i]) if i < nq else ZERO
-                if i >= (1 << l_skip) and i - (1 << l_skip) < nq:
-                    c = hext.eadd(c, q_coeffs[i - (1 << l_skip)])
-                coeffs.append(c)
-            sp0_zc.append(np.stack(coeffs))
+            zf_inv = F.cached_const(
+                ("zerofier inverses", l_skip, num_zc_cosets),
+                lambda: np.repeat(
+                    batch_inverse(
+                        np.array(
+                            [(pow(g, (c + 1) << l_skip, P) - 1) % P for c in range(num_zc_cosets)],
+                            dtype=np.uint64,
+                        )
+                    ),
+                    1 << l_skip,
+                ),
+                device,
+            )
+            grid = F.mul(sums, zf_inv[:, None]).reshape(num_zc_cosets, 1 << l_skip, 4)
+            q_coeffs = tpoly.from_geometric_cosets_evals(grid.transpose(0, 1), g, g)
+            # -q(X) + X^(2^l_skip) q(X), cut at the round's degree
+            n = sp0_deg_air + 1
+            sp0_zc.append(F.sub(_placed(q_coeffs, 1 << l_skip, n), _placed(q_coeffs, 0, n)))
 
         # logup: d_air cosets, interpolate numerator and denominator
         if not t.dag.interactions:
-            sp0_logup.append((ef_stack([]), ef_stack([])))
+            sp0_logup.append(None)
         else:
-            bus_terms = _bus_terms(beta_pows, t, device)
-            eq_3b_dev = ef_dev(eq_3b_per_trace[t_idx], device)
-            n_sum, d_sum = grid_sums(
+            sums = grid_sums(
                 d_air,
-                lambda ev: acc_interactions(t.dag, ev, beta_pows_dev, bus_terms, eq_3b_dev),
+                lambda ev: acc_interactions(t.dag, ev, beta_pows, bus_terms[t_idx], eq_3b[t_idx]),
             )
-            numer_coeffs, denom_coeffs = (
-                hpoly.from_geometric_cosets_evals(
-                    s.reshape(d_air, 1 << l_skip, 4).transpose(1, 0, 2), g, g
-                )
-                for s in (n_sum, d_sum)
-            )
+            grids = torch.stack(sums).reshape(2, d_air, 1 << l_skip, 4).transpose(1, 2)
+            coeffs = tpoly.from_geometric_cosets_evals(grids, g, g)
             norm = pow(1 << max(0, -t.n), P - 2, P)
-            sp0_logup.append((hext.escale(numer_coeffs, norm), denom_coeffs))
+            sp0_logup.append(torch.stack([F.mul(coeffs[0], norm), coeffs[1]]))
 
     # ---- assemble s_0, observe the sum claims ---------------------------
     s_deg = d_global + 1
     sp0_deg = sumcheck_round0_deg(l_skip, d_global)
     s0_deg = sumcheck_round0_deg(l_skip, s_deg)
     big = 1 << s0_deg.bit_length() if s0_deg > 0 else 1
+    zeros = torch.zeros((big, 4), dtype=F.DTYPE, device=device)
 
-    def pad(coeffs, size: int):
-        k = min(coeffs.shape[0], sp0_deg + 1, size)
-        return np.stack([coeffs[i] for i in range(k)] + [ZERO] * (size - k))
+    def pad(coeffs):
+        return zeros if coeffs is None else _placed(coeffs, 0, big, sp0_deg + 1)
 
-    eq_sharp_evals = hpoly.dft_ef(pad(hpoly.eq_sharp_uni_poly(np.stack(xi[:l_skip])), big))
-    s0_logup_polys = []  # 2 * num_traces coefficient arrays (big, 4)
-    for t_idx in range(num_traces):
-        for which in range(2):
-            evals = hpoly.dft_ef(pad(sp0_logup[t_idx][which], big))
-            s0_logup_polys.append(hpoly.idft_ef(hext.emul(evals, eq_sharp_evals)))
+    eq_sharp_evals = tpoly.dft_ef(pad(tpoly.eq_sharp_uni_poly(xi[:l_skip])))
+    logup_evals = tpoly.dft_ef(
+        torch.stack([pad(c) if c is not None else zeros.expand(2, big, 4) for c in sp0_logup])
+    )
+    s0_logup = tpoly.idft_ef(emul(logup_evals, eq_sharp_evals))  # (T, 2, big, 4)
+    claims = F.mul(F.ext_sum(s0_logup[..., : s0_deg + 1 : 1 << l_skip, :], axis=-2), 1 << l_skip)
+    claims = tr.observe_slice(claims)  # (T, 2, 4): numerator, denominator per trace
 
-    numerator_term_per_air = []
-    denominator_term_per_air = []
-    for t_idx in range(num_traces):
-        for which in range(2):
-            coeffs = s0_logup_polys[2 * t_idx + which]
-            acc = ZERO
-            for j in range(0, s0_deg + 1, 1 << l_skip):
-                acc = hext.eadd(acc, coeffs[j])
-            claim = hext.escale(acc, 1 << l_skip)
-            (numerator_term_per_air if which == 0 else denominator_term_per_air).append(claim)
-            transcript.observe_ext(claim)
+    mu = tr.sample_ext()
+    mu_pows = F.epowers(mu, 3 * num_traces)
+    # (T, 3, 4): each trace's weights of its zerocheck, numerator, denominator
+    mu_t = torch.stack(
+        [mu_pows[2 * num_traces :], mu_pows[0 : 2 * num_traces : 2], mu_pows[1 : 2 * num_traces : 2]],
+        dim=1,
+    )
 
-    mu = transcript.sample_ext()
-    mu_pows = hext.epowers(mu, 3 * num_traces)
+    eq_uni_evals = tpoly.dft_ef(pad(tpoly.eq_uni_poly(l_skip, xi[0])))
+    zc_batch = F.ext_sum(emul(torch.stack([pad(c) for c in sp0_zc]), mu_t[:, 0, None, :]), axis=0)
+    s0_zc_poly = tpoly.idft_ef(emul(tpoly.dft_ef(zc_batch), eq_uni_evals))
+    logup_term = F.ext_sum(emul(s0_logup, mu_t[:, 1:, None, :]), axis=(0, 1))
+    s0_coeffs = F.add(s0_zc_poly, logup_term)[: s0_deg + 1]
+    univariate = tr.observe_slice(s0_coeffs)
 
-    eq_uni_evals = hpoly.dft_ef(pad(hpoly.eq_uni_poly(l_skip, xi[0]), big))
-    zc_batch = None
-    for t_idx in range(num_traces):
-        term = hext.emul(pad(sp0_zc[t_idx], big), mu_pows[2 * num_traces + t_idx])
-        zc_batch = term if zc_batch is None else hext.eadd(zc_batch, term)
-    s0_zc_poly = hpoly.idft_ef(hext.emul(hpoly.dft_ef(zc_batch), eq_uni_evals))
-
-    s0_coeffs = []
-    for j in range(s0_deg + 1):
-        c = s0_zc_poly[j]
-        for t_idx in range(num_traces):
-            c = hext.eadd(c, hext.emul(mu_pows[2 * t_idx], s0_logup_polys[2 * t_idx][j]))
-            c = hext.eadd(
-                c, hext.emul(mu_pows[2 * t_idx + 1], s0_logup_polys[2 * t_idx + 1][j])
-            )
-        s0_coeffs.append(c)
-        transcript.observe_ext(c)
-    s0_coeffs = np.stack(s0_coeffs)
-
-    r: List[np.ndarray] = [transcript.sample_ext()]
-    r0 = r[0]
-    prev_s_eval = hpoly.horner_eval(s0_coeffs, r0)
+    r0 = tr.sample_ext()
+    r: List[torch.Tensor] = [r0]
+    prev_s_eval = tpoly.horner_eval(s0_coeffs, r0)
 
     # ---- fold the prismalinear columns at r_0 ---------------------------
-    weights = ef_dev(barycentric_weights_host(l_skip, r0), device)
+    weights = tpoly.barycentric_weights(l_skip, r0)
     for t in traces:
         pairs = [
             (
@@ -426,50 +415,41 @@ def prove_batch_phase(
         t.prep_pair, t.main_pairs = t.split_pairs(pairs)
         t.sels = fold_ple(selectors_matrix(t.height, l_skip, device), l_skip, False, weights)
 
-    eq_ns = [hpoly.eval_eq_uni(l_skip, xi[0], r0)]
-    eq_sharp_ns = [hpoly.eval_eq_sharp_uni(l_skip, np.stack(xi[:l_skip]), r0)]
+    eq_n = tpoly.eval_eq_uni(l_skip, xi[0], r0)
+    eq_sharp_n = tpoly.eval_eq_sharp_uni(l_skip, xi[:l_skip], r0)
 
     # ---- multilinear rounds ---------------------------------------------
-    sumcheck_round_polys: List[List[np.ndarray]] = []
-    n_per_trace = [t.n for t in traces]
+    xi_rounds = xi[l_skip : l_skip + n_max]
+    one = F.ext_one(device)
+    inv_b = F.einv(F.sub(one, xi_rounds))  # 1 / eq(xi, 0) of every round
+    points = tpoly.from_base_const(range(1, s_deg + 1), device)
+    round_polys = []
+    tilde: List[Optional[torch.Tensor]] = [None] * num_traces  # (3, 4) of an exhausted trace
     for rnd in range(1, n_max + 1):
         r_prev = r[rnd - 1]
-        sp_zc_evals: List[List[np.ndarray]] = []
-        sp_logup_evals: List[List[np.ndarray]] = []
+        heads = []  # (3, d_global, 4) per active trace: zerocheck, numerator, denominator
         for t_idx, t in enumerate(traces):
             has_int = bool(t.dag.interactions)
             norm = pow(1 << max(0, -t.n), P - 2, P)
             if rnd > t.n_lift:
                 if rnd == t.n_lift + 1:
-                    # pull the folded single-point values to the host
-                    hev = _host_evaluator(t)
-                    t.zerocheck_tilde = hext.emul(
-                        eq_ns[rnd - 1], acc_constraints_host(t.dag, hev, lambda_pows)
-                    )
+                    # the DAG at the trace's single folded point, on the device
+                    ev = DeviceEvaluator(t.sels, *t.split_pairs(_all_pairs(t)), t.public_values, True)
+                    vals = [emul(eq_n, acc_constraints(t.dag, ev, lambda_pows)[0])]
                     if has_int:
-                        numer, denom = acc_interactions_host(
-                            t.dag, hev, beta_pows, eq_3b_per_trace[t_idx]
+                        numer, denom = acc_interactions(
+                            t.dag, ev, beta_pows, bus_terms[t_idx], eq_3b[t_idx]
                         )
-                        t.logup_tilde = [
-                            hext.escale(hext.emul(eq_sharp_ns[rnd - 1], numer), norm),
-                            hext.emul(eq_sharp_ns[rnd - 1], denom),
-                        ]
+                        vals += [F.mul(emul(eq_sharp_n, numer[0]), norm), emul(eq_sharp_n, denom[0])]
+                    else:
+                        vals += [torch.zeros_like(vals[0])] * 2
+                    tilde[t_idx] = torch.stack(vals)
                 else:
-                    t.zerocheck_tilde = hext.emul(t.zerocheck_tilde, r_prev)
-                    if has_int:
-                        t.logup_tilde = [hext.emul(x, r_prev) for x in t.logup_tilde]
-                sp_zc_evals.append([t.zerocheck_tilde])
-                if has_int:
-                    sp_logup_evals.append([t.logup_tilde[0]])
-                    sp_logup_evals.append([t.logup_tilde[1]])
-                else:
-                    sp_logup_evals.extend([[ZERO] * d_global, [ZERO] * d_global])
+                    tilde[t_idx] = emul(tilde[t_idx], r_prev)
                 continue
 
             eq_tab = eq_table(l_skip + rnd, l_skip + t.n_lift)
-            zc_at, nm_at, dn_at = [], [], []
-            bus_terms = _bus_terms(beta_pows, t, device) if has_int else None
-            eq_3b_dev = ef_dev(eq_3b_per_trace[t_idx], device) if has_int else None
+            at_x = []
             for x in range(1, d_global + 1):
                 pairs_x = [
                     (
@@ -482,159 +462,117 @@ def prove_batch_phase(
                 ev = DeviceEvaluator(
                     interp_mle_at_int(t.sels, x), prep_x, main_x, t.public_values, True
                 )
-                outs = [acc_constraints(t.dag, ev, lambda_pows_dev)]
+                outs = [acc_constraints(t.dag, ev, lambda_pows)]
                 if has_int:
-                    outs.extend(acc_interactions(t.dag, ev, beta_pows_dev, bus_terms, eq_3b_dev))
-                sums = F.to_host(
-                    torch.stack([F.ext_sum(F.ext_mul(o, eq_tab), axis=0) for o in outs])
-                )
-                zc_at.append(sums[0])
-                if has_int:
-                    nm_at.append(hext.escale(sums[1], norm))
-                    dn_at.append(sums[2])
-            sp_zc_evals.append(zc_at)
+                    outs.extend(acc_interactions(t.dag, ev, beta_pows, bus_terms[t_idx], eq_3b[t_idx]))
+                at_x.append(torch.stack([F.ext_sum(F.ext_mul(o, eq_tab), axis=0) for o in outs]))
+            sums = torch.stack(at_x, dim=1)  # (1 or 3, d_global, 4)
             if has_int:
-                sp_logup_evals.extend([nm_at, dn_at])
+                sums = torch.stack([sums[0], F.mul(sums[1], norm), sums[2]])
             else:
-                sp_logup_evals.extend([[ZERO] * d_global, [ZERO] * d_global])
+                sums = torch.cat([sums, sums.new_zeros((2,) + sums.shape[1:])])
+            heads.append(sums)
 
         # front-loaded batching: head traces still active, tail exhausted
-        tail_start = next((i for i, n_t in enumerate(n_per_trace) if rnd > n_t), num_traces)
-        sp_head_zc = [ZERO] * d_global
-        sp_head_logup = [ZERO] * d_global
-        sp_tail = ZERO
-        for t_idx in range(num_traces):
-            zc_i, nm_i, dn_i = 2 * num_traces + t_idx, 2 * t_idx, 2 * t_idx + 1
-            if t_idx < tail_start:
-                for i in range(d_global):
-                    sp_head_zc[i] = hext.eadd(
-                        sp_head_zc[i], hext.emul(mu_pows[zc_i], sp_zc_evals[t_idx][i])
-                    )
-                    sp_head_logup[i] = hext.eadd(
-                        sp_head_logup[i],
-                        hext.eadd(
-                            hext.emul(mu_pows[nm_i], sp_logup_evals[nm_i][i]),
-                            hext.emul(mu_pows[dn_i], sp_logup_evals[dn_i][i]),
-                        ),
-                    )
-            else:
-                sp_tail = hext.eadd(
-                    sp_tail,
-                    hext.eadd(
-                        hext.emul(mu_pows[zc_i], sp_zc_evals[t_idx][0]),
-                        hext.eadd(
-                            hext.emul(mu_pows[nm_i], sp_logup_evals[nm_i][0]),
-                            hext.emul(mu_pows[dn_i], sp_logup_evals[dn_i][0]),
-                        ),
-                    ),
-                )
-
-        sp_head_evals = [ZERO] * s_deg
-        for i in range(d_global):
-            sp_head_evals[i + 1] = hext.eadd(
-                hext.emul(eq_ns[rnd - 1], sp_head_zc[i]),
-                hext.emul(eq_sharp_ns[rnd - 1], sp_head_logup[i]),
-            )
-        xi_cur = xi[l_skip + rnd - 1]
-        b_c = hext.esub(hext.eone(), xi_cur)
-        sp_head_evals[0] = hext.emul(
-            hext.esub(hext.esub(prev_s_eval, hext.emul(xi_cur, sp_head_evals[1])), sp_tail),
-            hext.einv(b_c),
+        n_head = len(heads)
+        head = F.ext_sum(emul(torch.stack(heads), mu_t[:n_head, :, None, :]), axis=0)
+        sp_tail = (
+            F.ext_sum(emul(torch.stack(tilde[n_head:]), mu_t[n_head:]), axis=(0, 1))
+            if n_head < num_traces
+            else torch.zeros_like(one)
         )
-        sp_head_coeffs = hpoly.lagrange_coeffs(list(range(s_deg)), np.stack(sp_head_evals))
+        # the head's evaluations at 1..d_global, then at 0 from the claim
+        sp_head = F.add(emul(eq_n, head[0]), emul(eq_sharp_n, F.add(head[1], head[2])))
+        xi_cur = xi_rounds[rnd - 1]
+        at_0 = emul(F.sub(F.sub(prev_s_eval, emul(xi_cur, sp_head[0])), sp_tail), inv_b[rnd - 1])
+        sp_head_coeffs = tpoly.lagrange_coeffs(range(s_deg), torch.cat([at_0[None], sp_head]))
         # batch_s(X) = eq(xi, X) * sp_head(X) + sp_tail * X
-        coeffs = [sp_head_coeffs[i] for i in range(s_deg)] + [ZERO]
-        a_c = hext.esub(xi_cur, b_c)
-        for i in range(s_deg - 1, -1, -1):
-            coeffs[i + 1] = hext.eadd(hext.emul(a_c, coeffs[i]), hext.emul(b_c, coeffs[i + 1]))
-        coeffs[0] = hext.emul(coeffs[0], b_c)
-        coeffs[1] = hext.eadd(coeffs[1], sp_tail)
-        coeffs = np.stack(coeffs)
-        batch_evals = [hpoly.horner_eval(coeffs, hext.from_base(i)) for i in range(1, s_deg + 1)]
-        for e in batch_evals:
-            transcript.observe_ext(e)
-        sumcheck_round_polys.append(batch_evals)
+        b_c = F.sub(one, xi_cur)
+        a_c = F.sub(xi_cur, b_c)
+        coeffs = F.add(
+            emul(_placed(sp_head_coeffs, 0, s_deg + 1), b_c),
+            emul(_placed(sp_head_coeffs, 1, s_deg + 1), a_c),
+        )
+        coeffs[1] = F.add(coeffs[1], sp_tail)
+        round_polys.append(tr.observe_slice(tpoly.horner_eval(coeffs, points)))
 
-        r_rnd = transcript.sample_ext()
+        r_rnd = tr.sample_ext()
         r.append(r_rnd)
-        prev_s_eval = hpoly.horner_eval(coeffs, r_rnd)
+        prev_s_eval = tpoly.horner_eval(coeffs, r_rnd)
 
-        r_dev = ef_dev(r_rnd, device)
         for t in traces:
             if t.sels.shape[1] > 1:
-                t.sels = fold_mle(t.sels, r_dev)
+                t.sels = fold_mle(t.sels, r_rnd)
                 fold_pair = lambda p: (  # noqa: E731
-                    fold_mle(p[0], r_dev),
-                    fold_mle(p[1], r_dev) if p[1] is not None else None,
+                    fold_mle(p[0], r_rnd),
+                    fold_mle(p[1], r_rnd) if p[1] is not None else None,
                 )
                 if t.prep_pair is not None:
                     t.prep_pair = fold_pair(t.prep_pair)
                 t.main_pairs = [fold_pair(p) for p in t.main_pairs]
-        eq_mle = hpoly.eval_eq_mle(xi_cur.reshape(1, 4), r_rnd.reshape(1, 4))
-        eq_ns.append(hext.emul(eq_ns[rnd - 1], eq_mle))
-        eq_sharp_ns.append(hext.emul(eq_sharp_ns[rnd - 1], eq_mle))
+        eq_mle = tpoly.eval_eq_mle(xi_cur[None], r_rnd[None])
+        eq_n = emul(eq_n, eq_mle)
+        eq_sharp_n = emul(eq_sharp_n, eq_mle)
 
     # ---- column openings ------------------------------------------------
-    column_openings: List[List[List[np.ndarray]]] = []
+    # each trace's parts as the proof lists them (common main, then
+    # preprocessed, then cached), each part its (claim, rotated claim)
+    # pairs, the rotated claim zero without a next row
+    parts_per_trace = []
     for t in traces:
-        part_openings = []
-        for local, nxt in _all_pairs(t):
-            lh = F.to_host(local[:, 0])  # (w, 4)
-            if t.needs_next:
-                nh = F.to_host(nxt[:, 0])
-                flat = [v for c in range(lh.shape[0]) for v in (lh[c], nh[c])]
-            else:
-                flat = [lh[c] for c in range(lh.shape[0])]
-            part_openings.append(flat)
-        # common main first, then preprocessed, then cached
-        column_openings.append([part_openings[-1]] + part_openings[:-1])
-    for t_idx, t in enumerate(traces):
-        for claim, claim_rot in column_openings_by_rot(column_openings[t_idx][0], t.needs_next):
-            transcript.observe_ext(claim)
-            transcript.observe_ext(claim_rot)
-    for t_idx, t in enumerate(traces):
-        for part in column_openings[t_idx][1:]:
-            for claim, claim_rot in column_openings_by_rot(part, t.needs_next):
-                transcript.observe_ext(claim)
-                transcript.observe_ext(claim_rot)
+        pairs = _all_pairs(t)
+        parts = []
+        for local, nxt in pairs[-1:] + pairs[:-1]:
+            rot = nxt[:, 0] if t.needs_next else torch.zeros_like(local[:, 0])
+            parts.append(torch.stack([local[:, 0], rot], dim=1).reshape(-1, 4))
+        parts_per_trace.append(parts)
+    # one observe: every trace's common main, then the other parts trace by trace
+    slots = [(t_idx, 0) for t_idx in range(num_traces)] + [
+        (t_idx, i) for t_idx, parts in enumerate(parts_per_trace) for i in range(1, len(parts))
+    ]
+    opened = tr.observe_slice(torch.cat([parts_per_trace[t_idx][i] for t_idx, i in slots]))
+
+    host = F.to_host_all([*carry, claims, univariate, *round_polys, opened])
+    carry_h, (claims_h, univ_h, *rest) = host[: len(carry)], host[len(carry) :]
+    polys_h, opened_h = rest[:-1], rest[-1]
+    column_openings = [[None] * len(parts) for parts in parts_per_trace]
+    off = 0
+    for t_idx, i in slots:
+        n = parts_per_trace[t_idx][i].shape[0]
+        rows = opened_h[off : off + n]
+        off += n
+        column_openings[t_idx][i] = list(rows if traces[t_idx].needs_next else rows[0::2])
 
     batch_proof = BatchConstraintProof(
-        numerator_term_per_air=numerator_term_per_air,
-        denominator_term_per_air=denominator_term_per_air,
-        univariate_round_coeffs=[s0_coeffs[j] for j in range(s0_deg + 1)],
-        sumcheck_round_polys=sumcheck_round_polys,
+        numerator_term_per_air=[claims_h[t][0] for t in range(num_traces)],
+        denominator_term_per_air=[claims_h[t][1] for t in range(num_traces)],
+        univariate_round_coeffs=[univ_h[j] for j in range(s0_deg + 1)],
+        sumcheck_round_polys=[[e[i] for i in range(s_deg)] for e in polys_h],
         column_openings=column_openings,
     )
-    return batch_proof, r
+    return batch_proof, torch.stack(r), carry_h
 
 
 def _all_pairs(t: TraceProver):
     return ([t.prep_pair] if t.prep_pair else []) + t.main_pairs
 
 
-def _host_evaluator(t: TraceProver) -> HostEvaluator:
-    """Evaluator at the single folded point of an exhausted trace."""
-    sels_h = F.to_host(t.sels[:, 0])
-    parts_cols = []
-    for local, nxt in _all_pairs(t):
-        lh = F.to_host(local[:, 0])
-        nh = F.to_host(nxt[:, 0]) if nxt is not None else None
-        parts_cols.append(
-            [(lh[c], nh[c] if nh is not None else None) for c in range(lh.shape[0])]
-        )
-    prep_cols, main_cols = t.split_pairs(parts_cols)
-    return HostEvaluator((sels_h[0], sels_h[1], sels_h[2]), prep_cols, main_cols, t.public_values)
-
-
 def prove_zerocheck_and_logup(
-    transcript: Transcript,
+    transcript,
     params: SystemParams,
     global_degree: int,
     traces: List[TraceProver],
-    device_transcript=None,
-) -> Tuple[GkrProof, BatchConstraintProof, List[np.ndarray]]:
-    """The RAP stage: GKR phase, then the batch-constraint phase (its
-    fractional sumcheck on ``device_transcript`` when one is given)."""
-    gkr_proof, xi, beta = prove_gkr_phase(transcript, params, traces, device_transcript)
-    batch_proof, r = prove_batch_phase(transcript, params, global_degree, traces, xi, beta)
+) -> Tuple[GkrProof, BatchConstraintProof, torch.Tensor]:
+    """The RAP stage on a host :class:`Transcript` or a
+    :class:`~.device_transcript.DeviceTranscript` on the traces' device: the
+    GKR phase, then the batch-constraint phase. Returns the proofs and r,
+    an (n_max + 1, 4) tensor on the traces' device."""
+    tr = device_view(transcript, traces[0].common.device)
+    gkr_proof, xi, beta = prove_gkr_phase(tr, params, traces)
+    batch_proof, r, (witness,) = prove_batch_phase(
+        tr, params, global_degree, traces, xi, beta, carry=[gkr_proof.logup_pow_witness]
+    )
+    if int(witness) >= P:  # kernel F's -1: no witness below P
+        raise LogupZerocheckError("failed to find the LogUp PoW witness")
+    gkr_proof.logup_pow_witness = int(witness)
     return gkr_proof, batch_proof, r

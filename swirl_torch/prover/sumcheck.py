@@ -7,8 +7,7 @@ values that reach the transcript are the same.
 
 Matrices: base (w, h) or EF (w, h, 4) canonical int64; the hypercube or
 prism index is the data axis. Protocol-small values (points, challenges)
-are the host's canonical numpy EF values, or device tensors where the
-device transcript sampled them.
+are device tensors (the tables also take host EF values).
 """
 
 from __future__ import annotations
@@ -18,25 +17,11 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ..fields import ext as hext
-from ..fields.babybear import P, U64, roots_of_unity
+from ..fields.babybear import U64
 
+from .. import tpoly
 from ..fields import field as F
 from .ntt import coset_ntt, intt
-
-
-def barycentric_weights_host(l_skip: int, r) -> np.ndarray:
-    """Host EF weights c_i with p(r) = sum_i c_i * p(w^i) for deg < 2^l_skip:
-    c_i = (r^N - 1)/N * w^i / (r - w^i), N = 2^l_skip."""
-    n = 1 << l_skip
-    omega = roots_of_unity(l_skip)
-    r = np.asarray(r, U64)
-    pref = hext.escale(hext.esub(hext.epow(r, n), hext.eone()), pow(n, P - 2, P))
-    weights = np.zeros((n, 4), dtype=U64)
-    for i in range(n):
-        inv = hext.einv(hext.esub(r, hext.from_base(int(omega[i]))))
-        weights[i] = hext.escale(hext.emul(pref, inv), int(omega[i]))
-    return weights
 
 
 def lift_mat(mat, l_skip: int):
@@ -55,7 +40,7 @@ def rot1(mat):
 
 def fold_ple(mat, l_skip: int, is_rot: bool, weights):
     """Evaluate prismalinear columns at r (``weights`` from
-    :func:`barycentric_weights_host`, as a (2^l_skip, 4) tensor):
+    :func:`swirl_torch.tpoly.barycentric_weights`, a (2^l_skip, 4) tensor):
     (w, h[, 4]) -> (w, lifted_h >> l_skip, 4)."""
     if is_rot:
         mat = rot1(mat)
@@ -92,11 +77,6 @@ def ef_dev(v, device):
     return F.const_arr(np.asarray(v, U64), device)
 
 
-def ef_stack(values) -> np.ndarray:
-    """Host EF values -> (k, 4) array; (0, 4) when there are none."""
-    return np.stack(values) if len(values) else np.zeros((0, 4), U64)
-
-
 def _ef_rows(v, device):
     """EF point(s), a device tensor or host values, as an (n, 4) tensor."""
     if isinstance(v, torch.Tensor):
@@ -129,12 +109,8 @@ def mobius_eq_hypercube(u_vec, device):
 
 def _squares(z, n: int, device):
     """[z, z^2, z^4, ..., z^(2^(n-1))] of an EF point z as an (n, 4) tensor."""
-    cur = _ef_rows(z, device)[0]
-    out = []
-    for _ in range(n):
-        out.append(cur)
-        cur = F.ext_mul(cur, cur)
-    return torch.stack(out) if out else cur.new_zeros((0, 4))
+    z = _ef_rows(z, device)[0]
+    return torch.stack(tpoly.squares(z, n)) if n else z.new_zeros((0, 4))
 
 
 def eq_pows_hypercube(z, n: int, device):

@@ -18,9 +18,8 @@ the paths). On a host transcript each observe reads its value first.
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Sequence
 
-import numpy as np
 import torch
 
 from ..fields.babybear import P, two_adic_generator
@@ -49,11 +48,12 @@ def prove_whir_opening(
     transcript,
     params: SystemParams,
     committed: Sequence[StackedPcsData],
-    u: List[np.ndarray],
+    u,
     tree_builder=None,
 ) -> WhirProof:
     """``transcript``: a host :class:`~swirl_torch.transcript.Transcript` or
-    a :class:`~.device_transcript.DeviceTranscript` on the data's device.
+    a :class:`~.device_transcript.DeviceTranscript` on the data's device; u:
+    the opening point, an (m, 4) tensor there or m host EF values.
     ``tree_builder``: when set, ``(matrix, rows_per_query, ext) -> (root,
     tree)`` replaces the Poseidon2 Merkle build of the codeword commits
     (the hash-scheme hook; None for the default scheme); its tree answers
@@ -90,7 +90,7 @@ def prove_whir_opening(
         off += hatf.shape[0]
         del hatf
     del mu_pows  # not live at the rounds' peaks
-    w_evals = mobius_eq_hypercube(np.stack(u), device)  # (2^m, 4)
+    w_evals = mobius_eq_hypercube(u, device)  # (2^m, 4)
 
     # the proof's values: on the device until the one copy at the end (a
     # host transcript hands back the host copies it observed)

@@ -10,8 +10,9 @@ on the CPU, where kernels E and F run their plain PyTorch versions.
 - The GKR and WHIR stages on it against the host transcript: equal
   results and exit state.
 - The four golden proofs on it: byte-identical to ``tests/golden``.
-- Its host reads: GKR at most two whatever its layer count, WHIR's the
-  same for two shapes of different query counts and tree depths.
+- Its host reads (``swirl_torch.testing.host_reads``): GKR at most two
+  whatever its layer count, WHIR's the same for two shapes of different
+  query counts and tree depths.
 
 Tolerance: exact equality (finite field, bytes).
 """
@@ -34,6 +35,7 @@ from swirl_torch.fields.babybear import P  # noqa: E402
 from swirl_torch.hash import poseidon2 as p2  # noqa: E402
 from swirl_torch.prover import device_transcript as dtm  # noqa: E402
 from swirl_torch.prover.device_transcript import DeviceTranscript  # noqa: E402
+from swirl_torch.testing.host_reads import HostReads  # noqa: E402
 from swirl_torch.transcript import Transcript  # noqa: E402
 
 U64 = np.uint64
@@ -275,48 +277,6 @@ def test_handoff_round_trip():
 # ---------------------------------------------------------------- stages ---
 
 
-class _HostReads:
-    """Counts the host reads of the code inside: ``F.to_host`` and a
-    tensor's ``item``, ``tolist``, ``numpy``, ``cpu``, ``bool`` and ``int``.
-    The plain versions of kernels E and F stand for launches on the card,
-    so the reads inside them are not counted."""
-
-    def __init__(self, monkeypatch):
-        self.count = 0
-        self._quiet = 0
-        mp = monkeypatch
-        to_host = F.to_host
-
-        def counted_to_host(x):
-            self._read()
-            return self._inside(to_host, x)
-
-        mp.setattr(F, "to_host", counted_to_host)
-        for name in ("item", "tolist", "numpy", "cpu", "__bool__", "__int__"):
-            orig = getattr(torch.Tensor, name)
-            mp.setattr(torch.Tensor, name, self._wrap(orig))
-        for name in ("duplex_plain", "grind_plain"):
-            orig = getattr(p2, name)
-            mp.setattr(p2, name, lambda *a, _f=orig, **k: self._inside(_f, *a, **k))
-
-    def _read(self):
-        if not self._quiet:
-            self.count += 1
-
-    def _inside(self, f, *a, **k):
-        self._quiet += 1
-        try:
-            return f(*a, **k)
-        finally:
-            self._quiet -= 1
-
-    def _wrap(self, orig):
-        def f(t, *a, **k):
-            self._read()
-            return self._inside(orig, t, *a, **k)
-        return f
-
-
 def _gkr_input(rng, log_n, balanced):
     p = np.zeros((1 << log_n, 4), U64)
     p[:, 0] = _rand(rng, (1 << log_n,))
@@ -334,7 +294,7 @@ def _prefixed(t):
 
 
 @pytest.mark.parametrize("log_n,balanced", [(4, False), (7, True)])
-def test_gkr_on_the_device_transcript(log_n, balanced, monkeypatch):
+def test_gkr_on_the_device_transcript(log_n, balanced):
     """Equal result and exit state to the host transcript's, and at most
     two host reads (the root's zero check, the one copy at the end) for 4
     or 7 layers."""
@@ -344,10 +304,9 @@ def test_gkr_on_the_device_transcript(log_n, balanced, monkeypatch):
     host = _prefixed(Transcript())
     want = fractional_sumcheck(host, p, q, assert_zero=balanced)
     dt = DeviceTranscript.from_host(_prefixed(Transcript()), "cpu")
-    reads = _HostReads(monkeypatch)
-    got = fractional_sumcheck(dt, p, q, assert_zero=balanced)
-    assert reads.count <= 2
-    monkeypatch.undo()
+    with HostReads() as reads:
+        got = fractional_sumcheck(dt, p, q, assert_zero=balanced)
+    assert reads.reads["total"] <= 2
     assert _equal(got.fractional_sum, want.fractional_sum)
     assert _equal(got.sumcheck_polys, want.sumcheck_polys) and _equal(got.xi, want.xi)
     assert _equal([vars(c) for c in got.claims_per_layer], [vars(c) for c in want.claims_per_layer])
@@ -390,17 +349,16 @@ def _whir_on(transcript, case):
 
 
 @pytest.mark.parametrize("log_h,queries", [(6, (3, 2)), (7, (7, 5, 3))])
-def test_whir_on_the_device_transcript(log_h, queries, monkeypatch):
+def test_whir_on_the_device_transcript(log_h, queries):
     """Equal proof and exit state to the host transcript's; one host read
     (the proof's copy at the end) whatever the queries and the depth."""
     case = _whir_case(log_h, queries, log_h)
     host = _prefixed(Transcript())
     want = _whir_on(host, case)
     dt = DeviceTranscript.from_host(_prefixed(Transcript()), "cpu")
-    reads = _HostReads(monkeypatch)
-    got = _whir_on(dt, case)
-    assert reads.count == 1
-    monkeypatch.undo()
+    with HostReads() as reads:
+        got = _whir_on(dt, case)
+    assert reads.reads["total"] == 1
     assert _equal(vars(got), vars(want))
     back = dt.to_host()
     assert np.array_equal(back.state, host.state)
