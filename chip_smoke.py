@@ -53,7 +53,26 @@ Phases, each printing its result on lines of its own:
    waits for the card's stream, as does each host write, a tensor made from
    host data, printed beside them) must not exceed the fixed numbers that
    the CPU tests hold (``STAGE_READS``): the sponge stays on the card from
-   the RAP stage to the end of WHIR, and no round reads the host.
+   the RAP stage to the end of WHIR, and no round reads the host (the
+   leaf too);
+8. memory policy: the app proves under the default ``ProverConfig``
+   (log_blowup 1: round 0's coset grids in 8 segments) and once more on the
+   host transcript with ``zerocheck_save_memory=False``; the leaf once more
+   with both caches off (the stacked matrix and the RS codewords recomputed
+   where they are read, so kernel A or A′ launches again). Each extra
+   prove's bytes must equal the verified proof's (no second debug check
+   or verify). Every prove prints its peak device memory by stage span
+   (the peak since the last span boundary, charged to the innermost span
+   open), and for the app, leaf and Keccak proves the memory model's
+   estimate (``eng.proving_memory_config().estimate``, total and each
+   component) beside the measured peak, with the ratio; the estimate must
+   not be below the peak;
+9. outer: the golden ``outer`` case (the BN254 outer hash scheme) through
+   ``run_test`` on the card: its recorded transcript must equal
+   ``tests/golden/outer.transcript.txt`` event for event (the first
+   divergence is printed) and its vk pre-hash ``outer.prehash.txt``; the
+   port's verifier refuses a tampered commit, a tampered Merkle sibling and
+   a non-scalar digest; a ``DeviceTranscript`` is refused under the scheme.
 
 Phases 4 to 6 use a random trace from a seed. The debug check runs on
 the card before the prove, the port's host verifier on the proof's
@@ -518,7 +537,7 @@ def check_golden(device) -> None:
     for name in GOLDEN_CASES:
         params, airs, ctxs = golden_cases()[name]()
         transcript = Transcript(record=True)
-        vk, proof = StarkEngine(params, device).run_test(airs, ctxs, transcript)
+        vk, proof = StarkEngine(params, device=device).run_test(airs, ctxs, transcript)
         paths = paths_for(name)
         got_proof = encode_proof(proof)
         for what, got in (
@@ -529,10 +548,71 @@ def check_golden(device) -> None:
             with open(paths[what], "rb") as f:
                 if f.read() != got:
                     raise AssertionError(f"golden {name}: {what} bytes differ")
-        _, proof = StarkEngine(params, device).run_test(airs, ctxs, DeviceTranscript(device))
+        _, proof = StarkEngine(params, device=device).run_test(airs, ctxs, DeviceTranscript(device))
         if encode_proof(proof) != got_proof:
             raise AssertionError(f"golden {name}: the device-transcript proof's bytes differ")
         _say(f"golden {name}: vk, proof and transcript byte-identical; the proof on a device transcript too")
+
+
+def check_outer(device) -> None:
+    """The golden ``outer`` case (BN254 outer scheme) through ``run_test``
+    on the card: transcript events and pre-hash against ``tests/golden``;
+    the verifier's three refusals; the device transcript refused."""
+    import copy
+
+    import numpy as np
+
+    from swirl_torch.engine import StarkEngine
+    from swirl_torch.hash.bn254_poseidon2 import P_BN254
+    from swirl_torch.prover.backend import ProvingContext
+    from swirl_torch.prover.device_transcript import DeviceTranscript
+    from swirl_torch.prover.errors import ProverError
+    from swirl_torch.testing.golden import (
+        CASE_SCHEME, decode_transcript_log, golden_cases, paths_for, pre_hash_hex)
+    from swirl_torch.verifier.errors import VerifierError
+
+    params, airs, ctxs = golden_cases()["outer"]()
+    eng = StarkEngine(params, hash_scheme=CASE_SCHEME["outer"], device=device)
+    transcript = eng.scheme.new_transcript(record=True)
+    vk, proof = eng.run_test(airs, ctxs, transcript)
+    paths = paths_for("outer")
+    with open(paths["transcript"], "rb") as f:
+        want = decode_transcript_log(f.read())
+    got = list(transcript.log)
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g != w:
+            raise AssertionError(f"golden outer: the transcript diverges at event {i}: golden {w}, card {g}")
+    if len(got) != len(want):
+        raise AssertionError(f"golden outer: {len(got)} transcript events against the golden {len(want)}")
+    with open(paths["prehash"]) as f:
+        if pre_hash_hex(vk.pre_hash) != f.read().strip():
+            raise AssertionError("golden outer: the vk pre-hash differs")
+    refusals = []
+    for what, tamper in (
+        ("commit + 1", lambda p: setattr(p, "common_main_commit", (p.common_main_commit + 1) % P_BN254)),
+        ("Merkle sibling + 1", lambda p: p.whir_proof.initial_round_merkle_proofs[0][0].__setitem__(
+            0, (p.whir_proof.initial_round_merkle_proofs[0][0][0] + 1) % P_BN254)),
+        ("(8,) digest", lambda p: p.whir_proof.codeword_commits.__setitem__(0, np.zeros(8, dtype=np.uint64))),
+    ):
+        bad = copy.deepcopy(proof)
+        tamper(bad)
+        try:
+            eng.verify(vk, bad)
+        except VerifierError as err:
+            refusals.append(f"{what}: {type(err).__name__}")
+        else:
+            raise AssertionError(f"golden outer: the verifier accepted a proof with a {what}")
+    pk, _ = eng.keygen(airs)
+    ctx = ProvingContext([eng.context_for(i, cm, pvs, c) for i, (cm, pvs, c) in enumerate(ctxs)])
+    try:
+        eng.prove(eng.transport_pk(pk), ctx, DeviceTranscript(device))
+    except ProverError as err:
+        device_refusal = str(err)
+    else:
+        raise AssertionError("golden outer: a device transcript was taken under the BN254 scheme")
+    _say(f"golden outer: {len(got)} transcript events and the pre-hash equal tests/golden (BN254 digests, "
+         f"commit {proof.common_main_commit:#x}); refused: {'; '.join(refusals)}; "
+         f"device transcript: {device_refusal}")
 
 
 @contextmanager
@@ -555,6 +635,52 @@ def recorded_shapes():
         yield shapes
     finally:
         del K.LIB.launch
+
+
+@contextmanager
+def peaks_by_span():
+    """{span: peak device bytes} of the block: the peak since the last span
+    boundary, charged to the innermost span open there ("outside" for none).
+    Resets the card's peak statistic at every boundary."""
+    import torch
+
+    from swirl_torch import metrics
+
+    plain = metrics.span
+    peaks, stack = {}, []
+
+    def mark():
+        where = stack[-1] if stack else "outside"
+        peaks[where] = max(peaks.get(where, 0), torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+
+    @contextmanager
+    def span(name):
+        mark()
+        stack.append(name)
+        try:
+            with plain(name):
+                yield
+        finally:
+            mark()
+            stack.pop()
+
+    metrics.span = span
+    try:
+        yield peaks
+    finally:
+        metrics.span = plain
+        mark()
+
+
+def memory_model(eng, vk, height: int) -> dict:
+    """The memory model's estimate of one prove of ``vk`` at ``height``."""
+    from dataclasses import asdict
+
+    from swirl_torch.memory_metering import counts_for
+
+    counts = counts_for(vk, [height])
+    return {"counts": asdict(counts), **asdict(eng.proving_memory_config().estimate(counts))}
 
 
 def _synced_seconds(fn):
@@ -586,7 +712,7 @@ def prove_and_check(device, params, air, trace, bad_trace, bad_row: int, on_card
     from swirl_torch.prover.backend import ProvingContext
     from swirl_torch.verifier.errors import VerifierError
 
-    eng = StarkEngine(params, device)
+    eng = StarkEngine(params, device=device)
     t0 = time.perf_counter()
     pk, vk = eng.keygen([air])
     dpk = eng.transport_pk(pk)
@@ -599,11 +725,12 @@ def prove_and_check(device, params, air, trace, bad_trace, bad_row: int, on_card
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
     t0 = time.perf_counter()
-    with metrics.run_with_metric_collection() as collector, recorded_shapes() as shapes:
+    with metrics.run_with_metric_collection() as collector, recorded_shapes() as shapes, \
+            peaks_by_span() as peaks:
         proof = eng.prove(dpk, ctx)
     prove_s = time.perf_counter() - t0
     launches = K.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(peaks.values())
     data = encode_proof(proof)
     if encode_proof(decode_proof(data)) != data:
         raise AssertionError("the proof does not survive a codec round trip")
@@ -635,6 +762,11 @@ def prove_and_check(device, params, air, trace, bad_trace, bad_row: int, on_card
     card = prove_on_card(eng, dpk, ctx, hashlib.sha256(data).hexdigest()) if on_card else None
     return {
         "on_card": card,
+        "engine": eng,
+        "dpk": dpk,
+        "ctx": ctx,
+        "memory_model": memory_model(eng, vk, len(trace)),
+        "peaks_by_span": peaks,
         "setup_s": setup_s,
         "debug_s": debug_s,
         "prove_s": prove_s,
@@ -648,6 +780,8 @@ def prove_and_check(device, params, air, trace, bad_trace, bad_row: int, on_card
         "tamper_refusal": tamper_refusal,
         "bad_trace_refusal": bad_trace_refusal,
         "dag": vk.per_air[0].symbolic_constraints,
+        "dag_vk": vk,
+        "height": len(trace),
     }
 
 
@@ -669,11 +803,12 @@ def prove_on_card(eng, dpk, ctx, want_sha256: str) -> dict:
     transcript = DeviceTranscript(eng.device)
     K.reset_launch_counts()
     t0 = time.perf_counter()
-    with metrics.run_with_metric_collection() as collector, HostReads() as host:
+    with metrics.run_with_metric_collection() as collector, HostReads() as host, \
+            peaks_by_span() as peaks:
         proof = eng.prove(dpk, ctx, transcript)
     prove_s = time.perf_counter() - t0
     launches = K.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(peaks.values())
     sha = hashlib.sha256(encode_proof(proof)).hexdigest()
     if sha != want_sha256:
         raise AssertionError(f"the device-transcript proof differs: sha256 {sha[:16]} against {want_sha256[:16]}")
@@ -684,11 +819,41 @@ def prove_on_card(eng, dpk, ctx, want_sha256: str) -> dict:
         "prove_s": prove_s,
         "spans_ms": {k: v for k, v in collector.snapshot().items() if k.endswith("_time_ms")},
         "peak_bytes": peak,
+        "peaks_by_span": peaks,
         "launches": launches,
         "proof_sha256": sha,
         "host_reads": dict(host.reads),
         "host_writes": dict(host.writes),
     }
+
+
+def prove_with_config(run: dict, config) -> dict:
+    """The prove of ``run``'s cell again on the host transcript, on a new
+    engine with the memory policy ``config`` (the same proving key and
+    context): the launch counters reset just before it, its peak by span,
+    the memory model's estimate, and its proof's sha256 held to the
+    verified proof's."""
+    import torch
+
+    from swirl_torch import kernels as K
+    from swirl_torch.codec import encode_proof
+    from swirl_torch.engine import StarkEngine
+
+    base = run["engine"]
+    eng = StarkEngine(base.params, config, device=base.device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    with peaks_by_span() as peaks:
+        proof, prove_s = _synced_seconds(lambda: eng.prove(run["dpk"], run["ctx"]))
+    launches = K.launch_counts()
+    sha = hashlib.sha256(encode_proof(proof)).hexdigest()
+    if sha != run["proof_sha256"]:
+        raise AssertionError(f"the proof under {config} differs: sha256 {sha[:16]} against "
+                             f"{run['proof_sha256'][:16]}")
+    model = memory_model(eng, run["dag_vk"], run["height"])
+    return {"config": config, "prove_s": prove_s, "peak_bytes": max(peaks.values()),
+            "peaks_by_span": peaks, "launches": launches, "proof_sha256": sha, "memory_model": model}
 
 
 def prove_synthetic(device, params, degree: int, log_rows: int = LOG_ROWS,
@@ -780,6 +945,31 @@ def report(tag: str, run: dict, required) -> None:
         raise AssertionError(f"{tag}, device transcript: the path never launched {missing}")
 
 
+def release(run: dict) -> None:
+    """Drops a cell's engine, proving key and context (its trace on the
+    card) before the next cell, whose peak would count them."""
+    import torch
+
+    for key in ("engine", "dpk", "ctx"):
+        run.pop(key, None)
+    torch.cuda.empty_cache()
+
+
+def report_memory(tag: str, run: dict) -> dict:
+    """Prints a prove's peak by span and the memory model beside its peak;
+    returns the row of the memory table."""
+    spans = ", ".join(f"{k} {v}" for k, v in sorted(run["peaks_by_span"].items(), key=lambda kv: -kv[1]))
+    _say(f"{tag}: peak device memory by span (B): {spans}")
+    model = run.get("memory_model")
+    if model is None:
+        return {}
+    parts = ", ".join(f"{k} {v}" for k, v in model.items() if k != "counts")
+    ratio = model["total"] / run["peak_bytes"]
+    _say(f"{tag}: memory model {model['counts']}: {parts}; measured peak {run['peak_bytes']} B, "
+         f"estimate / measured {ratio:.4f}")
+    return {"tag": tag, "estimate": model["total"], "measured": run["peak_bytes"], "ratio": ratio}
+
+
 def main() -> int:
     import torch
 
@@ -792,6 +982,7 @@ def main() -> int:
         app_params_with_100_bits_security,
         leaf_params_with_100_bits_security,
     )
+    from swirl_torch.prover.backend import ProverConfig
     from swirl_torch.tools import isa
 
     device = torch.device("cuda", 0)
@@ -820,32 +1011,62 @@ def main() -> int:
     check_golden(device)
     counts = K.launch_counts()
     _say(f"golden: kernel launches {counts}")
+    check_outer(device)
 
     # the host-transcript prove launches neither E nor F
     app_kernels = [k.name for k in (K.NTT, K.HASH_COLS, K.COMPRESS, K.TOWER)]
+    memory = []
     app = prove_synthetic(device, app_params_with_100_bits_security(APP_LOG_STACKED), 3, on_card=True)
     report("app", app, app_kernels)
-    torch.cuda.empty_cache()
-    leaf = prove_synthetic(device, leaf_params_with_100_bits_security(LEAF_LOG_STACKED), 4)
-    report("leaf", leaf, [*app_kernels, K.NTT_RECURSIVE.name])
-    torch.cuda.empty_cache()
+    if not app["engine"].backend.config.zerocheck_save_memory:
+        raise AssertionError("app: the default ProverConfig does not segment round 0 at log_blowup 1")
+    memory.append(report_memory("app (default config: round 0 in 8 segments)", app))
+    report_memory("app, device transcript", app["on_card"])
+    full = prove_with_config(app, ProverConfig(zerocheck_save_memory=False))
+    _say(f"app, zerocheck_save_memory=False: prove {full['prove_s']:.3f} s, peak {full['peak_bytes']} B "
+         f"(segmented {app['peak_bytes']} B), proof sha256 {full['proof_sha256'][:16]} (the default's)")
+    memory.append(report_memory("app, zerocheck_save_memory=False", full))
+    release(app)
+    leaf = prove_synthetic(device, leaf_params_with_100_bits_security(LEAF_LOG_STACKED), 4, on_card=True)
+    leaf_kernels = [*app_kernels, K.NTT_RECURSIVE.name]
+    report("leaf", leaf, leaf_kernels)
+    memory.append(report_memory("leaf", leaf))
+    report_memory("leaf, device transcript", leaf["on_card"])
+    _say(f"leaf: peak device memory host transcript {leaf['peak_bytes']} B, device transcript "
+         f"{leaf['on_card']['peak_bytes']} B")
+    lean = prove_with_config(leaf, ProverConfig(cache_stacked_matrix=False, cache_rs_code_matrix=False))
+    ntt_launches = [r["launches"][K.NTT.name] + r["launches"][K.NTT_RECURSIVE.name] for r in (leaf, lean)]
+    _say(f"leaf, both caches off: prove {lean['prove_s']:.3f} s, peak {lean['peak_bytes']} B (cached "
+         f"{leaf['peak_bytes']} B), proof sha256 {lean['proof_sha256'][:16]} (the cached proof's); "
+         f"A and A′ launches {ntt_launches[1]} (cached {ntt_launches[0]}), kernel launches {lean['launches']}")
+    if ntt_launches[1] <= ntt_launches[0]:
+        raise AssertionError("leaf, both caches off: the recompute launched no more NTTs than the cached prove")
+    memory.append(report_memory("leaf, both caches off", lean))
+    release(leaf)
     t0 = time.perf_counter()
     check_kernels(device, perm_floor_ms, keccak=True)
     keccak = prove_keccak(device, on_card=True)
     report("keccak", keccak, app_kernels)
+    memory.append(report_memory("keccak", keccak))
+    report_memory("keccak, device transcript", keccak["on_card"])
+    release(keccak)
     _say(f"keccak: phase {time.perf_counter() - t0:.1f} s (kernel cases, trace, setup, debug, prove, "
          f"verify, refusals)")
     _say(f"total: {time.perf_counter() - start:.1f} s (build included)")
+    below = [row["tag"] for row in memory if row["estimate"] < row["measured"]]
+    if below:
+        raise AssertionError(f"the memory model's estimate is below the measured peak: {below}")
 
     # launches: the leaf path, the one path that runs A-D and A′; E and F
     # on the app's device-transcript prove
+    launches = {k.name: (app["on_card"] if k in (K.DUPLEX, K.GRIND) else leaf)["launches"][k.name] for k in K.KERNELS}
     kernels = [
         {
             "name": k.name,
             "route": "cuda",
             "source": k.source,
             "replaces": k.replaces,
-            "launches": (app["on_card"] if k in (K.DUPLEX, K.GRIND) else leaf)["launches"][k.name],
+            "launches": launches[k.name],
             **results[k.name],
         }
         for k in K.KERNELS

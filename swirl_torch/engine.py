@@ -1,12 +1,16 @@
 """StarkEngine for the torch port: keygen, context construction, debug
 check, prove and verify.
 
-Peer of ``swirl/engine.py`` on the default BabyBear-Poseidon2 scheme with a
-fresh :class:`~swirl_torch.transcript.Transcript` per proof and per
-verification, unless the caller hands the prover a transcript (a device
-one among them). The engine runs on the CUDA card unless the caller passes
-another device (``device="cpu"`` for the tests); the debug check runs on
-the traces' device, the verifier on the host (:mod:`swirl_torch.verifier`).
+Peer of ``swirl/engine.py``: ``prover_config`` is the memory policy
+(:class:`~swirl_torch.prover.backend.ProverConfig`), ``hash_scheme`` the
+Fiat-Shamir and commitment hash (:func:`~swirl_torch.hash.scheme.get_scheme`:
+the default BabyBear Poseidon2-16, or ``"bn254-outer"``, the outer-recursion
+scheme, whose digests are single BN254 scalars). A fresh transcript of the
+scheme serves each proof and each verification, unless the caller hands
+the prover a transcript (a device one among them, on the default scheme
+only). The engine runs on the CUDA card unless the caller passes another
+device (``device="cpu"`` for the tests); the debug check runs on the
+traces' device, the verifier on the host (:mod:`swirl_torch.verifier`).
 """
 
 from __future__ import annotations
@@ -24,29 +28,56 @@ from .proof import Proof
 from .transcript import Transcript
 from .verifier import verify as verify_proof
 
+from .hash.scheme import get_scheme
 from .prover.backend import (
     AirContext,
     Coordinator,
     DeviceMultiStarkProvingKey,
+    ProverConfig,
     ProvingContext,
     TorchBackend,
     to_device_matrix,
 )
+from .prover.device_transcript import DeviceTranscript
+from .prover.errors import ProverError
 
 
 class StarkEngine:
-    def __init__(self, params: SystemParams, device="cuda"):
+    def __init__(
+        self,
+        params: SystemParams,
+        prover_config: Optional[ProverConfig] = None,
+        hash_scheme=None,
+        device="cuda",
+    ):
         self.params = params
-        self.backend = TorchBackend(params, device)
+        self.scheme = get_scheme(hash_scheme)
+        self.backend = TorchBackend(params, prover_config, device=device)
+        self.backend.tree_builder = self.scheme.tree_builder()
 
     @property
     def device(self):
         return self.backend.device
 
+    def proving_memory_config(self):
+        """The device-memory model of a prove under this engine's policy
+        (peer of ``swirl/engine.py:46-57``)."""
+        from .memory_metering import ProvingMemoryConfig
+
+        cfg = self.backend.config
+        return ProvingMemoryConfig.from_params(
+            self.params,
+            cache_stacked_matrix=cfg.cache_stacked_matrix,
+            cache_rs_code_matrix=cfg.cache_rs_code_matrix,
+            zerocheck_save_memory=bool(cfg.zerocheck_save_memory),
+        )
+
     def keygen(
         self, airs: List[Air], required: Optional[List[bool]] = None
     ) -> Tuple[MultiStarkProvingKey, MultiStarkVerifyingKey]:
         builder = MultiStarkKeygenBuilder(self.params, self.backend.keygen_committer())
+        if self.scheme.name != "babybear-poseidon2":
+            builder.pre_hasher = self.scheme.pre_hash
         for i, air in enumerate(airs):
             if required and required[i]:
                 builder.add_required_air(air)
@@ -89,11 +120,17 @@ class StarkEngine:
         ctx: ProvingContext,
         transcript=None,
     ) -> Proof:
-        """A fresh host :class:`Transcript` by default; a
+        """A fresh host transcript of the scheme by default; a
         :class:`~swirl_torch.prover.device_transcript.DeviceTranscript` on the
-        engine's device keeps the sponge on it through GKR and WHIR (the
-        same proof bytes)."""
-        return Coordinator(self.backend, transcript or Transcript()).prove(dpk, ctx)
+        engine's device keeps the sponge on it from the RAP stage through
+        WHIR (the same proof bytes). The device sponge is BabyBear
+        Poseidon2-16, so another scheme refuses it."""
+        if isinstance(transcript, DeviceTranscript) and self.scheme.name != "babybear-poseidon2":
+            raise ProverError(
+                f"the device transcript is BabyBear Poseidon2-16; the {self.scheme.name} "
+                "scheme proves on its host transcript"
+            )
+        return Coordinator(self.backend, transcript or self.scheme.new_transcript()).prove(dpk, ctx)
 
     def verify(
         self,
@@ -101,7 +138,7 @@ class StarkEngine:
         proof: Proof,
         transcript: Optional[Transcript] = None,
     ) -> None:
-        verify_proof(self.params, vk, proof, transcript)
+        verify_proof(self.params, vk, proof, transcript, scheme=self.scheme)
 
     def debug(self, airs: List[Air], pk: MultiStarkProvingKey, ctx: ProvingContext):
         """Every constraint on every row and the bus balance, on the device."""

@@ -95,6 +95,22 @@ class DeviceMultiStarkProvingKey:
     vk_pre_hash: np.ndarray
 
 
+@dataclass
+class ProverConfig:
+    """Memory policy, peer of ``swirl/prover/backend.py:90-102`` (the
+    reference's ``GpuProverConfig``, ``cuda-backend/src/device.rs:26-47``):
+    dropping the stacked matrix or the RS codewords after the commit trades
+    one recompute (the stacking copy, the RS encode through kernel A) for
+    the two largest buffers that live through the whole prove."""
+
+    cache_stacked_matrix: bool = True
+    cache_rs_code_matrix: bool = True
+    # the round-0 coset grids in 8 segments of rows, so that 1/8 of the
+    # grid is live at a time; None resolves to log_blowup == 1, as the
+    # reference's default (device.rs:65)
+    zerocheck_save_memory: Optional[bool] = None
+
+
 def _sync(device) -> None:
     """Let a stage's span cover its device work, not only its launches."""
     if device.type == "cuda":
@@ -104,7 +120,7 @@ def _sync(device) -> None:
 class TorchBackend:
     """Commitment and transport on one torch device."""
 
-    def __init__(self, params: SystemParams, device="cuda"):
+    def __init__(self, params: SystemParams, config: Optional[ProverConfig] = None, device="cuda"):
         if params.l_skip > MAX_BACKEND_L_SKIP:
             raise ProverError(
                 f"TorchBackend requires l_skip <= {MAX_BACKEND_L_SKIP}, got {params.l_skip}"
@@ -116,12 +132,22 @@ class TorchBackend:
                 "TorchBackend: no CUDA device is available; pass device='cpu' "
                 "to prove on the CPU"
             )
-        # hash-scheme hook: None = the Poseidon2 kernels' Merkle trees
+        self.config = config or ProverConfig()
+        if self.config.zerocheck_save_memory is None:
+            self.config.zerocheck_save_memory = params.log_blowup == 1
+        # hash-scheme hook (``swirl_torch/hash/scheme.py``): None = the
+        # Poseidon2 kernels' Merkle trees; the BN254 outer scheme installs
+        # a host tree builder
         self.tree_builder = None
 
     def commit_traces(self, traces: List[torch.Tensor]):
-        p = self.params
-        return stacked_commit(p.l_skip, p.n_stack, p.log_blowup, p.k_whir, traces)
+        p, c = self.params, self.config
+        return stacked_commit(
+            p.l_skip, p.n_stack, p.log_blowup, p.k_whir, traces,
+            cache_stacked_matrix=c.cache_stacked_matrix,
+            cache_rs_code_matrix=c.cache_rs_code_matrix,
+            tree_builder=self.tree_builder,
+        )
 
     def commit_single(self, trace_host: np.ndarray) -> CommittedTraceData:
         dev = to_device_matrix(trace_host, self.device)
@@ -146,7 +172,7 @@ class TorchBackend:
 
         def commit(trace_host: np.ndarray):
             ctd = self.commit_single(trace_host)
-            return ctd.commitment, ctd, int(ctd.data.matrix.shape[0])
+            return ctd.commitment, ctd, ctd.data.layout.width
 
         return commit
 
@@ -174,7 +200,8 @@ class Coordinator:
         with metrics.span("prover.main_trace_commit"):
             common_commit, common_data = self.backend.commit_traces(common_traces)
             _sync(device)
-        sanitize.check_canonical(common_data.matrix, "stacked_matrix")
+        if common_data.matrix is not None:
+            sanitize.check_canonical(common_data.matrix, "stacked_matrix")
 
         trace_vdata: List[Optional[TraceVData]] = [None] * num_airs
         public_values: List[List[int]] = [[] for _ in range(num_airs)]
@@ -230,7 +257,8 @@ class Coordinator:
         traces = trace_provers(mpk, ctx)
         with metrics.span("prove_rap_constraints"):
             gkr_proof, batch_proof, r = prove_zerocheck_and_logup(
-                tr, params, mpk.max_constraint_degree, traces
+                tr, params, mpk.max_constraint_degree, traces,
+                save_memory=bool(self.backend.config.zerocheck_save_memory),
             )
 
         # stage: openings (stacked reduction + WHIR)

@@ -11,8 +11,10 @@ serves both transcripts (:func:`~.device_transcript.device_view`): on a
 and the stage reads the host three times (GKR's root check and copy, the
 batch phase's one copy at its end); on a host transcript each observe reads
 its value first.
-The JAX package's ``zerocheck_save_memory`` chunking is not ported: it
-produces the same bytes, and the full round-0 grid fits the card.
+With ``save_memory`` (``ProverConfig.zerocheck_save_memory``) round 0's
+coset grids of a tall trace are built and summed in 8 segments of rows
+(``chunked_sums``, :787-880), which bounds the live grid to 1/8; the sums,
+and so the proof bytes, are the same.
 """
 
 from __future__ import annotations
@@ -47,6 +49,12 @@ from .sumcheck import (
 )
 
 emul = F.ext_mul_small
+
+# zerocheck_save_memory segments round 0's grids only for traces of at
+# least 2^13 hypercube chunks (8 segments need n_chunks % 8 == 0, and small
+# grids are not worth the sequence): ``swirl/prover/logup_zerocheck.py:60-63``
+_SAVE_MEMORY_MIN_CHUNKS_LOG = 13
+SAVE_MEMORY_SEGMENTS = 8
 
 
 def sumcheck_round0_deg(l_skip: int, d: int) -> int:
@@ -250,6 +258,17 @@ def _placed(x, start: int, size: int, limit: Optional[int] = None):
     return out
 
 
+def _row_segment(m, lo: int, rows: int, is_rot: bool):
+    """Rows [lo, lo + rows) of the (w, h) matrix m, or of m rotated by one
+    row (row i holds row i + 1, the last row the first) with ``is_rot``."""
+    if not is_rot:
+        return m[:, lo : lo + rows]
+    hi = lo + 1 + rows
+    if hi <= m.shape[1]:
+        return m[:, lo + 1 : hi]
+    return torch.cat([m[:, lo + 1 :], m[:, : hi - m.shape[1]]], dim=1)
+
+
 def _eq_3b(xi, inter_layout, t_idx: int, t: TraceProver, l_skip: int, n_logup: int):
     """eq(xi[l_skip + n_lift : l_skip + n_logup], b) for the stacked row
     block b of each of the trace's interactions: a (k, 4) tensor."""
@@ -274,13 +293,15 @@ def prove_batch_phase(
     xi: torch.Tensor,
     beta: torch.Tensor,
     carry: Sequence = (),
+    save_memory: bool = False,
 ):
     """The batched zerocheck + LogUp sumcheck (univariate-skip round 0 and
     the multilinear rounds) and the column openings, on the transcript view
     ``tr``; xi (n, 4) and beta (4,) on the traces' device. Every value stays
     on the device until one copy at the end, which also reads the ``carry``
-    values of the stage before. Returns (proof, r as an (n_max + 1, 4)
-    tensor, the carry values on the host)."""
+    values of the stage before. ``save_memory``: round 0's grids of a
+    trace of at least 2^(l_skip + 13) rows in 8 segments. Returns (proof, r
+    as an (n_max + 1, 4) tensor, the carry values on the host)."""
     l_skip = params.l_skip
     num_traces = len(traces)
     n_max, n_logup, inter_layout, max_msg_len = _phase_common(params, traces)
@@ -308,21 +329,39 @@ def prove_batch_phase(
         d_air = t.d_air
         sels_base = selectors_matrix(t.height, l_skip, device)
 
+        # a segment's rows: selectors are row-global, so slicing them needs
+        # an unlifted trace, which the height bound guarantees
+        chunked = save_memory and t.height >= 1 << (l_skip + _SAVE_MEMORY_MIN_CHUNKS_LOG)
+        segments = SAVE_MEMORY_SEGMENTS if chunked else 1
+        seg_chunks = (1 << t.n_lift) // segments
+
         def grid_sums(num_cosets: int, eval_fn):
             """eq-weighted chunk sums of eval_fn's EF outputs on the coset
-            grids: (cosets << l_skip, 4) tensors (grouped by coset)."""
+            grids: (cosets << l_skip, 4) tensors (grouped by coset), summed
+            over the row segments (one segment: the whole grid)."""
             shifts = [pow(g, c + 1, P) for c in range(num_cosets)]
-            sels_g = coset_eval_chunks(sels_base, l_skip, shifts, False)
-            pairs = [
-                (
-                    coset_eval_chunks(m, l_skip, shifts, False),
-                    coset_eval_chunks(m, l_skip, shifts, True) if t.needs_next else None,
-                )
-                for m in t.base_parts()
-            ]
-            prep_g, main_g = t.split_pairs(pairs)
-            ev = DeviceEvaluator(sels_g, prep_g, main_g, t.public_values, False)
-            return [F.ext_sum(F.ext_mul(p, eq_tab[:, None, :]), axis=0) for p in eval_fn(ev)]
+            rows = seg_chunks << l_skip
+            total = None
+            for ci in range(segments):
+
+                def grid(m, is_rot):
+                    if segments > 1:
+                        m, is_rot = _row_segment(m, ci * rows, rows, is_rot), False
+                    return coset_eval_chunks(m, l_skip, shifts, is_rot)
+
+                sels_g = grid(sels_base, False)
+                pairs = [
+                    (grid(m, False), grid(m, True) if t.needs_next else None)
+                    for m in t.base_parts()
+                ]
+                prep_g, main_g = t.split_pairs(pairs)
+                ev = DeviceEvaluator(sels_g, prep_g, main_g, t.public_values, False)
+                eq_seg = eq_tab[ci * seg_chunks : (ci + 1) * seg_chunks, None, :]
+                sums = [F.ext_sum(F.ext_mul(p, eq_seg), axis=0) for p in eval_fn(ev)]
+                # free this segment's grids before the next one is built
+                del sels_g, pairs, prep_g, main_g, ev
+                total = sums if total is None else [F.add(a, b) for a, b in zip(total, sums)]
+            return total
 
         # zerocheck: (d_air - 1) cosets, divide by the zerofier, interpolate
         num_zc_cosets = d_air - 1
@@ -562,15 +601,18 @@ def prove_zerocheck_and_logup(
     params: SystemParams,
     global_degree: int,
     traces: List[TraceProver],
+    save_memory: bool = False,
 ) -> Tuple[GkrProof, BatchConstraintProof, torch.Tensor]:
     """The RAP stage on a host :class:`Transcript` or a
     :class:`~.device_transcript.DeviceTranscript` on the traces' device: the
-    GKR phase, then the batch-constraint phase. Returns the proofs and r,
-    an (n_max + 1, 4) tensor on the traces' device."""
+    GKR phase, then the batch-constraint phase (``save_memory``: round 0's
+    grids in segments). Returns the proofs and r, an (n_max + 1, 4) tensor
+    on the traces' device."""
     tr = device_view(transcript, traces[0].common.device)
     gkr_proof, xi, beta = prove_gkr_phase(tr, params, traces)
     batch_proof, r, (witness,) = prove_batch_phase(
-        tr, params, global_degree, traces, xi, beta, carry=[gkr_proof.logup_pow_witness]
+        tr, params, global_degree, traces, xi, beta, carry=[gkr_proof.logup_pow_witness],
+        save_memory=save_memory,
     )
     if int(witness) >= P:  # kernel F's -1: no witness below P
         raise LogupZerocheckError("failed to find the LogUp PoW witness")

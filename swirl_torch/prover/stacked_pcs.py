@@ -16,7 +16,7 @@ import torch
 from .errors import StackedPcsError
 
 from ..fields import field as F
-from .merkle import MerkleTree, build_merkle_tree
+from .merkle import build_merkle_tree
 from .ntt import intt, ntt, zeta_transform
 
 
@@ -91,12 +91,36 @@ class StackedLayout:
 
 @dataclass
 class StackedPcsData:
-    """Prover-side data of one stacked commitment."""
+    """Prover-side data of one stacked commitment.
+
+    Memory policy (``ProverConfig``, peer of ``swirl/prover/stacked_pcs.py``
+    :115-148): ``matrix`` and ``rs_matrix`` may be dropped after the commit
+    (None) and are recomputed on demand from the retained traces; readers
+    go through :meth:`get_matrix` and :meth:`get_rs_matrix`. ``tree`` is a
+    :class:`~.merkle.MerkleTree`, or the hash scheme's host tree."""
 
     layout: StackedLayout
-    matrix: torch.Tensor  # (width, height) stacked evaluations
-    rs_matrix: torch.Tensor  # (width, height << log_blowup) codewords
-    tree: MerkleTree
+    matrix: Optional[torch.Tensor]  # (width, height) stacked evaluations
+    rs_matrix: Optional[torch.Tensor]  # (width, height << log_blowup) codewords
+    tree: object
+    traces: Sequence[torch.Tensor] = ()
+    l_skip: int = 0
+    n_stack: int = 0
+    log_blowup: int = 0
+
+    @property
+    def device(self) -> torch.device:
+        return self.traces[0].device
+
+    def get_matrix(self) -> torch.Tensor:
+        if self.matrix is not None:
+            return self.matrix
+        return stack_traces(self.l_skip, self.n_stack, self.traces)[0]
+
+    def get_rs_matrix(self) -> torch.Tensor:
+        if self.rs_matrix is not None:
+            return self.rs_matrix
+        return rs_code_matrix(self.l_skip, self.log_blowup, self.get_matrix())
 
 
 def stack_traces(
@@ -146,10 +170,33 @@ def rs_code_matrix(l_skip: int, log_blowup: int, stacked):
 
 
 def stacked_commit(
-    l_skip: int, n_stack: int, log_blowup: int, k_whir: int, traces: Sequence[torch.Tensor]
-) -> Tuple[np.ndarray, StackedPcsData]:
-    """Commit to height-sorted traces; returns (root digest, data)."""
+    l_skip: int,
+    n_stack: int,
+    log_blowup: int,
+    k_whir: int,
+    traces: Sequence[torch.Tensor],
+    cache_stacked_matrix: bool = True,
+    cache_rs_code_matrix: bool = True,
+    tree_builder=None,
+) -> Tuple[object, StackedPcsData]:
+    """Commit to height-sorted traces; returns (root digest, data).
+    ``tree_builder`` (the hash-scheme hook): when set, ``(rs_matrix,
+    rows_per_query, ext) -> (root, tree)`` replaces the Poseidon2 Merkle
+    build (the BN254 outer scheme commits on the host)."""
     stacked, layout = stack_traces(l_skip, n_stack, traces)
     rs = rs_code_matrix(l_skip, log_blowup, stacked)
-    tree = build_merkle_tree(rs, 1 << k_whir)
-    return tree.root, StackedPcsData(layout=layout, matrix=stacked, rs_matrix=rs, tree=tree)
+    if tree_builder is None:
+        tree = build_merkle_tree(rs, 1 << k_whir)
+        root = tree.root
+    else:
+        root, tree = tree_builder(rs, 1 << k_whir, False)
+    return root, StackedPcsData(
+        layout=layout,
+        matrix=stacked if cache_stacked_matrix else None,
+        rs_matrix=rs if cache_rs_code_matrix else None,
+        tree=tree,
+        traces=list(traces),
+        l_skip=l_skip,
+        n_stack=n_stack,
+        log_blowup=log_blowup,
+    )

@@ -80,7 +80,7 @@ def prove_stacked_opening_reduction(
     l_skip = params.l_skip
     n_stack = params.n_stack
     omega_skip = two_adic_generator(l_skip)
-    device = stacked_per_commit[0].matrix.device
+    device = stacked_per_commit[0].device
     tr = device_view(transcript, device)
     lam = tr.sample_ext()
 
@@ -143,7 +143,7 @@ def prove_stacked_opening_reduction(
     )  # (B_z, 4)
     eq_uni_1_b = tpoly.eval_eq_uni_at_one(l_skip, z_vec)
 
-    stacked_mats = [d.matrix for d in stacked_per_commit]
+    stacked_mats = [d.get_matrix() for d in stacked_per_commit]
     total_evals = None
     for s, e in groups:
         lht = trace_views[s].slice.log_height
@@ -180,6 +180,7 @@ def prove_stacked_opening_reduction(
     # ---- fold at u_0 ------------------------------------------------------
     weights = tpoly.barycentric_weights(l_skip, u0)
     q_evals = [fold_ple(m, l_skip, False, weights) for m in stacked_mats]
+    del stacked_mats  # a recomputed matrix is not kept
 
     eq_uni_u01 = tpoly.eval_eq_uni_at_one(l_skip, u0)
     k_rot_per_lht: Dict[int, torch.Tensor] = {}

@@ -64,16 +64,16 @@ def prove_whir_opening(
     num_rounds = whir.num_whir_rounds()
     if not committed:
         raise WhirProverError("prove_whir_opening: no committed data")
-    expected_h = int(committed[0].matrix.shape[1])
+    expected_h = committed[0].layout.height
     for d in committed:
-        h = int(d.matrix.shape[1])
+        h = d.layout.height
         if h != expected_h:
             raise WhirProverError(f"prove_whir_opening: tree height {h} != expected {expected_h}")
-    device = committed[0].matrix.device
+    device = committed[0].device
     tr = device_view(transcript, device)
 
     mu_pow_witness = tr.grind(whir.mu_pow_bits)
-    total_width = sum(int(d.matrix.shape[0]) for d in committed)
+    total_width = sum(d.layout.width for d in committed)
     mu_pows = F.epowers(tr.sample_ext(), total_width)
 
     m = expected_h.bit_length() - 1
@@ -83,7 +83,7 @@ def prove_whir_opening(
     f_evals = None
     off = 0
     for d in committed:
-        hatf = zeta_transform(rs_message(l_skip, d.matrix), m)  # (w, 2^m) base
+        hatf = zeta_transform(rs_message(l_skip, d.get_matrix()), m)  # (w, 2^m) base
         for j in range(hatf.shape[0]):
             term = F.mul(hatf[j][:, None], mu_pows[off + j])
             f_evals = term if f_evals is None else F.add(f_evals, term)
@@ -148,7 +148,8 @@ def prove_whir_opening(
         indices = tr.sample_bits_batch(log_rs - k, num_queries)  # (nq,) on the device
         if whir_round == 0:
             for d in committed:
-                initial_rows.append(get_opened_rows_batch(d.rs_matrix, indices, 1 << k))
+                # one recompute a commitment where the codewords were dropped
+                initial_rows.append(get_opened_rows_batch(d.get_rs_matrix(), indices, 1 << k))
                 initial_paths.append(d.tree.batch_query_proofs_arr(indices))
         else:
             codeword_rows.append(get_opened_rows_batch(rs_codeword, indices, 1 << k)[:, :, 0])

@@ -1,5 +1,5 @@
-"""Golden parity fixtures: the case builders and file paths of
-``swirl/testing/golden.py``, copied for the port.
+"""Golden parity fixtures: the case builders, schemes, log codec and file
+paths of ``swirl/testing/golden.py``, copied for the port.
 
 ``tests/golden/`` holds frozen proof bytes, vk bytes and transcript event
 logs of small deterministic proofs made by the JAX package. The port must
@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import os
 from typing import Callable, Dict, List, Tuple
+
+import numpy as np
 
 GOLDEN_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
@@ -89,16 +91,45 @@ def golden_cases() -> Dict[str, Callable]:
             ],
         )
 
+    def outer():
+        # the BN254 outer hash scheme (CASE_SCHEME): its fixtures are the
+        # multi-field transcript's events and the pre-hash; the codec is the
+        # inner scheme's only
+        params = test_system_params_small(2, 6, 3)
+        air = FibonacciAir()
+        trace = air.generate_trace(0, 1, 64)
+        return params, [air], [(trace, air.pvs(0, 1, 64), [])]
+
     return {
         "fib": fib,
         "interactions": interactions,
         "preprocessed": preprocessed,
         "cached_preprocessed": cached_preprocessed,
+        "outer": outer,
     }
 
 
+# per-case hash scheme (None = the default BabyBear Poseidon2)
+CASE_SCHEME = {"outer": "bn254-outer"}
+
+
+def case_has_codec(name: str) -> bool:
+    """Whether vk and proof byte fixtures exist for the case (the codec
+    serializes the inner scheme's digests only)."""
+    return CASE_SCHEME.get(name) is None
+
+
+def pre_hash_hex(pre_hash) -> str:
+    """The ``*.prehash.txt`` text of a vk pre-hash: 8 hex words of the
+    inner digest, or one 64-digit BN254 scalar."""
+    if isinstance(pre_hash, int):
+        return f"{pre_hash:064x}"
+    return "".join(f"{int(x):08x}" for x in np.asarray(pre_hash).ravel())
+
+
 def encode_transcript_log(log: List[Tuple[str, int]]) -> bytes:
-    """One event per line: 'o <v>' / 's <v>' — plain text, diffable."""
+    """One event per line: 'o <v>' / 's <v>' — plain text, diffable; values
+    are Python ints, so a 254-bit BN254 digest is written in full."""
     lines = []
     for kind, value in log:
         lines.append(("o" if kind == "observe" else "s") + " " + str(value))

@@ -35,7 +35,8 @@ def prove_up_to_batch_constraints(
     ctx = unsorted_ctx.sorted_for_stacking()
     common_commit, _, trace_vdata, public_values = coordinator.commit_and_observe(mpk, ctx)
     gkr_proof, batch_proof, r = prove_zerocheck_and_logup(
-        coordinator.transcript, mpk.params, mpk.max_constraint_degree, trace_provers(mpk, ctx)
+        coordinator.transcript, mpk.params, mpk.max_constraint_degree, trace_provers(mpk, ctx),
+        save_memory=bool(backend.config.zerocheck_save_memory),
     )
     return common_commit, trace_vdata, public_values, gkr_proof, batch_proof, r, coordinator.transcript
 

@@ -199,7 +199,7 @@ def profile_workload(tag: str, params, air, trace, transcripts) -> None:
     from ..engine import StarkEngine
     from ..prover.backend import ProvingContext
 
-    eng = StarkEngine(params, "cuda")
+    eng = StarkEngine(params, device="cuda")
     pk, _ = eng.keygen([air])
     dpk = eng.transport_pk(pk)
     ctx = ProvingContext([eng.context_for(0, trace, [], [])])

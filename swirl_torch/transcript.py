@@ -26,6 +26,10 @@ from .hash.poseidon2 import DIGEST, RATE, WIDTH, permute_np
 EF_D = 4
 
 
+class TranscriptDivergence(AssertionError):
+    """A replayed transcript event differed from the recorded log."""
+
+
 class Transcript:
     """Duplex sponge transcript over BabyBear with Poseidon2-16."""
 

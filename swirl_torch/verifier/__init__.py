@@ -42,11 +42,14 @@ def verify(
     mvk: MultiStarkVerifyingKey,
     proof: Proof,
     transcript: Optional[Transcript] = None,
+    scheme=None,
 ) -> None:
-    """Raises on any failure; returns None on acceptance. The hash family
-    is the inner BabyBear Poseidon2-16 (transcript and Merkle checks)."""
+    """Raises on any failure; returns None on acceptance.
+
+    ``scheme`` (swirl_torch/hash/scheme.py) selects the hash family for the
+    transcript and Merkle checks; None = inner BabyBear Poseidon2-16."""
     if transcript is None:
-        transcript = Transcript()
+        transcript = Transcript() if scheme is None else scheme.new_transcript()
     if params != mvk.params:
         raise SystemParamsMismatch()
     per_air = mvk.per_air
@@ -56,7 +59,7 @@ def verify(
     if num_traces == 0:
         raise _EmptyTraces()
 
-    layouts = verify_proof_shape(mvk, proof)
+    layouts = verify_proof_shape(mvk, proof, scheme=scheme)
 
     trace_id_to_air_id = sorted(
         range(num_airs),
@@ -169,4 +172,5 @@ def verify(
         proof.stacking_proof.stacking_openings,
         commits,
         u_cube,
+        scheme=scheme,
     )

@@ -75,9 +75,11 @@ def _check_len(err_cls, what, actual_seq, expected, **extra):
 
 
 def verify_proof_shape(
-    mvk: MultiStarkVerifyingKey, proof: Proof
+    mvk: MultiStarkVerifyingKey, proof: Proof, scheme=None
 ) -> List[StackedLayout]:
-    """Digests are the inner (8,) BabyBear digests."""
+    """``scheme`` (swirl_torch/hash/scheme.py) selects the digest validity check;
+    None = inner (8,) BabyBear digests."""
+    _digest = _ensure_digest if scheme is None else scheme.check_digest
     params = mvk.params
     l_skip = params.l_skip
     num_airs = len(mvk.per_air)
@@ -285,7 +287,7 @@ def verify_proof_shape(
             _ensure_ef(ev, "whir sumcheck eval")
     _check_len(WhirShapeMismatch, "codeword_commits", wp.codeword_commits, num_rounds - 1)
     for d in wp.codeword_commits:
-        _ensure_digest(d, "codeword commit")
+        _digest(d, "codeword commit")
     _check_len(WhirShapeMismatch, "ood_values", wp.ood_values, num_rounds - 1)
     for v in wp.ood_values:
         _ensure_ef(v, "ood value")
@@ -346,7 +348,7 @@ def verify_proof_shape(
                 depth0,
             )
             for sib in pf:
-                _ensure_digest(sib, "initial merkle sibling")
+                _digest(sib, "initial merkle sibling")
     _check_len(
         WhirShapeMismatch,
         "codeword_opened_values rounds",
@@ -386,7 +388,7 @@ def verify_proof_shape(
                 depth,
             )
             for sib in pf:
-                _ensure_digest(sib, "codeword merkle sibling")
+                _digest(sib, "codeword merkle sibling")
     _check_len(
         WhirShapeMismatch,
         "final_poly",
@@ -395,9 +397,9 @@ def verify_proof_shape(
     )
     for c in wp.final_poly:
         _ensure_ef(c, "final poly coeff")
-    _ensure_digest(proof.common_main_commit, "common main commit")
+    _digest(proof.common_main_commit, "common main commit")
     for air_id, vdata in enumerate(proof.trace_vdata):
         if vdata is not None:
             for d in vdata.cached_commitments:
-                _ensure_digest(d, f"AIR {air_id} cached commitment")
+                _digest(d, f"AIR {air_id} cached commitment")
     return layouts

@@ -107,8 +107,18 @@ def verify_whir(
     stacking_openings,
     commitments: List[np.ndarray],
     u: List[np.ndarray],
+    scheme=None,
 ):
-    """The Merkle hash family is the inner BabyBear Poseidon2-16."""
+    """``scheme`` (swirl_torch/hash/scheme.py) selects the Merkle hash family;
+    None = inner BabyBear Poseidon2-16."""
+    if scheme is None or scheme.name == "babybear-poseidon2":
+        _hash, _compress, _eq = hash_slice_np, compress_np, _default_digest_eq
+    else:
+        _hash, _compress, _eq = (
+            scheme.hash_slice,
+            scheme.compress,
+            scheme.digest_eq,
+        )
     whir = params.whir
     widths = [len(v) for v in stacking_openings]
 
@@ -184,14 +194,16 @@ def verify_whir(
                 for c_idx, commit in enumerate(commitments):
                     opened_rows = whir_proof.initial_round_opened_rows[c_idx][q_idx]
                     leaf_hashes = [
-                        hash_slice_np(opened_rows[t]) for t in range(1 << k)
+                        _hash(opened_rows[t]) for t in range(1 << k)
                     ]
-                    query_digest = tree_compress(leaf_hashes)
+                    query_digest = tree_compress(leaf_hashes, _compress)
                     merkle_verify(
                         commit,
                         index,
                         query_digest,
                         whir_proof.initial_round_merkle_proofs[c_idx][q_idx],
+                        _compress,
+                        _eq,
                     )
                     for c in range(widths[c_idx]):
                         mp = mu_pows[mu_i]
@@ -205,14 +217,16 @@ def verify_whir(
             else:
                 opened = whir_proof.codeword_opened_values[whir_round - 1][q_idx]
                 leaf_hashes = [
-                    hash_slice_np(opened[t].reshape(-1)) for t in range(1 << k)
+                    _hash(opened[t].reshape(-1)) for t in range(1 << k)
                 ]
-                query_digest = tree_compress(leaf_hashes)
+                query_digest = tree_compress(leaf_hashes, _compress)
                 merkle_verify(
                     whir_proof.codeword_commits[whir_round - 1],
                     index,
                     query_digest,
                     whir_proof.codeword_merkle_proofs[whir_round - 1][q_idx],
+                    _compress,
+                    _eq,
                 )
                 yi = binary_k_fold(np.asarray(opened), alphas_round, zi_root)
             zs_round.append(zi)

@@ -215,7 +215,7 @@ def test_synthetic_proof_matches_jax_bytes():
     trace[:, 0] = 0  # the kill column: every constraint holds, every bus balances
     params = (2, 1, 3)  # l_skip 2, stacked height 2^3
     small = "{}.params"
-    eng = StarkEngine(import_module(small.format("swirl_torch")).test_system_params_small(*params), "cpu")
+    eng = StarkEngine(import_module(small.format("swirl_torch")).test_system_params_small(*params), device="cpu")
     vk, proof = eng.run_test([air], [(trace, [], [])])
     assert len(vk.per_air[0].symbolic_constraints.nodes) == 187
     _, jproof = JaxEngine(import_module(small.format("swirl")).test_system_params_small(*params)).run_test(

@@ -6,6 +6,7 @@ original on the same numpy inputs. Tolerance: exact equality.
 """
 
 import dataclasses
+import os
 import shutil
 
 import numpy as np
@@ -96,14 +97,22 @@ def test_grind_matches_jax(bits):
     assert tt.sample() == tj.sample()
 
 
-def test_native_library_matches_jax():
+def test_native_library_matches_jax(tmp_path, monkeypatch):
     """The port's native build (under build/) loads wherever g++ is, and its
-    permutation and grind equal the numpy references; and the JAX package's
-    library where that loaded too. The JAX package builds its library in
-    place, so a worker of a parallel run may load it while another writes
-    it: its availability is not the port's to assert."""
+    permutation and grind equal the numpy references and the JAX package's
+    library. The JAX package builds its library in place beside its source,
+    so a worker of a parallel run could load it while another writes it:
+    here it builds from a copy of its source (read only) in ``tmp_path``,
+    privately to this test."""
+    src = os.path.join(os.path.dirname(jnative.__file__), "swirl_host.cpp")
+    shutil.copyfile(src, tmp_path / "swirl_host.cpp")
+    monkeypatch.setattr(jnative, "_HERE", str(tmp_path))
+    monkeypatch.setattr(jnative, "_SRC", str(tmp_path / "swirl_host.cpp"))
+    monkeypatch.setattr(jnative, "_tried", False)
+    monkeypatch.setattr(jnative, "_lib", None)
     if shutil.which("g++"):
         assert tnative.available()
+        assert jnative.available()
     s = np.random.default_rng(3).integers(0, P, (9, 16), dtype=np.uint64)
     assert np.array_equal(tp2.permute_np(s), jp2.permute_np(s))
     if not tnative.available():
@@ -113,9 +122,8 @@ def test_native_library_matches_jax():
     t.observe(7)
     w = tnative.grind(t.state, t.absorb_idx, t.sample_idx, 6)
     assert w == _numpy_grind(t, 6)
-    if jnative.available():
-        assert np.array_equal(tnative.permute_batch(s), jnative.permute_batch(s))
-        assert w == jnative.grind(t.state, t.absorb_idx, t.sample_idx, 6)
+    assert np.array_equal(tnative.permute_batch(s), jnative.permute_batch(s))
+    assert w == jnative.grind(t.state, t.absorb_idx, t.sample_idx, 6)
 
 
 def _numpy_grind(t, bits: int) -> int:

@@ -7,7 +7,8 @@ of pairing stride, the extreme field values, every tower width, and the
 tower's ticket counter across calls, streams and a CUDA graph), and the
 device transcript's kernels E (duplex) and F (grind) at ``chip_smoke.py``'s
 cases, F at every absorb cursor, both refusing bad cursors and bit counts,
-the transcript on the card against the CPU and a golden proof on it. Skips
+the transcript on the card against the CPU and a golden proof on it, the
+BN254 outer golden case and round 0 in segments on the card. Skips
 without a card. This file imports no jax, so on a machine without jax run it with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
@@ -401,6 +402,49 @@ def test_golden_proof_on_a_device_transcript_on_the_card():
     from swirl_torch.testing.golden import golden_cases, paths_for
 
     params, airs, ctxs = golden_cases()["interactions"]()
-    _, proof = StarkEngine(params, "cuda").run_test(airs, ctxs, DeviceTranscript("cuda"))
+    _, proof = StarkEngine(params, device="cuda").run_test(airs, ctxs, DeviceTranscript("cuda"))
     with open(paths_for("interactions")["proof"], "rb") as f:
         assert encode_proof(proof) == f.read()
+
+
+def test_outer_golden_case_on_the_card():
+    """The BN254 outer scheme's golden case with its traces and BabyBear
+    stages on the card (its trees and transcript on the host, by design):
+    the transcript's events and the vk pre-hash equal ``tests/golden``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from swirl_torch.engine import StarkEngine
+    from swirl_torch.testing.golden import (
+        CASE_SCHEME, encode_transcript_log, golden_cases, paths_for, pre_hash_hex)
+
+    params, airs, ctxs = golden_cases()["outer"]()
+    eng = StarkEngine(params, hash_scheme=CASE_SCHEME["outer"], device="cuda")
+    transcript = eng.scheme.new_transcript(record=True)
+    vk, _ = eng.run_test(airs, ctxs, transcript)
+    paths = paths_for("outer")
+    with open(paths["transcript"], "rb") as f:
+        assert encode_transcript_log(transcript.log) == f.read()
+    with open(paths["prehash"]) as f:
+        assert pre_hash_hex(vk.pre_hash) == f.read().strip()
+
+
+@pytest.mark.parametrize("on_card", [False, True])
+def test_segmented_round0_on_the_card_matches_the_cpu(monkeypatch, on_card):
+    """Round 0's grids in 8 row segments (threshold lowered to 2^3 chunks)
+    on the card, on the host and the device transcript, give the CPU's
+    full-grid proof."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from swirl_torch.codec import encode_proof
+    from swirl_torch.engine import StarkEngine
+    from swirl_torch.prover import logup_zerocheck
+    from swirl_torch.prover.backend import ProverConfig
+    from swirl_torch.prover.device_transcript import DeviceTranscript
+    from swirl_torch.testing.golden import golden_cases
+
+    monkeypatch.setattr(logup_zerocheck, "_SAVE_MEMORY_MIN_CHUNKS_LOG", 3)
+    params, airs, ctxs = golden_cases()["fib"]()
+    _, want = StarkEngine(params, ProverConfig(zerocheck_save_memory=False), device="cpu").run_test(airs, ctxs)
+    eng = StarkEngine(params, ProverConfig(zerocheck_save_memory=True), device="cuda")
+    _, got = eng.run_test(airs, ctxs, DeviceTranscript("cuda") if on_card else None)
+    assert encode_proof(got) == encode_proof(want)
