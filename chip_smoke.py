@@ -68,13 +68,35 @@ Phases, each printing its result on lines of its own:
    component) beside the measured peak, with the ratio; the estimate must
    not be below the peak;
 9. outer: the golden ``outer`` case (the BN254 outer hash scheme) through
-   ``run_test`` on the card: its recorded transcript must equal
+   ``run_test`` on the card, its Merkle trees (kernels H, I) and grinds (J)
+   there: its recorded transcript must equal
    ``tests/golden/outer.transcript.txt`` event for event (the first
-   divergence is printed) and its vk pre-hash ``outer.prehash.txt``; the
-   port's verifier refuses a tampered commit, a tampered Merkle sibling and
-   a non-scalar digest; a ``DeviceTranscript`` is refused under the scheme.
+   divergence is printed) and its vk pre-hash ``outer.prehash.txt``; H, I
+   and J must launch; the port's verifier refuses a tampered commit, a
+   tampered Merkle sibling and a non-scalar digest; a ``DeviceTranscript``
+   is refused under the scheme;
+10. outer root: the leaf's 2^20 x 64 degree-4 ``SyntheticAir`` under
+   ``root_params_with_100_bits_security(21)`` with the BN254 outer scheme
+   (RS (32, 2^25); WHIR 3 rounds of 88, 81 and 81 queries; grinds of 15,
+   5 and 20 bits, LogUp 18 or more): debug check, prove, verify and the
+   two refusals as for the other cells, with H, I and J launching in the
+   prove, ``build_host_tree`` refusing to run and no device-to-host copy
+   of a codeword's size. The codec holds the inner scheme's digests only,
+   so this proof is verified as the prover returned it and its sha256 is
+   taken over its fields.
 
-Phases 4 to 6 use a random trace from a seed. The debug check runs on
+Phase 2 also holds the BN254 kernels to their plain versions: G on every
+operation over 2^20 random and the edge operands; H's permutations at
+widths 2 and 3 and its compress at the outer root cell's pairing strides
+(plain on slices of the big levels); I on (32, 2^16) and (1, 2^16, 4)
+slices of the path's codewords (then timed alone at (32, 2^25) and (1,
+2^24, 4)); J from every sponge cursor at 5 bits (against the host loop
+too) and 15 bits, at 20 bits where the query grind runs (against the
+plain search) and from every cursor (the witness checked by the host).
+Phase 1 prints ``tools/isa.py``'s SASS census of G-J beside the bound's
+model of a BN254 product and permutation.
+
+Phases 4 to 6 and 10 use a random trace from a seed. The debug check runs on
 the card before the prove, the port's host verifier on the proof's
 decoded bytes after it; each prints its seconds. They print the
 per-stage spans, the prove seconds, the peak device memory and the input
@@ -148,6 +170,26 @@ HALVE, DIV2K = (1, 2), (1, 3)
 PERM = tuple(141 * s + 1309 * a + 26 * h + 91 * d for s, a, h, d in zip(SBOX, ADD, HALVE, DIV2K))
 # one radix-2 butterfly: a product, an add and a subtract
 BUTTERFLY = (MONT_MUL[0], MONT_MUL[1] + 2 * ADD[1])
+# BN254 (kernels G-J, csrc/bn254.cuh), the same model: an 8-word CIOS
+# product issues 128 32 x 32 -> 64-bit multiply-adds (IMAD.WIDE: a * b_i
+# and m * P) and 8 quotient products m = t_0 * (-P^-1), with about two
+# other operations for each multiply-add's carry and 24 for the final
+# conditional subtract; an add or a subtract 8 add-with-carry and 16 for
+# the conditional subtract. tools/isa.py's census of the kernels' SASS is
+# printed beside it (phase 1).
+BN_MONT, BN_ADD = (136, 2 * 128 + 24), (0, 24)
+# a permutation: S-boxes x^5 of 3 products (width 3: 8 x 3 + 56 = 80; width
+# 2: 6 x 2 + 50 = 62), the round-constant adds, the external layers'
+# (t - 1) + t adds (rF + 1 of them) and the internal layers' (t - 1) + 1 + t
+BN_PERM = {
+    t: tuple(3 * (rf * t + rp) * m + ((rf + 1) * (2 * t - 1) + rf * t + rp + rp * 2 * t) * a
+             for m, a in zip(BN_MONT, BN_ADD))
+    for t, rf, rp in ((3, 8, 56), (2, 6, 50))
+}
+# the outer root cell: root_params_with_100_bits_security(21), RS (32,
+# 2^25), WHIR codewords (1, 2^24, 4), (1, 2^23, 4), (1, 2^22, 4), 16 rows a
+# query (query strides 2^21 down to 2^18)
+OUTER_LOG_STACKED = 21
 
 
 def _say(*parts) -> None:
@@ -230,6 +272,25 @@ def tower_work(shape):
 
 def _times(ops, k):
     return ops[0] * k, ops[1] * k
+
+
+def _plus(*ops):
+    return tuple(sum(x) for x in zip(*ops))
+
+
+def bn_hash_work(shape):
+    """Kernel I on (w, h) or (w, h, d): w*d*h int64 words in, h 32-byte
+    digests out; per leaf a permutation for each 16 absorbed felts, a
+    conversion to Monty form for each 8 and one out of it."""
+    w, h = shape[0] * (shape[2] if len(shape) == 3 else 1), shape[1]
+    perms, packs = -(-w // 16), -(-w // 8)
+    return w * h * 8 + 32 * h, _times(_plus(_times(BN_PERM[3], perms), _times(BN_MONT, packs + 1)), h)
+
+
+def bn_layer_work(n: int):
+    """Kernel H's compress on n digests: n in, n/2 out (32 B each); per
+    output a width-2 permutation and three conversions."""
+    return (n + n // 2) * 32, _times(_plus(BN_PERM[2], _times(BN_MONT, 3)), n // 2)
 
 
 def bound(work):
@@ -434,6 +495,197 @@ def check_transcript_kernels(device, perm_floor_ms: float) -> dict:
     return results
 
 
+def _bn_rand(gen, n: int, device):
+    """(n, 8) int32 words of values below P_BN254 (the top word below P's),
+    then the edge operands 0, 1, P - 1 and P itself."""
+    import numpy as np
+    import torch
+
+    from swirl_torch.fields import bn254 as fb
+
+    w = torch.randint(-(1 << 31), 1 << 31, (n, 8), generator=gen, device=device, dtype=torch.int32)
+    w[:, 7] = torch.randint(0, 0x30644E72, (n,), generator=gen, device=device, dtype=torch.int32)
+    edges = fb.tensor(np.stack([fb.limbs_from_int(v) for v in (0, 1, fb.P - 1, fb.P)]), device)
+    return torch.cat([w, edges])
+
+
+# Kernel H's compress levels in the outer root cell: (label, digests in,
+# pairing stride): the main commit's first strided level (2^25 leaves, 16
+# rows a query), a level of the tower (plain on all of it), the first
+# strided level of each WHIR codeword's tree, then the first level above
+# the main tree's query stride
+BN_LAYER_CASES = (
+    ("root_main_strided", 1 << 25, 1 << 21),
+    ("root_tower_level", 1 << 17, 1),
+    ("root_whir_strided", 1 << 24, 1 << 20),
+    ("root_whir_strided_2", 1 << 23, 1 << 19),
+    ("root_whir_strided_3", 1 << 22, 1 << 18),
+    ("root_main_above_stride", 1 << 21, 1),
+)
+BN_SLICE = 1 << 12  # outputs a plain slice checks, at three offsets, on the big inputs
+# Kernel I at the path's shapes: the main commit's RS codeword and WHIR's
+# two codewords, read in place as (1, h, 4)
+BN_LEAF_CASES = (("root_codeword", (32, 1 << 25)), ("root_whir_codeword", (1, 1 << 24, 4)),
+                 ("root_whir_codeword_2", (1, 1 << 23, 4)))
+# Kernel J: (label, absorb cursor, pending felts, bits, check) from every
+# cursor the prover reaches (absorb 0 or 1, 0-7 pending felts): the query
+# phase's 20 bits after observe_ext (4 pending felts) against the plain
+# search; 15 bits against it; 5 bits against it and the host loop; 20 bits
+# with the witness checked by the host transcript's check_witness and shown
+# the least by a search of [0, w) that finds nothing (the plain search
+# takes 19-26 s a case there)
+BN_CURSORS = [(a, k) for a in (0, 1) for k in range(8)]
+BN_GRIND_CASES = (
+    [("query_grind", 0, 4, 20, "plain")]
+    + [(f"cursor_{a}_{k}", a, k, 15, "plain") for a, k in BN_CURSORS]
+    + [(f"cursor_{a}_{k}", a, k, 5, "host") for a, k in BN_CURSORS]
+    + [(f"cursor_{a}_{k}", a, k, 20, "witness") for a, k in BN_CURSORS]
+)
+
+
+def check_bn254_kernels(device) -> dict:
+    """Kernels G-J against their plain versions, bit for bit, at the outer
+    root cell's shapes (the plain versions on slices of H's and I's big
+    inputs, their times summed over the slices); G and H timed by CUDA
+    events (mean of 10), I (mean of 3), J by events around each call (its
+    witness's read included); each beside its bound and the plain version's
+    time. The first case of each kernel is the one the ``kernels`` line
+    reports."""
+    import numpy as np
+    import torch
+
+    from swirl_torch import kernels as K
+    from swirl_torch.fields import bn254 as fb
+    from swirl_torch.fields.babybear import P
+    from swirl_torch.hash import bn254_poseidon2 as bp
+    from swirl_torch.hash.multi_field import MultiFieldTranscript, pack_felts
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 2)
+    results = {}
+
+    def record(kernel, label, shape, err, ms, plain_ms, work, how=""):
+        bound_ms, bound_by = bound(work)
+        _say(f"kernel {kernel.name} [{label}] shape={shape} equal=True max_abs_err={err} ms={ms:.4f} "
+             f"plain_ms={plain_ms:.4f}{how} bound_ms={bound_ms:.4f} ({bound_by})")
+        results.setdefault(kernel.name, {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+        })
+
+    # G: every operation; mont_mul timed
+    n = 1 << 20
+    a, b = _bn_rand(gen, n, device), _bn_rand(gen, n, device).flip(0).contiguous()
+    for op in ("mont_mul", "add", "sub", "from_canonical", "to_canonical", "dbl"):
+        two = op in ("add", "sub", "mont_mul")
+        fk = (lambda op=op: getattr(fb, op)(a, b)) if two else (lambda op=op: getattr(fb, op)(a))
+        fp = lambda op=op, two=two: fb.op_plain(op, a, b if two else None)
+        err = _max_abs_err(fk(), fp())
+        if err:
+            raise AssertionError(f"kernel bn254_field [{op}]: max_abs_err {err}")
+        ms = _cuda_time_ms(fk, reps=10)
+        plain_ms = _cuda_time_ms(fp, reps=2)
+        ops = BN_MONT if op in ("mont_mul", "from_canonical", "to_canonical") else BN_ADD
+        record(K.BN254_FIELD, op, tuple(a.shape), err, ms, plain_ms, (3 * 32 * a.shape[0], _times(ops, a.shape[0])))
+    del a, b
+
+    # H: the permutations, then the compress levels
+    for t in (3, 2):
+        st = _bn_rand(gen, (1 << 14) * t, device)[: (1 << 14) * t].reshape(1 << 14, t, 8)
+        err = _max_abs_err(bp.permute_dev(st, t), bp.permute_plain(st, t))
+        if err:
+            raise AssertionError(f"kernel bn254_merkle [permute width {t}]: max_abs_err {err}")
+        _say(f"kernel bn254_merkle [permute width {t}] shape={tuple(st.shape)} equal=True "
+             f"ms={_cuda_time_ms(lambda: bp.permute_dev(st, t), reps=10):.4f}")
+    for label, n, stride in BN_LAYER_CASES:
+        layer = fb.to_canonical(_bn_rand(gen, n, device)[:n])
+        got = bp.compress_layer(layer, stride)
+        if n <= 1 << 17:
+            err = _max_abs_err(got, bp.compress_layer_plain(layer, stride))
+            plain_ms = _cuda_time_ms(lambda: bp.compress_layer_plain(layer, stride), reps=2)
+            how = ""
+        else:
+            # outputs [c, c + k): at a stride of at least k they pair the k
+            # digests from 2s (c / s) + c % s with those s after; below it,
+            # digests [2c, 2c + 2k) at the same stride
+            err, plain_ms = 0, 0.0
+            for c in (0, n // 4 + stride // 2, n // 2 - BN_SLICE):
+                if stride >= BN_SLICE:
+                    left = 2 * stride * (c // stride) + c % stride
+                    sub = torch.cat([layer[left : left + BN_SLICE], layer[left + stride : left + stride + BN_SLICE]])
+                    sub_stride = BN_SLICE
+                else:
+                    sub, sub_stride = layer[2 * c : 2 * c + 2 * BN_SLICE], stride
+                want, ms_ = _timed_ms(lambda: bp.compress_layer_plain(sub, sub_stride))
+                err = max(err, _max_abs_err(got[c : c + BN_SLICE], want))
+                plain_ms += ms_
+            how = f" (plain on 3 slices of {BN_SLICE} outputs)"
+        if err:
+            raise AssertionError(f"kernel bn254_merkle [{label}]: max_abs_err {err}")
+        del got
+        ms = _cuda_time_ms(lambda: bp.compress_layer(layer, stride), reps=10)
+        record(K.BN254_MERKLE, f"{label}, stride {stride}", tuple(layer.shape), err, ms, plain_ms,
+               bn_layer_work(n), how)
+        del layer
+        torch.cuda.empty_cache()
+
+    # I: the path's shapes; rows [c, c + BN_SLICE) of the output against
+    # plain on those columns of the codeword, at three offsets
+    for label, shape in BN_LEAF_CASES:
+        x = torch.randint(0, P, shape, generator=gen, device=device, dtype=torch.int64)
+        got = bp.hash_rows(x)
+        err, plain_ms = 0, 0.0
+        for c in (0, shape[1] // 3, shape[1] - BN_SLICE):
+            want, ms_ = _timed_ms(lambda: bp.hash_rows_plain(x[:, c : c + BN_SLICE]))
+            err = max(err, _max_abs_err(got[c : c + BN_SLICE], want))
+            plain_ms += ms_
+        if err:
+            raise AssertionError(f"kernel bn254_hash_rows [{label}]: max_abs_err {err}")
+        del got
+        ms = _cuda_time_ms(lambda: bp.hash_rows(x), reps=3)
+        record(K.BN254_LEAVES, label, shape, err, ms, plain_ms, bn_hash_work(shape),
+               f" (plain on 3 slices of {BN_SLICE} rows)")
+        del x
+        torch.cuda.empty_cache()
+
+    # J: from every cursor; the witness equals the plain search's (and, at
+    # 5 bits, the host loop's)
+    rng = np.random.default_rng(SEED + 3)
+    for label, cur, k, bits, check in BN_GRIND_CASES:
+        lanes = [int.from_bytes(rng.bytes(32), "little") % fb.P for _ in range(3)]
+        felts = [int(v) for v in rng.integers(0, P, k)]
+        state = fb.from_ints([*lanes, pack_felts(felts)[0] if k else 0], device)
+        w = bp.grind(state, cur, 31 * k, bits)
+        t = MultiFieldTranscript()
+        t._sponge.state, t._sponge.absorb_idx, t._sponge.sample_idx = list(lanes), cur, 2
+        t._obs_buf = list(felts)
+        what = f"kernel bn254_grind [{label}, {bits} bits]: witness {w}"
+        if check == "witness":
+            if w < 0 or not t.check_witness(bits, w):
+                raise AssertionError(f"{what} fails the host's check_witness")
+            below = bp.grind(state, cur, 31 * k, bits, end=w)
+            if below != -1:
+                raise AssertionError(f"{what}, but a search of [0, {w}) finds {below}")
+            _say(f"kernel bn254_grind [{label}] cursor ({cur}, {k} felts) bits={bits} witness={w}, "
+                 f"accepted by the host's check_witness; a search of [0, {w}) finds none")
+            continue
+        want, plain_ms = _timed_ms(lambda: bp.grind_plain(state, cur, 31 * k, bits))
+        if w != want or w < 0:
+            raise AssertionError(f"{what} against the plain search's {want}")
+        host = ""
+        if check == "host":
+            host_w = t.grind(bits)
+            if host_w != w:
+                raise AssertionError(f"{what} against the host loop's {host_w}")
+            host = f", host loop {host_w}"
+        ms = _cuda_time_ms(lambda: bp.grind(state, cur, 31 * k, bits), reps=10)
+        work = (4 * 32 + 8, _times(_plus(BN_PERM[3], _times(BN_MONT, 2)), w + 1))
+        record(K.BN254_GRIND, f"{label}, cursor ({cur}, {k} felts), {bits} bits, witness {w}{host}", (4, 8),
+               0, ms, plain_ms, work, " (ms by events, the witness's read included; bound: the candidates "
+               "up to the witness)")
+    return results
+
+
 def _timed_ms(fn):
     """(result, ms) of one call, by CUDA events."""
     import torch
@@ -556,8 +808,9 @@ def check_golden(device) -> None:
 
 def check_outer(device) -> None:
     """The golden ``outer`` case (BN254 outer scheme) through ``run_test``
-    on the card: transcript events and pre-hash against ``tests/golden``;
-    the verifier's three refusals; the device transcript refused."""
+    on the card, its trees (kernels H, I) and grinds (J) there: transcript
+    events and pre-hash against ``tests/golden``; the verifier's three
+    refusals; the device transcript refused."""
     import copy
 
     import numpy as np
@@ -571,10 +824,17 @@ def check_outer(device) -> None:
         CASE_SCHEME, decode_transcript_log, golden_cases, paths_for, pre_hash_hex)
     from swirl_torch.verifier.errors import VerifierError
 
+    from swirl_torch import kernels as K
+
     params, airs, ctxs = golden_cases()["outer"]()
     eng = StarkEngine(params, hash_scheme=CASE_SCHEME["outer"], device=device)
-    transcript = eng.scheme.new_transcript(record=True)
+    transcript = eng.scheme.new_transcript(record=True, device=eng.device)
+    K.reset_launch_counts()
     vk, proof = eng.run_test(airs, ctxs, transcript)
+    launches = K.launch_counts()
+    missing = [k.name for k in (K.BN254_MERKLE, K.BN254_LEAVES, K.BN254_GRIND) if launches[k.name] == 0]
+    if missing:
+        raise AssertionError(f"golden outer: the trees and grinds never launched {missing}")
     paths = paths_for("outer")
     with open(paths["transcript"], "rb") as f:
         want = decode_transcript_log(f.read())
@@ -611,8 +871,8 @@ def check_outer(device) -> None:
     else:
         raise AssertionError("golden outer: a device transcript was taken under the BN254 scheme")
     _say(f"golden outer: {len(got)} transcript events and the pre-hash equal tests/golden (BN254 digests, "
-         f"commit {proof.common_main_commit:#x}); refused: {'; '.join(refusals)}; "
-         f"device transcript: {device_refusal}")
+         f"commit {proof.common_main_commit:#x}; trees and grinds on the card, launches {launches}); "
+         f"refused: {'; '.join(refusals)}; device transcript: {device_refusal}")
 
 
 @contextmanager
@@ -693,15 +953,75 @@ def _synced_seconds(fn):
     return out, time.perf_counter() - t0
 
 
-def prove_and_check(device, params, air, trace, bad_trace, bad_row: int, on_card: bool = False) -> dict:
-    """Keygen, debug check, prove and verify of ``air`` on ``trace``. Resets
-    the launch counters just before the prove and returns them with the
-    spans, seconds, the kernels' input shapes and the encoded proof size.
-    Then the two negative checks: the proof with 1 added to a column
-    opening must be refused by the verifier, and ``bad_trace`` by the debug
-    check at ``bad_row``. With ``on_card``, last, the same prove on a
-    ``DeviceTranscript`` (its counters, spans, seconds and peak under
-    "on_card"), whose bytes must be the verified proof's."""
+@contextmanager
+def host_copies():
+    """The value count of every device-to-host copy of the prover's values
+    inside the block: each ``F.to_host`` (``F.to_host_all`` included, BabyBear
+    values) and each ``fb.to_ints`` (BN254 digests: the outer trees' roots
+    and opened siblings)."""
+    from swirl_torch.fields import bn254 as fb
+    from swirl_torch.fields import field as F
+
+    sizes = []
+    plain, plain_ints = F.to_host, fb.to_ints
+
+    def to_host(x):
+        sizes.append(int(x.numel()) if hasattr(x, "numel") else 0)
+        return plain(x)
+
+    def to_ints(t):
+        sizes.append(int(t.numel()) // fb.L)
+        return plain_ints(t)
+
+    F.to_host, fb.to_ints = to_host, to_ints
+    try:
+        yield sizes
+    finally:
+        F.to_host, fb.to_ints = plain, plain_ints
+
+
+def proof_sha256(proof) -> str:
+    """sha256 over a walk of a proof's fields (names, lengths, shapes and
+    canonical values, in order): the outer scheme's proofs, whose BN254
+    digests the codec does not serialize."""
+    import dataclasses
+
+    import numpy as np
+
+    h = hashlib.sha256()
+
+    def walk(obj):
+        if dataclasses.is_dataclass(obj):
+            for f in dataclasses.fields(obj):
+                h.update(f.name.encode())
+                walk(getattr(obj, f.name))
+        elif isinstance(obj, (list, tuple)):
+            h.update(f"[{len(obj)}".encode())
+            for x in obj:
+                walk(x)
+        elif isinstance(obj, np.ndarray):
+            h.update(f"a{obj.shape}".encode() + np.ascontiguousarray(obj, dtype=np.uint64).tobytes())
+        else:
+            h.update(repr(int(obj) if isinstance(obj, (int, np.integer)) else obj).encode())
+
+    walk(proof)
+    return h.hexdigest()
+
+
+def prove_and_check(device, params, air, trace, bad_trace, bad_row: int, on_card: bool = False,
+                    hash_scheme=None) -> dict:
+    """Keygen, debug check, prove and verify of ``air`` on ``trace`` under
+    ``hash_scheme``. Resets the launch counters just before the prove and
+    returns them with the spans, seconds, the kernels' input shapes, the
+    host copies and the encoded proof size. Then the two negative checks:
+    the proof with 1 added to a column opening must be refused by the
+    verifier, and ``bad_trace`` by the debug check at ``bad_row``. With
+    ``on_card``, last, the same prove on a ``DeviceTranscript`` (its
+    counters, spans, seconds and peak under "on_card"), whose bytes must be
+    the verified proof's. The codec holds the inner scheme's digests only:
+    an outer proof is verified and tampered as the prover returned it."""
+    import copy
+
     import torch
 
     from swirl_torch import kernels as K
@@ -712,7 +1032,7 @@ def prove_and_check(device, params, air, trace, bad_trace, bad_row: int, on_card
     from swirl_torch.prover.backend import ProvingContext
     from swirl_torch.verifier.errors import VerifierError
 
-    eng = StarkEngine(params, device=device)
+    eng = StarkEngine(params, hash_scheme=hash_scheme, device=device)
     t0 = time.perf_counter()
     pk, vk = eng.keygen([air])
     dpk = eng.transport_pk(pk)
@@ -726,21 +1046,26 @@ def prove_and_check(device, params, air, trace, bad_trace, bad_row: int, on_card
     K.reset_launch_counts()
     t0 = time.perf_counter()
     with metrics.run_with_metric_collection() as collector, recorded_shapes() as shapes, \
-            peaks_by_span() as peaks:
+            peaks_by_span() as peaks, host_copies() as copies:
         proof = eng.prove(dpk, ctx)
     prove_s = time.perf_counter() - t0
     launches = K.launch_counts()
     peak = max(peaks.values())
-    data = encode_proof(proof)
-    if encode_proof(decode_proof(data)) != data:
-        raise AssertionError("the proof does not survive a codec round trip")
-    vk_read = decode_vk(encode_vk(vk))
+    if eng.scheme.digest_is_scalar:
+        data, sha, vk_read = None, proof_sha256(proof), vk
+        read = lambda: copy.deepcopy(proof)  # noqa: E731
+    else:
+        data = encode_proof(proof)
+        if encode_proof(decode_proof(data)) != data:
+            raise AssertionError("the proof does not survive a codec round trip")
+        sha, vk_read = hashlib.sha256(data).hexdigest(), decode_vk(encode_vk(vk))
+        read = lambda: decode_proof(data)  # noqa: E731
     t0 = time.perf_counter()
-    eng.verify(vk_read, decode_proof(data))
+    eng.verify(vk_read, read())
     verify_s = time.perf_counter() - t0
 
     # negative checks: both must be refused
-    tampered = decode_proof(data)
+    tampered = read()
     opening = tampered.batch_constraint_proof.column_openings[0][0][0]
     opening[0] = (int(opening[0]) + 1) % P
     try:
@@ -759,7 +1084,7 @@ def prove_and_check(device, params, air, trace, bad_trace, bad_row: int, on_card
     if not bad_trace_refusal.endswith(f"failed at row {bad_row}"):
         raise AssertionError(f"the debug check refused the bad trace elsewhere: {bad_trace_refusal}")
     del bad_ctx  # its trace on the card would count in the next prove's peak
-    card = prove_on_card(eng, dpk, ctx, hashlib.sha256(data).hexdigest()) if on_card else None
+    card = prove_on_card(eng, dpk, ctx, sha) if on_card else None
     return {
         "on_card": card,
         "engine": eng,
@@ -772,8 +1097,9 @@ def prove_and_check(device, params, air, trace, bad_trace, bad_row: int, on_card
         "prove_s": prove_s,
         "verify_s": verify_s,
         "spans_ms": {k: v for k, v in collector.snapshot().items() if k.endswith("_time_ms")},
-        "proof_bytes": len(data),
-        "proof_sha256": hashlib.sha256(data).hexdigest(),
+        "proof_bytes": None if data is None else len(data),
+        "proof_sha256": sha,
+        "host_copies": copies,
         "peak_bytes": peak,
         "launches": launches,
         "shapes": shapes,
@@ -857,7 +1183,7 @@ def prove_with_config(run: dict, config) -> dict:
 
 
 def prove_synthetic(device, params, degree: int, log_rows: int = LOG_ROWS,
-                    width: int = WIDTH, seed: int = SEED, on_card: bool = False) -> dict:
+                    width: int = WIDTH, seed: int = SEED, on_card: bool = False, hash_scheme=None) -> dict:
     """The bench shape with a random witness (column 0 is the SyntheticAir
     kill column and stays zero, so any other values are a valid witness);
     the bad trace has a 1 in the kill column at one row."""
@@ -872,8 +1198,40 @@ def prove_synthetic(device, params, degree: int, log_rows: int = LOG_ROWS,
     bad_row = (1 << log_rows) // 3
     bad = trace.copy()
     bad[bad_row, 0] = 1
-    run = prove_and_check(device, params, air, trace, bad, bad_row, on_card)
+    run = prove_and_check(device, params, air, trace, bad, bad_row, on_card, hash_scheme)
     run["size"] = f"2^{log_rows} x {width}"
+    return run
+
+
+# the largest device-to-host copy the outer root prove may make: its opened
+# rows and paths (88 queries x 16 rows x 32 felts) and the like, far below
+# a codeword (its smallest, WHIR's third, holds 2^24 values)
+OUTER_HOST_COPY_LIMIT = 1 << 20
+
+
+def prove_outer_root(device) -> dict:
+    """The outer root cell: the leaf cell's SyntheticAir (2^20 x 64, degree
+    4) under ``root_params_with_100_bits_security(21)`` with the BN254
+    outer scheme, its trees (kernels H, I) and grinds (J) on the card.
+    ``build_host_tree`` refuses to run meanwhile, and no host copy may
+    reach a codeword's size."""
+    from swirl_torch.hash import scheme
+    from swirl_torch.params import root_params_with_100_bits_security
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the outer prove reached build_host_tree")
+
+    plain, scheme.build_host_tree = scheme.build_host_tree, refuse
+    try:
+        run = prove_synthetic(device, root_params_with_100_bits_security(OUTER_LOG_STACKED), 4,
+                              hash_scheme="bn254-outer")
+    finally:
+        scheme.build_host_tree = plain
+    largest = max(run["host_copies"], default=0)
+    if largest >= OUTER_HOST_COPY_LIMIT:
+        raise AssertionError(f"outer root: a host copy of {largest} values (limit {OUTER_HOST_COPY_LIMIT})")
+    run["extra"] = [f"host copies {len(run['host_copies'])}, the largest {largest} values "
+                    f"(limit {OUTER_HOST_COPY_LIMIT}); build_host_tree not reached"]
     return run
 
 
@@ -917,8 +1275,12 @@ def report(tag: str, run: dict, required) -> None:
     _say(f"{tag}: verify {run['verify_s']:.3f} s (host verifier, the decoded proof bytes)")
     for name, ms in sorted(run["spans_ms"].items()):
         _say(f"{tag}: span {name} {ms:.1f}")
-    _say(f"{tag}: peak device memory {run['peak_bytes']} B, proof {run['proof_bytes']} B "
-         f"(sha256 {run['proof_sha256'][:16]}), codec round trip ok")
+    if run["proof_bytes"] is None:
+        _say(f"{tag}: peak device memory {run['peak_bytes']} B, proof sha256 {run['proof_sha256'][:16]} "
+             f"(over its fields: the codec holds the inner scheme's digests only)")
+    else:
+        _say(f"{tag}: peak device memory {run['peak_bytes']} B, proof {run['proof_bytes']} B "
+             f"(sha256 {run['proof_sha256'][:16]}), codec round trip ok")
     _say(f"{tag}: kernel launches {run['launches']}")
     for name, shapes in sorted(run["shapes"].items()):
         _say(f"{tag}: {name} input shapes {sorted(shapes, key=lambda s: -math.prod(s))}")
@@ -1005,8 +1367,22 @@ def main() -> int:
     _say(f"latency: SM clocks a dependent operation {cycles} (at {ghz:.3f} GHz); one quad permutation's "
          f"chain {isa.QUAD_PERM_CHAIN}: {clocks:.0f} clocks, floor {perm_floor_ms:.6f} ms at the boost clock")
 
+    try:
+        for label, (outside, loops) in isa.report_census("bn254").items():
+            trips = [isa.pipe_counts(body) for _, body in loops]
+            _say(f"census {label}: outside loops (fma, alu) {isa.pipe_counts(outside)}, one trip of each loop "
+                 f"{trips}")
+    except (OSError, subprocess.SubprocessError, SystemExit) as err:
+        _say(f"census: not read ({err})")
+    _say(f"model: a BN254 product {BN_MONT}, add {BN_ADD}, permutation width 3 {BN_PERM[3]}, "
+         f"width 2 {BN_PERM[2]} (multiplies, others)")
+
     results = check_kernels(device, perm_floor_ms)
     results.update(check_transcript_kernels(device, perm_floor_ms))
+    t0 = time.perf_counter()
+    results.update(check_bn254_kernels(device))
+    torch.cuda.empty_cache()
+    _say(f"bn254 kernels: phase {time.perf_counter() - t0:.1f} s")
     K.reset_launch_counts()
     check_golden(device)
     counts = K.launch_counts()
@@ -1052,14 +1428,27 @@ def main() -> int:
     release(keccak)
     _say(f"keccak: phase {time.perf_counter() - t0:.1f} s (kernel cases, trace, setup, debug, prove, "
          f"verify, refusals)")
+    t0 = time.perf_counter()
+    outer = prove_outer_root(device)
+    outer_kernels = [k.name for k in (K.NTT, K.BN254_MERKLE, K.BN254_LEAVES, K.BN254_GRIND)]
+    report("outer root", outer, outer_kernels)
+    memory.append(report_memory("outer root", outer))
+    release(outer)
+    _say(f"outer root: phase {time.perf_counter() - t0:.1f} s (setup, debug, prove, verify, refusals)")
     _say(f"total: {time.perf_counter() - start:.1f} s (build included)")
     below = [row["tag"] for row in memory if row["estimate"] < row["measured"]]
     if below:
         raise AssertionError(f"the memory model's estimate is below the measured peak: {below}")
 
     # launches: the leaf path, the one path that runs A-D and A′; E and F
-    # on the app's device-transcript prove
-    launches = {k.name: (app["on_card"] if k in (K.DUPLEX, K.GRIND) else leaf)["launches"][k.name] for k in K.KERNELS}
+    # on the app's device-transcript prove; G-J on the outer root prove (G,
+    # the elementwise field kernel, is phase 2's and the tests': 0 there)
+    bn254 = (K.BN254_FIELD, K.BN254_MERKLE, K.BN254_LEAVES, K.BN254_GRIND)
+
+    def source_run(k):
+        return app["on_card"] if k in (K.DUPLEX, K.GRIND) else outer if k in bn254 else leaf
+
+    launches = {k.name: source_run(k)["launches"][k.name] for k in K.KERNELS}
     kernels = [
         {
             "name": k.name,

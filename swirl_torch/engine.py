@@ -62,7 +62,7 @@ class StarkEngine:
     def proving_memory_config(self):
         """The device-memory model of a prove under this engine's policy
         (peer of ``swirl/engine.py:46-57``)."""
-        from .memory_metering import ProvingMemoryConfig
+        from .memory_metering import DIGEST_SIZE, OUTER_DIGEST_SIZE, ProvingMemoryConfig
 
         cfg = self.backend.config
         return ProvingMemoryConfig.from_params(
@@ -70,6 +70,7 @@ class StarkEngine:
             cache_stacked_matrix=cfg.cache_stacked_matrix,
             cache_rs_code_matrix=cfg.cache_rs_code_matrix,
             zerocheck_save_memory=bool(cfg.zerocheck_save_memory),
+            digest_size=OUTER_DIGEST_SIZE if self.scheme.digest_is_scalar else DIGEST_SIZE,
         )
 
     def keygen(
@@ -130,7 +131,8 @@ class StarkEngine:
                 f"the device transcript is BabyBear Poseidon2-16; the {self.scheme.name} "
                 "scheme proves on its host transcript"
             )
-        return Coordinator(self.backend, transcript or self.scheme.new_transcript()).prove(dpk, ctx)
+        transcript = transcript or self.scheme.new_transcript(device=self.device)
+        return Coordinator(self.backend, transcript).prove(dpk, ctx)
 
     def verify(
         self,

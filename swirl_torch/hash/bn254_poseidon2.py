@@ -22,9 +22,12 @@ Instances (reference parity):
   reproduces the frozen table bit-exactly; see
   ``bn254_poseidon2/width3.rs:1-8`` for the reference's sourcing).
 
-BN254 scalars are 254-bit; this hashing tier is host-side by design (outer proofs are tiny — the reference likewise
-keeps BN254 hashing out of the throughput path and only accelerates it for
-grinding). Values are Python ints.
+The host permutation below works on Python ints (the verifier's Merkle
+checks and the outer transcript's sponge). The device entry points at the
+end (peer of ``swirl/hash/jbn254_poseidon2.py``) run the same permutations
+over :mod:`swirl_torch.fields.bn254` elements, batched: the prover's leaf
+hashes (kernel I), Merkle layers (kernel H) and proof-of-work grinds
+(kernel J) on the card, their plain versions on the CPU.
 
 Structure (Poseidon2 paper, t <= 3): external linear layer M_E = J + I
 (t=2 -> [[2,1],[1,2]]; t=3 -> [[2,1,1],[1,2,1],[1,1,2]]); internal layer
@@ -36,13 +39,15 @@ from __future__ import annotations
 from functools import lru_cache
 from typing import List, Sequence, Tuple
 
+import numpy as np
+import torch
+
+from .. import kernels as K
+from ..fields import bn254 as fb
 from .bn254_constants import RC2
 from .grain import poseidon2_round_constants
 
-# BN254 (alt_bn128) scalar field modulus
-P_BN254 = (
-    21888242871839275222246405745257275088548364400416034343698204186575808495617
-)
+P_BN254 = fb.P  # the BN254 (alt_bn128) scalar field modulus
 N_BITS = 254
 
 # (full_rounds, partial_rounds, internal diag) per width — reference
@@ -135,3 +140,261 @@ def hash_scalars(vals: Sequence[int]) -> int:
     if not buf:
         s = permute(s, 3)
     return s[0]
+
+
+# -- on the port's devices: peer of swirl/hash/jbn254_poseidon2.py -----------
+#
+# A state is (..., t, 8) int32 (t lanes of fields.bn254 elements, Monty
+# form); digests are (n, 8) int32 canonical words, 32 B each. Each wrapper
+# launches its kernel (csrc/bn254.cu) on a CUDA tensor and runs its plain
+# version on a CPU tensor.
+
+
+@lru_cache(maxsize=None)
+def _dev_constants(t: int):
+    """(ext_i, internal, ext_f) as Monty uint32 words, derived from
+    :func:`constants`: (half, t, 8), (r_p, 8), (half, t, 8)."""
+    ext_i, internal, ext_f = constants(t)
+    m = lambda rows: np.stack([np.stack([fb.const(c) for c in r]) for r in rows])
+    return m(ext_i), np.stack([fb.const(c) for c in internal]), m(ext_f)
+
+
+_w_consts = {}
+
+
+def _consts_w(t: int, device):
+    """:func:`_dev_constants` in word form on ``device``, made once."""
+    key = (t, str(device))
+    if key not in _w_consts:
+        _w_consts[key] = tuple(fb.words(fb.tensor(c, device)) for c in _dev_constants(t))
+    return _w_consts[key]
+
+
+def _sbox_w(x):
+    x2 = fb.mont_mul_w(x, x)
+    x4 = fb.mont_mul_w(x2, x2)
+    return fb.mont_mul_w(x4, x)
+
+
+def _lane_sum_w(s):
+    total = s[..., 0, :]
+    for i in range(1, s.shape[-2]):
+        total = fb.add_w(total, s[..., i, :])
+    return total
+
+
+def _external_w(s):
+    """M_E = J + I over the lane axis (-2)."""
+    return fb.add_w(_lane_sum_w(s)[..., None, :], s)
+
+
+def _internal_w(s, t: int):
+    """M_I = J + diag(d); d = (1, 2) or (1, 1, 2): only the last lane doubles."""
+    assert _PARAMS[t][2][:-1] == (1,) * (t - 1) and _PARAMS[t][2][-1] == 2
+    last = s[..., -1:, :]
+    x = torch.cat([s[..., :-1, :], fb.add_w(last, last)], dim=-2)
+    return fb.add_w(_lane_sum_w(s)[..., None, :], x)
+
+
+def _permute_w(s, t: int):
+    """The permutation on a (..., t, 8) word-form Monty state."""
+    ext_i, internal, ext_f = _consts_w(t, s.device)
+    s = _external_w(s)
+    for rc in ext_i:
+        s = _external_w(_sbox_w(fb.add_w(s, rc)))
+    for c in internal:
+        s0 = _sbox_w(fb.add_w(s[..., 0, :], c))
+        s = _internal_w(torch.cat([s0[..., None, :], s[..., 1:, :]], dim=-2), t)
+    for rc in ext_f:
+        s = _external_w(_sbox_w(fb.add_w(s, rc)))
+    return s
+
+
+def permute_plain(state, t: int):
+    return fb.from_words(_permute_w(fb.words(state), t))
+
+
+def permute_dev(state, t: int):
+    """Kernel H: the Poseidon2 permutation of each (t, 8) Monty state of an
+    (n, t, 8) tensor."""
+    if state.dim() != 3 or state.shape[1] != t or t not in (2, 3):
+        raise ValueError(f"permute_dev: a (n, {t}, 8) state, got {tuple(state.shape)}")
+    if not state.is_cuda:
+        return permute_plain(state, t)
+    fb.require_words(state, 3, "permute_dev")
+    out = torch.empty_like(state)
+    K.LIB.launch(K.BN254_MERKLE, "swirl_bn254_permute", state, state.data_ptr(), out.data_ptr(),
+                 state.shape[0], t)
+    return out
+
+
+def compress2_dev(a, b):
+    """Batched 2-to-1 compression of Monty digests: permute width-2 [a, b],
+    keep lane 0 (``baby_bear_bn254_poseidon2.rs:59``)."""
+    return permute_dev(torch.stack([a, b], dim=-2).contiguous(), 2)[..., 0, :]
+
+
+def compress_layer_plain(layer, stride: int):
+    """(n, 8) canonical digests -> (n/2, 8): output o compresses digest
+    2 * stride * (o // stride) + o % stride with the digest stride after it."""
+    n = layer.shape[0]
+    g = fb.words(layer).reshape(n // (2 * stride), 2, stride, fb.L).transpose(1, 2)
+    s = _permute_w(fb.from_canonical_w(g.reshape(n // 2, 2, fb.L)), 2)
+    return fb.from_words(fb.to_canonical_w(s[:, 0]))
+
+
+def compress_layer(layer, stride: int):
+    """Kernel H: one Merkle layer of canonical digests at a pairing stride
+    (the query stride for the strided levels, 1 above them), read in place."""
+    n = layer.shape[0]
+    if layer.dim() != 2 or n < 2 or n % (2 * stride) or stride & (stride - 1):
+        raise ValueError(f"compress_layer: {tuple(layer.shape)} at stride {stride}")
+    if not layer.is_cuda:
+        return compress_layer_plain(layer, stride)
+    fb.require_words(layer, 2, "compress_layer")
+    out = torch.empty((n // 2, fb.L), dtype=fb.DTYPE, device=layer.device)
+    K.LIB.launch(K.BN254_MERKLE, "swirl_bn254_compress", layer, layer.data_ptr(), out.data_ptr(),
+                 n // 2, stride.bit_length() - 1)
+    return out
+
+
+def _pack_w(felts):
+    """Canonical BabyBear (..., k <= 8) int64 -> one canonical word-form
+    scalar: felt j occupies bits [31j, 31j + 31), so a word takes pieces of
+    at most two felts, which never overlap."""
+    from .multi_field import FELT_BITS, FELTS_PER_SCALAR
+
+    k = felts.shape[-1]
+    assert k <= FELTS_PER_SCALAR
+    out = []
+    for w in range(fb.L):
+        acc = torch.zeros(felts.shape[:-1], dtype=torch.int64, device=felts.device)
+        for j in range(k):
+            off = FELT_BITS * j - fb.WORD_BITS * w
+            if off >= fb.WORD_BITS or off + FELT_BITS <= 0:
+                continue
+            f = felts[..., j]
+            acc = acc + (((f << off) & 0xFFFFFFFF) if off >= 0 else (f >> -off))
+        out.append(acc)
+    return torch.stack(out, dim=-1)
+
+
+def pack_felts_dev(felts):
+    """Canonical BabyBear (..., k <= 8) int64 -> one canonical BN254 scalar
+    (..., 8) int32: little-endian base-2^31 packing
+    (``multi_field_packing.rs:31-39``)."""
+    return fb.from_words(_pack_w(felts))
+
+
+def _leaf_rows(mat):
+    """The leaves' values, (h, W): a (w, h) codeword's columns, or a (w, h,
+    d) extension-field codeword's, value c * d + e of leaf i being [c, i, e]."""
+    if mat.dim() == 3:
+        w, h, d = mat.shape
+        return mat.permute(1, 0, 2).reshape(h, w * d)
+    return mat.T
+
+
+def hash_rows_plain(mat):
+    """``MultiFieldHasher::hash_iter`` (``hasher.rs:119-136``) of every leaf
+    of a canonical (w, h) or (w, h, d) int64 codeword -> (h, 8) canonical
+    digests. Per 16-felt block: pack two scalars, overwrite state lanes 0
+    and 1 (lane 0 only for a last block of at most 8 felts), permute width
+    3; the digest is lane 0."""
+    from .multi_field import BABY_BEAR_RATE, FELTS_PER_SCALAR, WIDTH
+
+    rows = _leaf_rows(mat)
+    h, w = rows.shape
+    state = torch.zeros((h, WIDTH, fb.L), dtype=torch.int64, device=mat.device)
+    for i in range(0, w, BABY_BEAR_RATE):
+        block = rows[:, i : i + BABY_BEAR_RATE]
+        n = -(-block.shape[1] // FELTS_PER_SCALAR)
+        packed = torch.stack(
+            [_pack_w(block[:, c * FELTS_PER_SCALAR : (c + 1) * FELTS_PER_SCALAR]) for c in range(n)], dim=1)
+        state = _permute_w(torch.cat([fb.from_canonical_w(packed), state[:, n:]], dim=1), WIDTH)
+    return fb.from_words(fb.to_canonical_w(state[:, 0]))
+
+
+def hash_rows(mat):
+    """Kernel I: (h, 8) canonical digests of the leaves of a (w, h) or
+    (w, h, d) canonical int64 codeword (d a power of two), read in place."""
+    if not mat.is_cuda:
+        return hash_rows_plain(mat)
+    K.require(mat, (2, 3), "hash_rows")
+    d = mat.shape[2] if mat.dim() == 3 else 1
+    if d & (d - 1) or d == 0:
+        raise K.KernelError(f"hash_rows: the last of {tuple(mat.shape)} is not a power of two")
+    w, h = mat.shape[0] * d, mat.shape[1]
+    out = torch.empty((h, fb.L), dtype=fb.DTYPE, device=mat.device)
+    K.LIB.launch(K.BN254_LEAVES, "swirl_bn254_hash_rows", mat, mat.data_ptr(), out.data_ptr(), w, h,
+                 d.bit_length() - 1)
+    return out
+
+
+def merkle_layers_dev(leaf_digests) -> list:
+    """Every layer from (n, 8) canonical digests (n a power of two) to the
+    root, contiguous pairing (``bn254_merkle.cu`` peer)."""
+    layers = [leaf_digests]
+    while layers[-1].shape[0] > 1:
+        layers.append(compress_layer(layers[-1], 1))
+    return layers
+
+
+def _grind_operand(state, a: int, shift: int, bits: int, end: int) -> int:
+    """Validate J's operands; returns the search's end (None: BabyBear's order)."""
+    from ..fields.babybear import P as P_BB
+
+    if state.shape != (4, fb.L) or state.dtype != fb.DTYPE:
+        raise ValueError(f"grind: a (4, 8) int32 operand, got {state.dtype} {tuple(state.shape)}")
+    end = P_BB if end is None else end
+    if a not in (0, 1) or shift not in range(0, 31 * 8, 31) or not 1 <= bits <= 30 or not 0 <= end <= P_BB:
+        raise ValueError(f"grind: absorb cursor {a}, shift {shift}, {bits} bits, end {end}")
+    return end
+
+
+def grind_plain(state, a: int, shift: int, bits: int, end: int = None) -> int:
+    """The smallest witness w below ``end`` (None: BabyBear's order, the
+    host loop's range): the outer sponge's ``state`` (rows 0-2, canonical)
+    with lane ``a`` overwritten by the packed pending felts (row 3,
+    canonical, below 2^shift) plus w << shift, permuted once (whatever the cursors, observe + sample is one
+    permutation: a full rate permutes at the absorb, else the squeeze does);
+    the sample is lane 1 mod p, tested under ``bits``. Batched over
+    candidates; -1 if none below ``end``."""
+    from ..fields.babybear import P as P_BB
+
+    end = _grind_operand(state, a, shift, bits, end)
+    st = fb.words(state)
+    monty = fb.from_canonical_w(st[:3])
+    batch = min(1 << 16 if state.is_cuda else 1 << 12, max(64, 4 << bits))
+    q, r = divmod(shift, fb.WORD_BITS)
+    for lo in range(0, end, batch):
+        w = torch.arange(lo, min(lo + batch, end), dtype=torch.int64, device=state.device)
+        # w << shift as words: bits of w land in word q (from bit r) and q + 1
+        v = torch.zeros((w.shape[0], fb.L), dtype=torch.int64, device=state.device)
+        v[:, q] = (w << r) & 0xFFFFFFFF
+        if r and q + 1 < fb.L:
+            v[:, q + 1] = w >> (fb.WORD_BITS - r)
+        lanes = monty.expand(w.shape[0], 3, fb.L).clone()
+        lanes[:, a] = fb.from_canonical_w(v + st[3])
+        x = fb.to_canonical_w(_permute_w(lanes, 3)[:, 1])
+        digit = torch.zeros_like(w)
+        for i in reversed(range(fb.L)):
+            digit = ((digit << fb.WORD_BITS) + x[:, i]) % P_BB
+        hit = torch.nonzero((digit & ((1 << bits) - 1)) == 0)
+        if hit.numel():
+            return lo + int(hit[0, 0])
+    return -1
+
+
+def grind(state, a: int, shift: int, bits: int, end: int = None) -> int:
+    """Kernel J: :func:`grind_plain`'s witness, the smallest by atomicMin
+    over grid-stride sweeps of [0, ``end``); read to the host (-1 if none)."""
+    if not state.is_cuda:
+        return grind_plain(state, a, shift, bits, end)
+    end = _grind_operand(state, a, shift, bits, end)
+    fb.require_words(state, 2, "grind")
+    found = torch.empty(1, dtype=torch.int64, device=state.device)
+    K.LIB.launch(K.BN254_GRIND, "swirl_bn254_grind", state, state.data_ptr(), a, shift, bits, end,
+                 found.data_ptr())
+    w = int(found.item())
+    return w if w < end else -1

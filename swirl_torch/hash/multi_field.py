@@ -17,8 +17,10 @@ Bit-exact peer of the reference's outer-recursion hashing tier:
 
 Digests are a single BN254 scalar (vs ``[BabyBear; 8]`` in the inner
 scheme), which is what makes the outer proof cheap to verify in a BN254
-SNARK circuit. BN254 arithmetic is host-side Python ints by design (outer
-proofs are tiny).
+SNARK circuit. The sponge is host-side Python ints (a few permutations a
+round); the proof-of-work search of a transcript made with a ``device``
+runs there (kernel J on the card, ``bn254_poseidon2.grind``), and the host
+applies the witness it returns.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from __future__ import annotations
 from typing import List, Sequence
 
 import numpy as np
+import torch
 
 from ..fields.babybear import P
 from .bn254_poseidon2 import P_BN254, compress2, permute
@@ -121,14 +124,16 @@ class MultiFieldTranscript:
     sample_bits, check_witness/grind.
     """
 
-    __slots__ = ("_sponge", "_obs_buf", "_samples", "log", "_record")
+    __slots__ = ("_sponge", "_obs_buf", "_samples", "log", "_record", "_device")
 
-    def __init__(self, record: bool = False):
+    def __init__(self, record: bool = False, device=None):
         self._sponge = _Bn254DuplexSponge()
         self._obs_buf: List[int] = []  # pending BabyBear felts (< 8)
         self._samples: List[int] = []  # buffered digits, pop() returns next
         self._record = record
         self.log = [] if record else None
+        # where grind searches (None: the host loop)
+        self._device = None if device is None else torch.device(device)
 
     def clone(self) -> "MultiFieldTranscript":
         t = MultiFieldTranscript()
@@ -213,6 +218,8 @@ class MultiFieldTranscript:
         if bits == 0:
             assert self.check_witness(bits, 0)
             return 0
+        if self._device is not None:
+            return self._grind_on_device(bits)
         w = 0
         while True:
             probe = self.clone()  # probes never record/validate events
@@ -221,6 +228,20 @@ class MultiFieldTranscript:
                 assert ok
                 return w
             w += 1
+
+    def _grind_on_device(self, bits: int) -> int:
+        """The host loop's witness, searched on the transcript's device from
+        its sponge state and pending felts, then observed and checked here
+        (so the record and a validator see the host loop's events)."""
+        from ..fields import bn254 as fb
+        from .bn254_poseidon2 import grind as grind_dev
+
+        pending = pack_felts(self._obs_buf)[0] if self._obs_buf else 0
+        state = fb.from_ints([*self._sponge.state, pending], self._device)
+        w = grind_dev(state, self._sponge.absorb_idx, FELT_BITS * len(self._obs_buf), bits)
+        if w < 0 or not self.check_witness(bits, w):
+            raise RuntimeError(f"failed to find PoW witness ({bits} bits): the search returned {w}")
+        return w
 
 
 class MultiFieldTranscriptValidator(MultiFieldTranscript):

@@ -12,19 +12,26 @@ only hashing, the transcript, and digest types change.
 
 A scheme bundles:
 
-- ``new_transcript()`` — the duplex-sponge Fiat-Shamir transcript;
+- ``new_transcript(record, device)`` — the duplex-sponge Fiat-Shamir
+  transcript (``device``: where the outer transcript grinds);
 - ``hash_slice`` / ``compress`` / ``digest_eq`` — verifier-side Merkle ops;
 - ``check_digest`` — proof-shape validation of a digest value;
 - ``pre_hash`` — the vk pre-hash over versioned postcard bytes;
 - ``tree_builder()`` — ``None`` for the inner scheme (the prover keeps its
-  Poseidon2 kernels' Merkle trees), or a host builder ``(matrix,
-  rows_per_query, ext) -> (root, tree)`` whose tree answers the query-proof
-  API of :class:`swirl_torch.prover.merkle.MerkleTree`.
+  Poseidon2 kernels' Merkle trees), or a builder ``(matrix, rows_per_query,
+  ext) -> (root, tree)`` whose tree answers the query-proof API of
+  :class:`swirl_torch.prover.merkle.MerkleTree`.
 
-Outer Merkle hashing and the outer transcript (its grinds included) run on
-the HOST by design: outer proofs commit one tiny recursion trace, and BN254
-host arithmetic keeps the scheme dependency-free. The trace, constraint and
-WHIR arithmetic stays on the prover's device.
+The outer scheme builds its trees where the matrix lives
+(:class:`DeviceBn254Tree`): on the card its leaf hashes and Merkle layers
+are kernels I and H (``csrc/bn254.cu``) and the digest layers stay there;
+on the CPU the same code runs their plain versions. The prover's
+transcript grinds on kernel J on the card (``new_transcript(device=...)``);
+its sponge, and the verifier's hashing and transcript, stay on host ints
+(:func:`build_host_tree` and :class:`HostMerkleTree` are the reference the
+tests hold the device tree to). The reference's outer tier hashes on the
+card too (``bn254_poseidon2.cu``, ``bn254_merkle.cu``, ``bn254_grind.cu``):
+at the root tier a commit hashes 2^25 leaves.
 """
 
 from __future__ import annotations
@@ -84,6 +91,52 @@ class HostMerkleTree:
         return self.batch_query_proofs([index])[0]
 
 
+class DeviceBn254Tree:
+    """The outer scheme's Merkle tree on the matrix's device: the digest
+    layers from the query stride up, each an (n, 8) int32 tensor of
+    canonical BN254 digests, laid out as :func:`build_host_tree`'s (strided
+    pairing while more digests than the query stride remain, then
+    contiguous). The root is read once, as a Python int."""
+
+    def __init__(self, matrix, rows_per_query: int, ext: bool):
+        from .bn254_poseidon2 import compress_layer, hash_rows
+        from ..fields import bn254 as fb
+
+        h = int(matrix.shape[1])
+        if (matrix.dim() == 3) != ext:
+            raise ValueError(f"DeviceBn254Tree: a {tuple(matrix.shape)} matrix with ext={ext}")
+        if h <= 0 or h & (h - 1) != 0:
+            raise ValueError("DeviceBn254Tree: height must be a positive power of two")
+        if rows_per_query & (rows_per_query - 1) != 0 or rows_per_query > h:
+            raise ValueError("DeviceBn254Tree: bad rows_per_query")
+        stride = h // rows_per_query
+        cur = hash_rows(matrix)
+        while cur.shape[0] > stride:
+            cur = compress_layer(cur, stride)
+        self.layers = [cur]
+        while cur.shape[0] > 1:
+            cur = compress_layer(cur, 1)
+            self.layers.append(cur)
+        self.root = fb.to_ints(cur)[0]
+
+    @property
+    def query_stride(self) -> int:
+        return int(self.layers[0].shape[0])
+
+    def batch_query_proofs_arr(self, indices) -> List[list]:
+        """proofs[qi][level] = sibling digest (Python ints), the host tree's
+        order: the siblings gathered on the device, copied back once."""
+        from ..fields import bn254 as fb
+
+        idx = torch.as_tensor(indices, dtype=torch.int64).to(self.layers[0].device).reshape(-1)
+        nq, depth = int(idx.shape[0]), len(self.layers) - 1
+        if depth == 0:
+            return [[] for _ in range(nq)]
+        sib = torch.stack([layer[(idx >> level) ^ 1] for level, layer in enumerate(self.layers[:-1])], dim=1)
+        flat = fb.to_ints(sib)
+        return [flat[q * depth : (q + 1) * depth] for q in range(nq)]
+
+
 def build_host_tree(
     matrix: np.ndarray,
     rows_per_query: int,
@@ -138,7 +191,9 @@ class InnerPoseidon2Scheme:
     name = "babybear-poseidon2"
     digest_is_scalar = False
 
-    def new_transcript(self, record: bool = False):
+    def new_transcript(self, record: bool = False, device=None):
+        """The host transcript (its grinds run in the native host library);
+        ``device`` is the outer scheme's, unused here."""
         from ..transcript import Transcript
 
         return Transcript(record=record)
@@ -189,10 +244,13 @@ class Bn254OuterScheme:
     name = "bn254-outer"
     digest_is_scalar = True
 
-    def new_transcript(self, record: bool = False):
+    def new_transcript(self, record: bool = False, device=None):
+        """The multi-field transcript; with a ``device`` it grinds there
+        (kernel J on the card, its plain version on the CPU), with none on
+        the host loop (the verifier's)."""
         from .multi_field import MultiFieldTranscript
 
-        return MultiFieldTranscript(record=record)
+        return MultiFieldTranscript(record=record, device=device)
 
     @staticmethod
     def hash_slice(vals) -> int:
@@ -227,15 +285,10 @@ class Bn254OuterScheme:
         return self.hash_slice(byte_elems)
 
     def tree_builder(self) -> Callable:
-        from ..fields import field as F
-
         def build(matrix, rows_per_query: int, ext: bool):
-            """A (width, height[, 4]) tensor on any device, read to the host
-            once; the tree is built there."""
-            host = F.to_host(matrix)
-            tree = build_host_tree(
-                host, rows_per_query, ext, self.hash_slice, self.compress
-            )
+            """A canonical (width, height[, 4]) int64 tensor; the tree is
+            built on its device, the root read once."""
+            tree = DeviceBn254Tree(matrix, rows_per_query, ext)
             return tree.root, tree
 
         return build

@@ -74,7 +74,27 @@ GRIND = Kernel(
     "grind", "swirl_torch/csrc/poseidon2.cu",
     "none: swirl/prover/device_transcript.py:290 (grind, a jitted while loop)",
 )
-KERNELS = (NTT, NTT_RECURSIVE, HASH_COLS, COMPRESS, TOWER, DUPLEX, GRIND)
+# the BN254 outer scheme's kernels: the JAX package runs its BN254 device
+# library (swirl/fields/jbn254.py, swirl/hash/jbn254_poseidon2.py) under XLA,
+# with no Pallas kernel
+BN254_FIELD = Kernel(
+    "bn254_field", "swirl_torch/csrc/bn254.cu",
+    "none: swirl/fields/jbn254.py:110-179 (add, sub, mont_mul, from/to_canonical, dbl; XLA)",
+)
+BN254_MERKLE = Kernel(
+    "bn254_merkle", "swirl_torch/csrc/bn254.cu",
+    "none: swirl/hash/jbn254_poseidon2.py:74 (permute_dev), :97 (compress2_dev), :168 (merkle_layers_dev)",
+)
+BN254_LEAVES = Kernel(
+    "bn254_hash_rows", "swirl_torch/csrc/bn254.cu",
+    "none: swirl/hash/jbn254_poseidon2.py:104 (pack_felts_dev) + :137 (hash_rows_dev)",
+)
+BN254_GRIND = Kernel(
+    "bn254_grind", "swirl_torch/csrc/bn254.cu",
+    "none: swirl/hash/multi_field.py:210 (MultiFieldTranscript.grind, a host loop)",
+)
+KERNELS = (NTT, NTT_RECURSIVE, HASH_COLS, COMPRESS, TOWER, DUPLEX, GRIND,
+           BN254_FIELD, BN254_MERKLE, BN254_LEAVES, BN254_GRIND)
 
 
 def reset_launch_counts() -> None:
@@ -116,6 +136,8 @@ class _Library:
         )
 
     def build(self) -> str:
+        """Compile each ``.cu`` to an object with its own ``nvcc``, all
+        started together, then link them into one library."""
         srcs = self._sources()
         h = hashlib.sha256()
         for s in srcs:
@@ -129,12 +151,40 @@ class _Library:
         if not os.path.exists(nvcc):
             raise KernelError("nvcc not found: the CUDA toolkit is required")
         os.makedirs(BUILD_DIR, exist_ok=True)
+        tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+        cus = [s for s in srcs if s.endswith(".cu")]
+        objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o") for s in cus]
+        compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        procs = [
+            subprocess.Popen([nvcc, *compile_flags, "-c", "-o", o, s],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for s, o in zip(cus, objs)
+        ]
+        logs, failed = [], []
+        try:
+            for s, p in zip(cus, procs):
+                log = p.communicate(timeout=900)[0]
+                logs.append(f"== {os.path.basename(s)}\n{log}")
+                if p.returncode != 0:
+                    failed.append(os.path.basename(s))
+        finally:
+            for p in procs:  # none outlives a failed wait
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *[s for s in srcs if s.endswith(".cu")]]
-        r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-        self.build_log = r.stdout + r.stderr
-        if r.returncode != 0:
-            raise KernelError(f"nvcc failed ({r.returncode}):\n{self.build_log}")
+        if not failed:
+            r = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp, *objs],  # the target, then link
+                               capture_output=True, text=True, timeout=600)
+            logs.append(r.stdout + r.stderr)
+            if r.returncode != 0:
+                failed.append("link")
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
+        self.build_log = "\n".join(logs)
+        if failed:
+            raise KernelError(f"nvcc failed ({', '.join(failed)}):\n{self.build_log}")
         os.replace(tmp, out)
         return out
 
@@ -154,6 +204,12 @@ class _Library:
                     "swirl_p2_tower": [vp, vp, i32, vp, vp],
                     "swirl_p2_duplex": [vp, vp, i64, vp, i32, i32, i32, i32, i32, vp, vp],
                     "swirl_p2_grind": [vp, i32, i32, vp, vp],
+                    "swirl_bn254_set_constants": [vp, vp],
+                    "swirl_bn254_op": [i32, vp, vp, vp, i64, vp],
+                    "swirl_bn254_permute": [vp, vp, i64, i32, vp],
+                    "swirl_bn254_compress": [vp, vp, i64, i32, vp],
+                    "swirl_bn254_hash_rows": [vp, vp, i32, i64, i32, vp],
+                    "swirl_bn254_grind": [vp, i32, i32, i32, i64, vp, vp],
                 }
                 for name, args in sigs.items():
                     fn = getattr(lib, name)
@@ -170,7 +226,9 @@ class _Library:
         lib = self.get()
         with torch.cuda.device(t.device):
             if t.device.index not in self._constants_on:
-                _upload_poseidon2_constants(lib)  # __constant__ memory is per device
+                # __constant__ memory is per device
+                _upload_poseidon2_constants(lib)
+                _upload_bn254_constants(lib)
                 self._constants_on.add(t.device.index)
             check(getattr(lib, fn_name)(*args, torch.cuda.current_stream().cuda_stream))
         kernel.launches += 1
@@ -186,13 +244,13 @@ def check(rc: int) -> None:
         raise KernelError(f"CUDA error {rc}: {msg}")
 
 
-def require(t: torch.Tensor, ndim, what: str) -> None:
-    """Validate a kernel operand: CUDA, int64, contiguous, ``ndim`` dims
+def require(t: torch.Tensor, ndim, what: str, dtype=torch.int64) -> None:
+    """Validate a kernel operand: CUDA, ``dtype``, contiguous, ``ndim`` dims
     (an int or a tuple of the dims allowed)."""
     dims = ndim if isinstance(ndim, tuple) else (ndim,)
-    if not t.is_cuda or t.dtype != torch.int64 or not t.is_contiguous() or t.dim() not in dims:
+    if not t.is_cuda or t.dtype != dtype or not t.is_contiguous() or t.dim() not in dims:
         raise KernelError(
-            f"{what}: expected a contiguous {ndim}-d int64 CUDA tensor, got "
+            f"{what}: expected a contiguous {ndim}-d {dtype} CUDA tensor, got "
             f"{t.dtype} {tuple(t.shape)} on {t.device} "
             f"(contiguous={t.is_contiguous()})"
         )
@@ -210,3 +268,17 @@ def _upload_poseidon2_constants(lib) -> None:
     rc = lib.swirl_p2_set_constants(*[m.ctypes.data for m in mont])
     if rc != 0:
         raise KernelError(f"poseidon2 constant upload failed: CUDA error {rc}")
+
+
+def _upload_bn254_constants(lib) -> None:
+    """The BN254 Poseidon2 round constants of widths 3 and 2, Monty words,
+    each flat in the order external initial, internal, external final."""
+    from ..hash.bn254_poseidon2 import _dev_constants
+
+    flat = [
+        np.ascontiguousarray(np.concatenate([c.reshape(-1) for c in _dev_constants(t)]), dtype=np.uint32)
+        for t in (3, 2)
+    ]
+    rc = lib.swirl_bn254_set_constants(*[f.ctypes.data for f in flat])
+    if rc != 0:
+        raise KernelError(f"bn254 constant upload failed: CUDA error {rc}")

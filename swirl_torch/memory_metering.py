@@ -33,6 +33,12 @@ the card (``chip_smoke.py``) showed them:
   digests of the whole codeword (8 int64 words a row) at once; it can set
   the peak of a tall codeword with few columns (the leaf).
 
+Under the BN254 outer scheme (``digest_size=OUTER_DIGEST_SIZE``) every
+digest layer holds 32 B digests (8 int32 words of one BN254 scalar) in
+place of the inner scheme's 64 B, in the commit, WHIR's leaf digests and
+the trees. Its tree build reads the codeword where it lies (kernel I), so
+it adds no codeword copy.
+
 ``ALLOCATOR_ALLOWANCE`` takes the place of the JAX package's XLA scratch
 allowance: the caching allocator's rounding and the eager temporaries that
 the formulas do not name (the chunked interpreter's operands, whatever a
@@ -49,6 +55,7 @@ from .params import SystemParams
 BASE_FIELD_SIZE = 8  # a canonical int64 tensor element
 EXT_DEGREE = 4  # an EF4 element: 4 of them, 32 B
 DIGEST_SIZE = 8 * BASE_FIELD_SIZE  # a Merkle layer is an (8, n) int64 tensor
+OUTER_DIGEST_SIZE = 8 * 4  # the outer scheme's: an (n, 8) int32 tensor
 # 1 GiB: above the largest residual of a stage's peak over its named
 # buffers, 0.29 GB (the leaf's GKR span), in the per-span peaks of the app,
 # leaf and Keccak proves on one NVIDIA H100 80GB HBM3 at 700 W
@@ -97,6 +104,8 @@ class ProvingMemoryConfig:
     cache_rs_code_matrix: bool = True
     # chunked round-0 coset grids (8 segments); see ProverConfig
     zerocheck_save_memory: bool = False
+    # bytes of one Merkle digest: the hash scheme's
+    digest_size: int = DIGEST_SIZE
 
     @staticmethod
     def from_params(
@@ -104,6 +113,7 @@ class ProvingMemoryConfig:
         cache_stacked_matrix: bool = True,
         cache_rs_code_matrix: bool = True,
         zerocheck_save_memory: bool = False,
+        digest_size: int = DIGEST_SIZE,
     ) -> "ProvingMemoryConfig":
         return ProvingMemoryConfig(
             l_skip=params.l_skip,
@@ -114,6 +124,7 @@ class ProvingMemoryConfig:
             cache_stacked_matrix=cache_stacked_matrix,
             cache_rs_code_matrix=cache_rs_code_matrix,
             zerocheck_save_memory=zerocheck_save_memory,
+            digest_size=digest_size,
         )
 
     @property
@@ -177,8 +188,8 @@ class ProvingMemoryConfig:
         codeword_h = m << self.log_blowup
         f_and_w = 2 * m * EXT_DEGREE * BASE_FIELD_SIZE
         g_codeword = (codeword_h >> 1) * EXT_DEGREE * BASE_FIELD_SIZE
-        g_digests = (codeword_h >> 1) * DIGEST_SIZE
-        trees = 2 * DIGEST_SIZE * (codeword_h >> self.k_whir)
+        g_digests = (codeword_h >> 1) * self.digest_size
+        trees = 2 * self.digest_size * (codeword_h >> self.k_whir)
         # f from the RS message of the stacked matrix, then the rounds
         initial = 4 * self._stacked_cells(main_cells) * BASE_FIELD_SIZE
         rounds = f_and_w + 3 * g_codeword + g_digests
@@ -193,7 +204,7 @@ class ProvingMemoryConfig:
             self.main_memory_bytes(main_cells)
             + stacked * BASE_FIELD_SIZE
             + 3 * self.rs_code_matrix_memory_bytes(main_cells)
-            + codeword_h * DIGEST_SIZE
+            + codeword_h * self.digest_size
             + ALLOCATOR_ALLOWANCE
         )
 

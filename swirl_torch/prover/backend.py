@@ -137,7 +137,7 @@ class TorchBackend:
             self.config.zerocheck_save_memory = params.log_blowup == 1
         # hash-scheme hook (``swirl_torch/hash/scheme.py``): None = the
         # Poseidon2 kernels' Merkle trees; the BN254 outer scheme installs
-        # a host tree builder
+        # its device tree builder
         self.tree_builder = None
 
     def commit_traces(self, traces: List[torch.Tensor]):

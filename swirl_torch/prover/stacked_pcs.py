@@ -182,7 +182,8 @@ def stacked_commit(
     """Commit to height-sorted traces; returns (root digest, data).
     ``tree_builder`` (the hash-scheme hook): when set, ``(rs_matrix,
     rows_per_query, ext) -> (root, tree)`` replaces the Poseidon2 Merkle
-    build (the BN254 outer scheme commits on the host)."""
+    build (the BN254 outer scheme commits on the codeword's device: kernels
+    I and H on the card)."""
     stacked, layout = stack_traces(l_skip, n_stack, traces)
     rs = rs_code_matrix(l_skip, log_blowup, stacked)
     if tree_builder is None:

@@ -1,11 +1,12 @@
-"""What the card issues for the port's Poseidon2 kernels: a census of their
-SASS by instruction class, and the throughput of each integer instruction
+"""What the card issues for the port's Poseidon2 and BN254 kernels: a
+census of their SASS by instruction class, and the throughput of each integer instruction
 class on the card. Run on a machine with the card and the CUDA toolkit:
 
     python -m swirl_torch.tools.isa
 
 The census builds the port's kernel library (``swirl_torch/csrc``) as the
-wrappers do and lists, for each Poseidon2 kernel, the static count of each
+wrappers do and lists, for each Poseidon2 kernel (B, C, D) and BN254
+kernel (G-J), the static count of each
 instruction class outside loops and inside each loop (a loop is the range
 of a backward branch). A kernel whose rounds are all unrolled has no loop:
 its count outside loops is one pass, loads, conversions to and from
@@ -41,7 +42,11 @@ from .. import kernels as K
 FMA_PIPE = ("IMAD",)
 ALU_PIPE = ("IADD3", "ISETP", "SEL", "VIMNMX", "IMNMX", "LOP3", "SHF", "LEA", "MOV", "PRMT", "PLOP3", "IABS")
 CLASSES = ("IMAD.WIDE", "IMAD.HI", "IMAD.MOV", "IMAD.IADD", "IMAD.SHL", "IMAD")
-KERNEL_NAMES = ("hash_cols_kernel", "compress_kernel", "tower_kernel")
+# the kernels the census lists, by source file (the tag in a mangled name)
+KERNEL_NAMES = {
+    "poseidon2_cu": ("hash_cols_kernel", "compress_kernel", "tower_kernel"),
+    "bn254_cu": ("op_kernel", "permute_kernel", "compress_kernel", "hash_rows_kernel", "grind_kernel"),
+}
 
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
 _FUNC = re.compile(r"Function : (\S+)")
@@ -117,18 +122,44 @@ def _fmt(counter, top: int = 0) -> str:
     return " ".join(f"{c}={n}" for c, n in (items[:top] if top else items))
 
 
-def report_census() -> None:
+def kernel_label(name: str):
+    """``poseidon2.compress_kernel``, ``bn254.permute_kernel<3>`` ... for a
+    mangled kernel name the census lists, else None."""
+    for src, names in KERNEL_NAMES.items():
+        if src not in name:
+            continue
+        short = next((k for k in names if k in name), None)
+        if short is None:
+            return None
+        tmpl = re.search(r"ILi(\d+)E", name)
+        return f"{src[:-3]}.{short}" + (f"<{tmpl.group(1)}>" if tmpl else "")
+    return None
+
+
+def pipe_counts(counter) -> tuple:
+    """(FMA-pipe, ALU-pipe) instructions of a class counter."""
+    fma = sum(n for c, n in counter.items() if pipe(c) == "fma")
+    alu = sum(n for c, n in counter.items() if pipe(c) == "alu")
+    return fma, alu
+
+
+def report_census(only: str = "") -> dict:
+    """Prints each listed kernel's census (those whose label starts with
+    ``only``); returns them."""
     lib = K.LIB.build()
     for line in K.ptxas_summary(K.LIB.build_log):
         print(f"ptxas {line}")
-    for name, insns in sorted(sass_functions(lib).items()):
-        short = next((k for k in KERNEL_NAMES if k in name), None)
-        if short is None:
-            continue
-        outside, loops = census(insns)
-        print(f"sass {short}: outside loops {_by_pipe(outside)}: {_fmt(outside)}")
+    found = {}
+    for name, insns in sass_functions(lib).items():
+        label = kernel_label(name)
+        if label is not None and label.startswith(only):
+            found[label] = census(insns)
+    found = dict(sorted(found.items()))
+    for label, (outside, loops) in found.items():
+        print(f"sass {label}: outside loops {_by_pipe(outside)}: {_fmt(outside)}")
         for (a, b), body in loops:
-            print(f"sass {short}: loop {a:#x}-{b:#x}, one trip {_by_pipe(body)}: {_fmt(body)}")
+            print(f"sass {label}: loop {a:#x}-{b:#x}, one trip {_by_pipe(body)}: {_fmt(body)}")
+    return found
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,12 @@ tower's ticket counter across calls, streams and a CUDA graph), and the
 device transcript's kernels E (duplex) and F (grind) at ``chip_smoke.py``'s
 cases, F at every absorb cursor, both refusing bad cursors and bit counts,
 the transcript on the card against the CPU and a golden proof on it, the
-BN254 outer golden case and round 0 in segments on the card. Skips
+BN254 outer golden case and round 0 in segments on the card, and the BN254
+kernels G-J against their plain versions (the field's operations on
+random and edge operands, the permutations, compress layers at every kind
+of stride, leaf hashes of every absorb shape and of extension-field
+codewords, the device tree against the host tree, the grind from every
+sponge cursor). Skips
 without a card. This file imports no jax, so on a machine without jax run it with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
@@ -16,6 +21,7 @@ without a card. This file imports no jax, so on a machine without jax run it wit
 Tolerance: exact equality (finite field).
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -408,9 +414,10 @@ def test_golden_proof_on_a_device_transcript_on_the_card():
 
 
 def test_outer_golden_case_on_the_card():
-    """The BN254 outer scheme's golden case with its traces and BabyBear
-    stages on the card (its trees and transcript on the host, by design):
-    the transcript's events and the vk pre-hash equal ``tests/golden``."""
+    """The BN254 outer scheme's golden case with its traces, BabyBear
+    stages, Merkle trees (kernels H and I) and grinds (kernel J) on the
+    card, its sponge on the host: the transcript's events and the vk
+    pre-hash equal ``tests/golden``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from swirl_torch.engine import StarkEngine
@@ -419,8 +426,11 @@ def test_outer_golden_case_on_the_card():
 
     params, airs, ctxs = golden_cases()["outer"]()
     eng = StarkEngine(params, hash_scheme=CASE_SCHEME["outer"], device="cuda")
-    transcript = eng.scheme.new_transcript(record=True)
+    transcript = eng.scheme.new_transcript(record=True, device=eng.device)
+    before = [k.launches for k in (K.BN254_MERKLE, K.BN254_LEAVES, K.BN254_GRIND)]
     vk, _ = eng.run_test(airs, ctxs, transcript)
+    after = [k.launches for k in (K.BN254_MERKLE, K.BN254_LEAVES, K.BN254_GRIND)]
+    assert all(a > b for a, b in zip(after, before))
     paths = paths_for("outer")
     with open(paths["transcript"], "rb") as f:
         assert encode_transcript_log(transcript.log) == f.read()
@@ -448,3 +458,132 @@ def test_segmented_round0_on_the_card_matches_the_cpu(monkeypatch, on_card):
     eng = StarkEngine(params, ProverConfig(zerocheck_save_memory=True), device="cuda")
     _, got = eng.run_test(airs, ctxs, DeviceTranscript("cuda") if on_card else None)
     assert encode_proof(got) == encode_proof(want)
+
+
+# -- the BN254 outer scheme's kernels G-J -------------------------------------
+
+
+def _bn_rand(gen, n):
+    """(n, 8) int32 words of values below P (the top word below P's)."""
+    from swirl_torch.fields import bn254 as fb
+
+    w = torch.randint(-(1 << 31), 1 << 31, (n, 8), generator=gen, device="cuda", dtype=torch.int32)
+    w[:, 7] = torch.randint(0, 0x30644E72, (n,), generator=gen, device="cuda", dtype=torch.int32)
+    return w
+
+
+@pytest.fixture
+def bn_gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    return gen
+
+
+@pytest.mark.parametrize("op", ["add", "sub", "mont_mul", "from_canonical", "to_canonical", "dbl"])
+@pytest.mark.parametrize("n", [1, 129, 1 << 16])
+def test_bn254_field_kernel_matches_plain(bn_gen, op, n):
+    from swirl_torch.fields import bn254 as fb
+
+    a, b = _bn_rand(bn_gen, n), _bn_rand(bn_gen, n)
+    edges = fb.tensor(np.stack([fb.limbs_from_int(v) for v in (0, 1, fb.P - 1, fb.P)]), "cuda")
+    a = torch.cat([a, edges.repeat_interleave(4, 0)])
+    b = torch.cat([b, edges.repeat(4, 1)])
+    before = K.BN254_FIELD.launches
+    got = getattr(fb, op)(a, b) if op in ("add", "sub", "mont_mul") else getattr(fb, op)(a)
+    assert K.BN254_FIELD.launches == before + 1
+    want = fb.op_plain(op, a, b if op in ("add", "sub", "mont_mul") else None)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("t", [2, 3])
+def test_bn254_permute_kernel_matches_plain(bn_gen, t):
+    from swirl_torch.hash import bn254_poseidon2 as bp
+
+    state = _bn_rand(bn_gen, 300 * t).reshape(300, t, 8)
+    assert torch.equal(bp.permute_dev(state, t), bp.permute_plain(state, t))
+
+
+@pytest.mark.parametrize("n,stride", [(2, 1), (64, 1), (64, 4), (64, 32), (1 << 12, 1 << 8), (1 << 16, 1 << 15)])
+def test_bn254_compress_kernel_matches_plain(bn_gen, n, stride):
+    from swirl_torch.fields import bn254 as fb
+    from swirl_torch.hash import bn254_poseidon2 as bp
+
+    layer = fb.to_canonical(_bn_rand(bn_gen, n))
+    assert torch.equal(bp.compress_layer(layer, stride), bp.compress_layer_plain(layer, stride))
+
+
+@pytest.mark.parametrize("shape", [(1, 300), (4, 257), (7, 128), (8, 128), (9, 128), (16, 64), (17, 64),
+                                   (32, 200), (33, 65), (1, 256, 4), (3, 100, 4), (2, 64, 2)])
+def test_bn254_hash_rows_kernel_matches_plain(rand, shape):
+    from swirl_torch.hash import bn254_poseidon2 as bp
+
+    mat = rand(*shape)
+    mat.view(-1)[:7] = P - 1
+    before = K.BN254_LEAVES.launches
+    got = bp.hash_rows(mat)
+    assert K.BN254_LEAVES.launches == before + 1
+    assert torch.equal(got, bp.hash_rows_plain(mat))
+
+
+@pytest.mark.parametrize("ext,rows_per_query", [(False, 16), (True, 16), (False, 1)])
+def test_bn254_device_tree_matches_host_tree(rand, ext, rows_per_query):
+    from swirl_torch.hash import scheme as sc
+
+    mat = rand(*((1, 256, 4) if ext else (5, 256)))
+    tree = sc.DeviceBn254Tree(mat, rows_per_query, ext)
+    s = sc.Bn254OuterScheme
+    host = sc.build_host_tree(mat.cpu().numpy().astype(np.uint64), rows_per_query, ext, s.hash_slice, s.compress)
+    assert tree.root == host.root
+    idx = [0, 3, host.query_stride - 1, 5, 3]
+    assert tree.batch_query_proofs_arr(torch.tensor(idx, device="cuda")) == host.batch_query_proofs(idx)
+
+
+@pytest.mark.parametrize("a,k,bits", [(a, k, b) for a in (0, 1) for k in range(8) for b in (1, 7)] + [(0, 3, 15)])
+def test_bn254_grind_kernel_matches_plain(bn_gen, a, k, bits):
+    from swirl_torch.fields import bn254 as fb
+    from swirl_torch.hash import bn254_poseidon2 as bp
+    from swirl_torch.hash.multi_field import pack_felts
+
+    st = fb.to_canonical(_bn_rand(bn_gen, 3))
+    felts = torch.randint(0, P, (k,), generator=bn_gen, device="cuda").tolist()
+    pending = fb.from_ints([pack_felts(felts)[0] if k else 0], "cuda")
+    state = torch.cat([st, pending])
+    before = K.BN254_GRIND.launches
+    w = bp.grind(state, a, 31 * k, bits)
+    assert K.BN254_GRIND.launches == before + 1
+    assert w == bp.grind_plain(state, a, 31 * k, bits) >= 0
+    assert bp.grind(state, a, 31 * k, bits, end=w) == -1 == bp.grind_plain(state, a, 31 * k, bits, end=w)
+
+
+@pytest.mark.parametrize("a,k", [(a, k) for a in (0, 1) for k in range(8)])
+def test_bn254_grind_kernel_witness_is_the_least_at_20_bits(bn_gen, a, k):
+    """At the query phase's 20 bits the search spans many sweeps: the
+    witness passes the host transcript's check, and a search of [0, w)
+    finds nothing."""
+    from swirl_torch.fields import bn254 as fb
+    from swirl_torch.hash import bn254_poseidon2 as bp
+    from swirl_torch.hash.multi_field import MultiFieldTranscript, pack_felts
+
+    lanes = fb.to_ints(fb.to_canonical(_bn_rand(bn_gen, 3)))
+    felts = torch.randint(0, P, (k,), generator=bn_gen, device="cuda").tolist()
+    state = fb.from_ints([*lanes, pack_felts(felts)[0] if k else 0], "cuda")
+    w = bp.grind(state, a, 31 * k, 20)
+    t = MultiFieldTranscript()
+    t._sponge.state, t._sponge.absorb_idx, t._sponge.sample_idx = list(lanes), a, 2
+    t._obs_buf = list(felts)
+    assert w >= 0 and t.check_witness(20, w)
+    assert bp.grind(state, a, 31 * k, 20, end=w) == -1
+
+
+def test_bn254_kernels_refuse_bad_operands(bn_gen):
+    from swirl_torch.hash import bn254_poseidon2 as bp
+
+    layer = _bn_rand(bn_gen, 64)
+    with pytest.raises(K.KernelError):
+        bp.compress_layer(layer.to(torch.int64), 1)
+    with pytest.raises(K.KernelError):
+        bp.compress_layer(layer.view(-1)[2:258].reshape(32, 8), 1)  # rows 8 bytes off alignment
+    with pytest.raises(ValueError):
+        bp.compress_layer(layer, 64)

@@ -45,6 +45,16 @@ from swirl_torch.verifier.errors import VerifierError  # noqa: E402
 P_BN254 = tbn.P_BN254
 
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The plain BN254 path is many small tensor ops: one intra-op thread,
+    since the tier runs several test processes side by side."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 def _bn_ints(rng, n):
     return [int.from_bytes(rng.bytes(32), "little") % P_BN254 for _ in range(n)]
 
@@ -127,9 +137,12 @@ def _drive_validator(v, seed):
 
 @pytest.mark.parametrize("ext", [False, True])
 def test_host_tree_matches_jax(ext):
-    """The port's tree builder (a tensor in, read to the host once) builds
-    the JAX package's tree from the same matrix, and answers the device
-    tree's ``batch_query_proofs_arr`` with a tensor of indices."""
+    """The port's tree builder (a tensor in, the tree built on its device:
+    here the plain versions of kernels I and H) builds the JAX package's
+    tree from the same matrix, and answers the device tree's
+    ``batch_query_proofs_arr`` with a tensor of indices."""
+    from swirl_torch.fields import bn254 as fb
+
     rng = np.random.default_rng(3)
     shape = (2, 16, 4) if ext else (3, 16)
     mat = rng.integers(0, P, shape, dtype=np.uint64)
@@ -137,10 +150,10 @@ def test_host_tree_matches_jax(ext):
     root, tree = scheme.tree_builder()(torch.from_numpy(mat.astype(np.int64)), 4, ext)
     want = jscheme.build_host_tree(mat, 4, ext, jscheme.Bn254OuterScheme.hash_slice,
                                    jscheme.Bn254OuterScheme.compress)
-    assert tree.layers == want.layers and root == want.root
+    assert [fb.to_ints(layer) for layer in tree.layers] == want.layers and root == want.root
     idx = [0, 3, 1]
     assert tree.batch_query_proofs_arr(torch.tensor(idx)) == want.batch_query_proofs(idx)
-    assert all(isinstance(d, int) for path in tree.batch_query_proofs(idx) for d in path)
+    assert all(isinstance(d, int) for path in tree.batch_query_proofs_arr(idx) for d in path)
 
 
 def test_scheme_names():
@@ -153,11 +166,13 @@ def test_scheme_names():
 
 def test_port_reproduces_golden_outer_case():
     """The golden outer case's transcript, event for event, and its vk
-    pre-hash (one BN254 scalar); the port's verifier accepts the proof."""
+    pre-hash (one BN254 scalar), with the trees and grinds of the device
+    path (plain versions on the CPU); the port's verifier accepts the proof."""
     assert not case_has_codec("outer")
     params, airs, ctxs = golden_cases()["outer"]()
     eng = StarkEngine(params, hash_scheme=CASE_SCHEME["outer"], device="cpu")
-    transcript = eng.scheme.new_transcript(record=True)
+    # the trees and the grinds on the engine's device: the plain versions
+    transcript = eng.scheme.new_transcript(record=True, device=eng.device)
     vk, proof = eng.run_test(airs, ctxs, transcript)
     paths = paths_for("outer")
     with open(paths["transcript"], "rb") as f:
