@@ -66,7 +66,8 @@ Phases, each printing its result on lines of its own:
    open), and for the app, leaf and Keccak proves the memory model's
    estimate (``eng.proving_memory_config().estimate``, total and each
    component) beside the measured peak, with the ratio; the estimate must
-   not be below the peak;
+   not be below the peak, nor its batch phase (the traces, the cached
+   matrices and the batch term) below the ``zerocheck_round0`` span's peak;
 9. outer: the golden ``outer`` case (the BN254 outer hash scheme) through
    ``run_test`` on the card, its Merkle trees (kernels H, I) and grinds (J)
    there: its recorded transcript must equal
@@ -83,7 +84,20 @@ Phases, each printing its result on lines of its own:
    prove, ``build_host_tree`` refusing to run and no device-to-host copy
    of a codeword's size. The codec holds the inner scheme's digests only,
    so this proof is verified as the prover returned it and its sha256 is
-   taken over its fields.
+   taken over its fields;
+11. reth: OpenVM reth segments of ``benchmarks/reth-block-23992138-atlas.json``
+   (``load_segment_atlas`` at the 2^22 clamp), each as one multi-AIR proof
+   of every AIR at its atlas height, random traces from a seed (the kill
+   column zero), under ``benchmarks/synthetic_runner.py``'s degree-4
+   parameters (``segment_fit.runner_params``): segment 204 (42 AIRs) and
+   segment 13 (22 AIRs, 5.05e8 main cells, an RS codeword of (121, 2^23));
+   segment 3 takes 13's place, stated, if 13 runs out of device memory.
+   For each: keygen and ``audit_vk`` (total bits and findings), the debug
+   check, the prove on the host transcript and on ``DeviceTranscript()``
+   (the same sha256), the verifier, the two refusals, the AIRs, main cells
+   and GKR leaves, the ``trace_metrics`` gauges, launches and host reads,
+   the peak by span beside the memory model. Then A and B at the
+   segment's codeword against their plain versions on slices.
 
 Phase 2 also holds the BN254 kernels to their plain versions: G on every
 operation over 2^20 random and the edge operands; H's permutations at
@@ -96,7 +110,7 @@ plain search) and from every cursor (the witness checked by the host).
 Phase 1 prints ``tools/isa.py``'s SASS census of G-J beside the bound's
 model of a BN254 product and permutation.
 
-Phases 4 to 6 and 10 use a random trace from a seed. The debug check runs on
+Phases 4 to 6, 10 and 11 use random traces from a seed. The debug check runs on
 the card before the prove, the port's host verifier on the proof's
 decoded bytes after it; each prints its seconds. They print the
 per-stage spans, the prove seconds, the peak device memory and the input
@@ -107,7 +121,9 @@ that path must have launched during it. Then two negative checks: the
 proof with 1 added to one column opening must be refused by the
 verifier, and a bad trace must be refused by the debug check at its bad
 row: a 1 in the SyntheticAir kill column (column 0) at one row, one
-a_prime bit of Keccak flipped at a row in the middle of the trace.
+a_prime bit of Keccak flipped at a row in the middle of the trace (a reth
+segment: the kill column of its first AIR with two or more constraints and
+at least 2^l_skip rows).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -190,6 +206,17 @@ BN_PERM = {
 # 2^25), WHIR codewords (1, 2^24, 4), (1, 2^23, 4), (1, 2^22, 4), 16 rows a
 # query (query strides 2^21 down to 2^18)
 OUTER_LOG_STACKED = 21
+# the reth replay: benchmarks/synthetic_runner.py's atlas, its --max-log-height
+# default (the reference runner's clamp), the segment the JAX package proved
+# (204: 42 AIRs) and the heaviest screening-tier segment the memory model
+# admits on 80 GB (13: 22 AIRs, 5.05e8 main cells); segment 3 takes 13's
+# place if 13 runs out of device memory
+RETH_ATLAS = "benchmarks/reth-block-23992138-atlas.json"
+RETH_MAX_LOG_HEIGHT = 22
+RETH_SEGMENTS = (204, 13)
+RETH_SUBSTITUTE = {13: 3}
+RETH_SLICE_ROWS = 4  # rows of A's input a plain slice takes, at three offsets
+RETH_SLICE_COLS = 1 << 12  # columns of B's input a plain slice takes, at three offsets
 
 
 def _say(*parts) -> None:
@@ -933,14 +960,20 @@ def peaks_by_span():
         mark()
 
 
-def memory_model(eng, vk, height: int) -> dict:
-    """The memory model's estimate of one prove of ``vk`` at ``height``."""
+def memory_model(eng, vk, heights) -> dict:
+    """The memory model's estimate of one prove of ``vk`` at ``heights`` (one
+    trace height an AIR)."""
     from dataclasses import asdict
 
     from swirl_torch.memory_metering import counts_for
 
-    counts = counts_for(vk, [height])
-    return {"counts": asdict(counts), **asdict(eng.proving_memory_config().estimate(counts))}
+    counts = counts_for(vk, heights)
+    cfg = eng.proving_memory_config()
+    # each AIR's round 0 is summarized by the one that sets the batch term
+    shown = {k: v for k, v in asdict(counts).items() if k != "round0_airs"}
+    per_air = [cfg.round0_memory_bytes(*air) for air in counts.round0_airs]
+    shown["round0_largest_air"] = max(range(len(per_air)), key=per_air.__getitem__)
+    return {"counts": shown, **asdict(cfg.estimate(counts))}
 
 
 def _synced_seconds(fn):
@@ -1008,18 +1041,22 @@ def proof_sha256(proof) -> str:
     return h.hexdigest()
 
 
-def prove_and_check(device, params, air, trace, bad_trace, bad_row: int, on_card: bool = False,
-                    hash_scheme=None) -> dict:
-    """Keygen, debug check, prove and verify of ``air`` on ``trace`` under
-    ``hash_scheme``. Resets the launch counters just before the prove and
-    returns them with the spans, seconds, the kernels' input shapes, the
-    host copies and the encoded proof size. Then the two negative checks:
-    the proof with 1 added to a column opening must be refused by the
-    verifier, and ``bad_trace`` by the debug check at ``bad_row``. With
+def prove_and_check(device, params, airs, traces, bad, on_card: bool = False,
+                    hash_scheme=None, audit=None) -> dict:
+    """Keygen, debug check, prove and verify of ``airs`` on ``traces`` (one
+    host array an AIR, in one proof) under ``hash_scheme``. Resets the
+    launch counters just before the prove and returns them with the spans,
+    seconds, the kernels' input shapes, the host copies and the encoded
+    proof size. Then the two negative checks: the proof with 1 added to a
+    column opening must be refused by the verifier, and ``bad`` = (AIR
+    index, its bad trace, the bad row) by the debug check at that row. With
     ``on_card``, last, the same prove on a ``DeviceTranscript`` (its
     counters, spans, seconds and peak under "on_card"), whose bytes must be
-    the verified proof's. The codec holds the inner scheme's digests only:
-    an outer proof is verified and tampered as the prover returned it."""
+    the verified proof's. ``audit(params, vk)``, when given, runs right
+    after keygen; its result is under "audit". The codec holds the inner
+    scheme's digests only: an outer proof is verified and tampered as the
+    prover returned it. A prove that runs out of device memory raises with
+    its peak by span so far in the error's ``peaks_by_span``."""
     import copy
 
     import torch
@@ -1034,20 +1071,25 @@ def prove_and_check(device, params, air, trace, bad_trace, bad_row: int, on_card
 
     eng = StarkEngine(params, hash_scheme=hash_scheme, device=device)
     t0 = time.perf_counter()
-    pk, vk = eng.keygen([air])
+    pk, vk = eng.keygen(airs)
+    audit_result = None if audit is None else audit(params, vk)
     dpk = eng.transport_pk(pk)
-    ctx = ProvingContext([eng.context_for(0, trace, [], [])])
+    ctx = ProvingContext([eng.context_for(i, trace, [], []) for i, trace in enumerate(traces)])
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    _, debug_s = _synced_seconds(lambda: eng.debug([air], pk, ctx))
+    _, debug_s = _synced_seconds(lambda: eng.debug(airs, pk, ctx))
     # the prove starts from the allocator state it had before the debug check
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
     t0 = time.perf_counter()
-    with metrics.run_with_metric_collection() as collector, recorded_shapes() as shapes, \
-            peaks_by_span() as peaks, host_copies() as copies:
-        proof = eng.prove(dpk, ctx)
+    try:
+        with metrics.run_with_metric_collection() as collector, recorded_shapes() as shapes, \
+                peaks_by_span() as peaks, host_copies() as copies:
+            proof = eng.prove(dpk, ctx)
+    except torch.cuda.OutOfMemoryError as err:
+        err.peaks_by_span = dict(peaks)
+        raise
     prove_s = time.perf_counter() - t0
     launches = K.launch_counts()
     peak = max(peaks.values())
@@ -1074,9 +1116,11 @@ def prove_and_check(device, params, air, trace, bad_trace, bad_row: int, on_card
         tamper_refusal = type(err).__name__
     else:
         raise AssertionError("the verifier accepted a proof with a tampered column opening")
-    bad_ctx = ProvingContext([eng.context_for(0, bad_trace, [], [])])
+    bad_air, bad_trace, bad_row = bad
+    bad_ctx = ProvingContext([eng.context_for(i, bad_trace, [], []) if i == bad_air else ctx.per_trace[i]
+                              for i in range(len(traces))])
     try:
-        eng.debug([air], pk, bad_ctx)
+        eng.debug(airs, pk, bad_ctx)
     except AssertionError as err:
         bad_trace_refusal = str(err)
     else:
@@ -1090,13 +1134,15 @@ def prove_and_check(device, params, air, trace, bad_trace, bad_row: int, on_card
         "engine": eng,
         "dpk": dpk,
         "ctx": ctx,
-        "memory_model": memory_model(eng, vk, len(trace)),
+        "memory_model": memory_model(eng, vk, [len(trace) for trace in traces]),
+        "audit": audit_result,
         "peaks_by_span": peaks,
         "setup_s": setup_s,
         "debug_s": debug_s,
         "prove_s": prove_s,
         "verify_s": verify_s,
         "spans_ms": {k: v for k, v in collector.snapshot().items() if k.endswith("_time_ms")},
+        "counters": dict(collector.counters),
         "proof_bytes": None if data is None else len(data),
         "proof_sha256": sha,
         "host_copies": copies,
@@ -1107,7 +1153,7 @@ def prove_and_check(device, params, air, trace, bad_trace, bad_row: int, on_card
         "bad_trace_refusal": bad_trace_refusal,
         "dag": vk.per_air[0].symbolic_constraints,
         "dag_vk": vk,
-        "height": len(trace),
+        "heights": [len(trace) for trace in traces],
     }
 
 
@@ -1177,7 +1223,7 @@ def prove_with_config(run: dict, config) -> dict:
     if sha != run["proof_sha256"]:
         raise AssertionError(f"the proof under {config} differs: sha256 {sha[:16]} against "
                              f"{run['proof_sha256'][:16]}")
-    model = memory_model(eng, run["dag_vk"], run["height"])
+    model = memory_model(eng, run["dag_vk"], run["heights"])
     return {"config": config, "prove_s": prove_s, "peak_bytes": max(peaks.values()),
             "peaks_by_span": peaks, "launches": launches, "proof_sha256": sha, "memory_model": model}
 
@@ -1198,7 +1244,7 @@ def prove_synthetic(device, params, degree: int, log_rows: int = LOG_ROWS,
     bad_row = (1 << log_rows) // 3
     bad = trace.copy()
     bad[bad_row, 0] = 1
-    run = prove_and_check(device, params, air, trace, bad, bad_row, on_card, hash_scheme)
+    run = prove_and_check(device, params, [air], [trace], (0, bad, bad_row), on_card, hash_scheme)
     run["size"] = f"2^{log_rows} x {width}"
     return run
 
@@ -1256,7 +1302,7 @@ def prove_keccak(device, log_perms: int = KECCAK_LOG_PERMS, seed: int = SEED, on
     bad_row = trace.shape[0] // 2 + 5
     bad = trace.copy()
     bad[bad_row, Cols.a_prime(2, 3, 17)] ^= 1
-    run = prove_and_check(device, params, air, trace, bad, bad_row, on_card)
+    run = prove_and_check(device, params, [air], [trace], (0, bad, bad_row), on_card)
     sched = get_schedule(run["dag"])
     run["size"] = f"2^{log_perms} permutations, trace 2^{log_height} x {trace.shape[1]}"
     run["extra"] = [
@@ -1265,6 +1311,150 @@ def prove_keccak(device, log_perms: int = KECCAK_LOG_PERMS, seed: int = SEED, on
         f"schedule {len(sched.levels)} levels, {len(sched.leaf_kinds)} live leaves, max_live {sched.max_live}",
     ]
     return run
+
+
+def prove_reth_segment(device, segment_idx: int, max_log_height: int = RETH_MAX_LOG_HEIGHT) -> dict:
+    """One reth segment of the atlas as one multi-AIR proof, every AIR at its
+    atlas height (clamped at ``max_log_height``), random traces from
+    ``segment_fit.seeded_traces`` (the kill column zero), under the
+    synthetic runner's parameters (``segment_fit.runner_params``): keygen
+    and ``audit_vk``, the debug
+    check, the prove on the host transcript and again on
+    ``DeviceTranscript()``, the verifier and the two refusals. The bad
+    trace has a 1 in the kill column at one row of the first AIR with two
+    or more constraints and at least 2^l_skip rows."""
+    import os
+
+    from swirl_torch import metrics
+    from swirl_torch.soundness import audit_vk
+    from swirl_torch.testing.synthetic import SyntheticAir, load_segment_atlas
+    from swirl_torch.tools.segment_fit import runner_params, seeded_traces
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), RETH_ATLAS)
+    seg = next(s for s in load_segment_atlas(path, max_log_height) if s["segment_idx"] == segment_idx)
+    shapes = seg["shapes"]
+    params = runner_params(max_log_height, seg["max_constraint_degree"])
+    airs = [SyntheticAir(shape) for shape in shapes]
+    t0 = time.perf_counter()
+    traces = seeded_traces(airs, SEED)
+    trace_s = time.perf_counter() - t0
+    bad_air = next(i for i, sh in enumerate(shapes)
+                   if sh.num_constraints >= 2 and sh.log_height >= params.l_skip)
+    bad_row = len(traces[bad_air]) // 3
+    bad = traces[bad_air].copy()
+    bad[bad_row, 0] = 1
+    run = prove_and_check(device, params, airs, traces, (bad_air, bad, bad_row), on_card=True, audit=audit_vk)
+    with metrics.run_with_metric_collection() as collector:
+        metrics.trace_metrics([a.name() for a in airs], [a.width for a in airs], [sh.log_height for sh in shapes])
+    gauges = collector.snapshot()
+    cells = int(gauges["main_trace_cells"])
+    leaves = sum(sh.num_interactions << max(sh.log_height, params.l_skip) for sh in shapes)
+    audit = run["audit"]
+    findings = "; ".join(f"{f.severity}: {f.message}" for f in audit.findings) or "none"
+    per_air = ", ".join(f"{k[len('trace_cells.'):]} {int(v)}" for k, v in gauges.items() if k.startswith("trace_cells."))
+    run["size"] = (f"segment {segment_idx}: {len(airs)} AIRs, {cells} main cells, GKR {leaves} leaves "
+                   f"({int(run['counters'].get('gkr_interaction_cells', 0))} padded), heights 2^"
+                   f"{min(sh.log_height for sh in shapes)} to 2^{max(sh.log_height for sh in shapes)}, "
+                   f"degree {seg['max_constraint_degree']}, clamped {seg['clamped']}")
+    run["extra"] = [
+        f"params l_skip {params.l_skip}, n_stack {params.n_stack}, w_stack {params.w_stack}, log_blowup "
+        f"{params.log_blowup}, WHIR queries {[r.num_queries for r in params.whir.rounds]}",
+        f"audit_vk: {audit.achieved_bits:.4f} bits (target {audit.target_bits}), ok {audit.ok}, findings {findings}",
+        f"trace_metrics: main_trace_cells {cells}; trace_cells by AIR {{{per_air}}}",
+        f"bad trace: AIR {bad_air} ({airs[bad_air].name()}), row {bad_row}",
+        f"trace generation {trace_s:.3f} s (host numpy, seed {SEED}, kill column zero)",
+    ]
+    if not audit.ok:
+        raise AssertionError(f"segment {segment_idx}: audit_vk failed: {findings}")
+    return run
+
+
+def check_rs_kernels(device, shape) -> None:
+    """A and B at a reth segment's codeword ``shape`` (w, 2^23), on seeded
+    random inputs: the kernel on the whole input, held bit for bit to the
+    plain version on three slices (A: RETH_SLICE_ROWS rows, B:
+    RETH_SLICE_COLS columns, at the start, the middle and the end); the
+    kernel's ms by CUDA events (mean of 10), the plain ms summed over the
+    slices, the bound."""
+    import torch
+
+    from swirl_torch import kernels as K
+    from swirl_torch.fields.babybear import P
+    from swirl_torch.hash import poseidon2 as p2
+    from swirl_torch.prover import ntt
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    for kernel, fk, fp, work, axis, k in (
+        (K.NTT, ntt.ntt_rows, ntt.ntt_plain, ntt_work, 0, RETH_SLICE_ROWS),
+        (K.HASH_COLS, p2.hash_cols, p2.hash_cols_plain, hash_work, 1, RETH_SLICE_COLS),
+    ):
+        x = torch.randint(0, P, shape, generator=gen, device=device, dtype=torch.int64)
+        got = fk(x)
+        err, plain_ms = 0, 0.0
+        for c in (0, (shape[axis] // 2) // k * k, shape[axis] - k):
+            sl = slice(c, c + k)
+            part = x[sl] if axis == 0 else x[:, sl]
+            want, ms = _timed_ms(lambda: fp(part.contiguous()))
+            err = max(err, _max_abs_err(got[sl] if axis == 0 else got[:, sl], want))
+            plain_ms += ms
+            del want
+        if err != 0:
+            raise AssertionError(f"kernel {kernel.name} at the reth codeword {shape}: max_abs_err {err}")
+        del got
+        ms = _cuda_time_ms(lambda: fk(x), reps=10)
+        bound_ms, bound_by = bound(work(shape))
+        _say(f"kernel {kernel.name} [reth_codeword] shape={shape} equal=True max_abs_err={err} ms={ms:.4f} "
+             f"plain_ms={plain_ms:.4f} (plain on 3 slices of {k} {'rows' if axis == 0 else 'columns'}) "
+             f"bound_ms={bound_ms:.4f} ({bound_by})")
+        del x
+        torch.cuda.empty_cache()
+
+
+def reth_phase(device, memory: list) -> None:
+    """Every segment of RETH_SEGMENTS through :func:`prove_reth_segment`,
+    reported as the other cells are (their kernels A-D on the host
+    transcript, E and F on the device transcript), each prove's peak beside
+    the memory model in ``memory``. A segment with a substitute that runs
+    out of device memory prints its peak by span at the failure, and its
+    substitute is proved in its place (a failure there fails the run).
+    Then A and B at the last segment's codeword shape against their plain
+    versions."""
+    import gc
+
+    import torch
+
+    from swirl_torch import kernels as K
+
+    required = [k.name for k in (K.NTT, K.HASH_COLS, K.COMPRESS, K.TOWER)]
+    codeword = None
+    for idx in RETH_SEGMENTS:
+        t0 = time.perf_counter()
+        failure = None
+        try:
+            run = prove_reth_segment(device, idx)
+        except torch.cuda.OutOfMemoryError as err:
+            if idx not in RETH_SUBSTITUTE:
+                raise
+            failure = (str(err).splitlines()[0], getattr(err, "peaks_by_span", None))
+        if failure is not None:
+            # the failed prove's engine and traces were held by the traceback
+            gc.collect()
+            torch.cuda.empty_cache()
+            message, peaks = failure
+            spans = ", ".join(f"{k} {v}" for k, v in sorted((peaks or {}).items(), key=lambda kv: -kv[1]))
+            _say(f"reth segment {idx}: out of device memory ({message}); peak by span at the failure (B): "
+                 f"{spans or 'not in the prove'}; segment {RETH_SUBSTITUTE[idx]} takes its place")
+            idx = RETH_SUBSTITUTE[idx]
+            run = prove_reth_segment(device, idx)
+        tag = f"reth {idx}"
+        report(tag, run, required)
+        memory.append(report_memory(tag, run))
+        report_memory(f"{tag}, device transcript", run["on_card"])
+        codeword = max(run["shapes"][K.NTT.name], key=math.prod)
+        release(run)
+        _say(f"{tag}: phase {time.perf_counter() - t0:.1f} s (setup, audit, debug, two proves, verify, refusals)")
+    check_rs_kernels(device, codeword)
 
 
 def report(tag: str, run: dict, required) -> None:
@@ -1329,7 +1519,12 @@ def report_memory(tag: str, run: dict) -> dict:
     ratio = model["total"] / run["peak_bytes"]
     _say(f"{tag}: memory model {model['counts']}: {parts}; measured peak {run['peak_bytes']} B, "
          f"estimate / measured {ratio:.4f}")
-    return {"tag": tag, "estimate": model["total"], "measured": run["peak_bytes"], "ratio": ratio}
+    round0 = run["peaks_by_span"].get("zerocheck_round0")
+    if round0 is not None:
+        _say(f"{tag}: zerocheck_round0 span peak {round0} B against the model's batch phase (traces, "
+             f"cached matrices, batch term) {model['batch_phase']} B, ratio {model['batch_phase'] / round0:.4f}")
+    return {"tag": tag, "estimate": model["total"], "measured": run["peak_bytes"], "ratio": ratio,
+            "round0": round0, "batch_phase": model["batch_phase"]}
 
 
 def main() -> int:
@@ -1435,10 +1630,16 @@ def main() -> int:
     memory.append(report_memory("outer root", outer))
     release(outer)
     _say(f"outer root: phase {time.perf_counter() - t0:.1f} s (setup, debug, prove, verify, refusals)")
+    t0 = time.perf_counter()
+    reth_phase(device, memory)
+    _say(f"reth: phase {time.perf_counter() - t0:.1f} s")
     _say(f"total: {time.perf_counter() - start:.1f} s (build included)")
     below = [row["tag"] for row in memory if row["estimate"] < row["measured"]]
     if below:
         raise AssertionError(f"the memory model's estimate is below the measured peak: {below}")
+    below = [row["tag"] for row in memory if row["round0"] is not None and row["batch_phase"] < row["round0"]]
+    if below:
+        raise AssertionError(f"the memory model's batch phase is below the zerocheck_round0 span's peak: {below}")
 
     # launches: the leaf path, the one path that runs A-D and A′; E and F
     # on the app's device-transcript prove; G-J on the outer root prove (G,

@@ -64,6 +64,11 @@ class _RowEvaluator:
         col = mat[index]
         return col if offset == 0 else torch.roll(col, -offset)
 
+    def eval_vars(self, entry, part, offset, indices):
+        mat = self.prep if entry == "preprocessed" else self.parts[part]
+        cols = mat.index_select(0, indices)
+        return cols if offset == 0 else torch.roll(cols, -offset, dims=1)
+
     def eval_sel(self, kind):
         i = {"is_first_row": 0, "is_transition": 1, "is_last_row": 2}[kind]
         return self.sels[i]

@@ -12,12 +12,13 @@ the card (``chip_smoke.py``) showed them:
   (the codeword backs WHIR's query openings), unless the
   :class:`~swirl_torch.prover.backend.ProverConfig` drops them;
 - the batch-constraint phase holds folded EF part matrices (local + rotated)
-  whose size is main_cells * D_EF / 2^l_skip per opening, plus the round-0
+  whose size is main_cells * D_EF / 2^l_skip per opening, or round 0's
   coset-evaluation grid (num_cosets * lifted cells, base field, and the EF
   accumulator); a constraint DAG of at least ``VECTORIZE_THRESHOLD`` nodes
   runs through the level-scheduled interpreter, whose buffer holds
   ``max_live`` values a grid point next to the next level's buffer
-  (``interpreter_values``);
+  (``interpreter_values``). Round 0 runs AIR by AIR, each segmented by its
+  own height, so its term is the largest AIR's (``round0_airs``);
 - the GKR phase holds the full fraction-tree layer stack: 2x the input
   leaves, each leaf a (p, q) EF pair, and the first layer's sub-round
   (the eq table, the split columns, their values at X and the EF
@@ -48,7 +49,7 @@ stage keeps from the one before).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 from .params import SystemParams
 
@@ -74,6 +75,9 @@ class ProvingMemoryCounts:
     # the tallest trace's log height: the save-memory policy segments round
     # 0 only from 2^(l_skip + 13) rows (None: as if it did)
     max_log_height: Optional[int] = None
+    # (lifted main cells, interpreter values, log height) of each AIR with a
+    # trace, for round 0's term; empty: the counts above as one AIR
+    round0_airs: Tuple[Tuple[int, int, Optional[int]], ...] = ()
 
     @property
     def main_cells(self) -> int:
@@ -91,6 +95,9 @@ class ProvingMemoryEstimate:
     whir: int
     secondary_peak: int
     commit: int
+    # what the model holds while the batch phase (round 0 included) runs:
+    # the traces, the cached matrices and the batch term
+    batch_phase: int = 0
 
 
 @dataclass
@@ -157,22 +164,29 @@ class ProvingMemoryConfig:
         folded = (
             counts.main_cells_with_rot * 2 + counts.main_cells_without_rot
         ) * per_cell >> self.l_skip
-        # round-0 coset grid: num_cosets lifted copies in base field (plus
-        # the EF accumulator of the same footprint), and the interpreter's
-        # buffer beside the next level's at every grid point; the
-        # save-memory policy materializes 1/8 of it at a time
-        num_cosets = max(self.max_constraint_degree - 1, 1)
-        round0 = counts.main_cells * num_cosets * (
-            BASE_FIELD_SIZE + EXT_DEGREE * BASE_FIELD_SIZE
-        ) + 2 * counts.interpreter_values * num_cosets * BASE_FIELD_SIZE
+        airs = counts.round0_airs or (
+            (counts.main_cells, counts.interpreter_values, counts.max_log_height),
+        )
+        round0 = max(self.round0_memory_bytes(*air) for air in airs)
+        return max(folded, round0) + ALLOCATOR_ALLOWANCE
+
+    def round0_memory_bytes(self, cells: int, interpreter_values: int, log_height: Optional[int]) -> int:
+        """One AIR's round 0: num_cosets lifted copies of its cells in base
+        field (plus the EF accumulator of the same footprint), and the
+        interpreter's buffer beside the next level's at every grid point;
+        the save-memory policy materializes 1/8 of it at a time for a trace
+        of at least 2^(l_skip + 13) rows (``log_height`` None: as if it
+        were one)."""
         from .prover import logup_zerocheck
 
+        num_cosets = max(self.max_constraint_degree - 1, 1)
+        round0 = cells * num_cosets * (
+            BASE_FIELD_SIZE + EXT_DEGREE * BASE_FIELD_SIZE
+        ) + 2 * interpreter_values * num_cosets * BASE_FIELD_SIZE
         min_log = self.l_skip + logup_zerocheck._SAVE_MEMORY_MIN_CHUNKS_LOG
-        if self.zerocheck_save_memory and (
-            counts.max_log_height is None or counts.max_log_height >= min_log
-        ):
+        if self.zerocheck_save_memory and (log_height is None or log_height >= min_log):
             round0 //= 8
-        return max(folded, round0) + ALLOCATOR_ALLOWANCE
+        return round0
 
     def gkr_memory_bytes(self, interaction_cells: int) -> int:
         if interaction_cells == 0:
@@ -233,6 +247,7 @@ class ProvingMemoryConfig:
             whir=whir,
             secondary_peak=secondary,
             commit=commit,
+            batch_phase=main + stacked + (rs if self.cache_rs_code_matrix else 0) + batch,
         )
 
 
@@ -246,21 +261,27 @@ def counts_for(vk, heights) -> ProvingMemoryCounts:
 
     with_rot = without_rot = interactions = interpreted = 0
     tallest = None
+    round0 = []
     for avk, h in zip(vk.per_air, heights):
         if h is None:
             continue
-        tallest = max(tallest or 0, h.bit_length() - 1)
-        cells = h * avk.params.width.total_width()
+        log_h = h.bit_length() - 1
+        tallest = max(tallest or 0, log_h)
+        width = avk.params.width.total_width()
+        cells = h * width
         if avk.params.need_rot:
             with_rot += cells
         else:
             without_rot += cells
         dag = avk.symbolic_constraints
         interactions += h * len(dag.interactions)
+        lifted = max(h, 1 << vk.params.l_skip)
+        values = 0
         if len(dag.nodes) >= VECTORIZE_THRESHOLD:
-            lifted = max(h, 1 << vk.params.l_skip)
-            interpreted = max(interpreted, get_schedule(dag).max_live * lifted)
-    return ProvingMemoryCounts(with_rot, without_rot, interactions, interpreted, tallest)
+            values = get_schedule(dag).max_live * lifted
+            interpreted = max(interpreted, values)
+        round0.append((lifted * width, values, log_h))
+    return ProvingMemoryCounts(with_rot, without_rot, interactions, interpreted, tallest, tuple(round0))
 
 
 def fits_in_hbm(

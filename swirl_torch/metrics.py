@@ -79,3 +79,117 @@ def gauge(name: str, value: float):
 def counter(name: str, value: int = 1):
     for c in _ACTIVE:
         c.counter(name, value)
+
+
+def trace_metrics(air_names, widths, log_heights):
+    """Per-AIR cell-count metrics (cf. reference ``prover/metrics.rs``)."""
+    total = 0
+    for name, w, lh in zip(air_names, widths, log_heights):
+        cells = w * (1 << lh)
+        total += cells
+        gauge(f"trace_cells.{name}", cells)
+    gauge("main_trace_cells", total)
+
+
+# ---------------------------------------------------------------------------
+# Prometheus export (peer of the reference's `run_with_metric_exporter`,
+# stark-sdk/src/bench/mod.rs:66: push metrics to a pushgateway).
+# ---------------------------------------------------------------------------
+
+
+def prometheus_exposition(snapshot: Dict[str, float], prefix: str = "swirl") -> str:
+    """Render a metric snapshot in the Prometheus text exposition format.
+
+    Metric names are sanitized (dots and dashes to underscores); all values
+    export as gauges, matching the reference's snapshot semantics.
+    """
+    lines = []
+    for name in sorted(snapshot):
+        metric = f"{prefix}_{name}".replace(".", "_").replace("-", "_")
+        lines.append(f"# TYPE {metric} gauge")
+        lines.append(f"{metric} {float(snapshot[name])}")
+    return "\n".join(lines) + "\n"
+
+
+@contextlib.contextmanager
+def run_with_metric_exporter(
+    pushgateway: Optional[str] = None, job: str = "swirl"
+):
+    """Collect metrics and push them to a Prometheus pushgateway on exit.
+
+    ``pushgateway`` defaults to ``$SWIRL_PROMETHEUS_PUSHGATEWAY`` (e.g.
+    ``http://127.0.0.1:9091``); when unset, the context degrades to plain
+    collection. Push failures are reported, never raised — observability
+    must not fail the prove.
+    """
+    import os
+
+    collector = MetricsCollector()
+    _ACTIVE.append(collector)
+    try:
+        yield collector
+    finally:
+        _ACTIVE.remove(collector)
+        target = pushgateway or os.environ.get("SWIRL_PROMETHEUS_PUSHGATEWAY")
+        if target:
+            body = prometheus_exposition(collector.snapshot()).encode()
+            url = f"{target.rstrip('/')}/metrics/job/{job}"
+            try:
+                import urllib.request
+
+                req = urllib.request.Request(url, data=body, method="PUT")
+                urllib.request.urlopen(req, timeout=5).read()
+            except Exception as e:  # pragma: no cover - network dependent
+                import sys
+
+                print(f"swirl_torch.metrics: prometheus push failed: {e}", file=sys.stderr)
+
+
+# ---------------------------------------------------------------------------
+# Live device-memory tracking (peer of the reference MemTracker,
+# cuda-common/src/memory_manager/mod.rs:175: per-phase peak/current device
+# memory gauges) from the CUDA caching allocator's statistics; a CPU device
+# has none and records nothing.
+# ---------------------------------------------------------------------------
+
+
+class MemTracker:
+    """Per-phase device-memory gauges from ``torch.cuda.memory_stats``."""
+
+    def __init__(self, device="cuda"):
+        import torch
+
+        self.device = torch.device(device)
+
+    def stats(self) -> Optional[Dict[str, int]]:
+        """{"bytes_in_use", "peak_bytes_in_use"} of the allocator (bytes
+        allocated now and at the peak since the last reset); None off the
+        card."""
+        import torch
+
+        if self.device.type != "cuda":
+            return None
+        s = torch.cuda.memory_stats(self.device)
+        if not s:
+            return None
+        return {
+            "bytes_in_use": s.get("allocated_bytes.all.current", 0),
+            "peak_bytes_in_use": s.get("allocated_bytes.all.peak"),
+        }
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        """Record current/peak bytes-in-use deltas for a prover phase as
+        ``mem.<name>.{start,end,peak}_bytes`` gauges."""
+        before = self.stats()
+        if before is not None:
+            gauge(f"mem.{name}.start_bytes", before.get("bytes_in_use", 0))
+        try:
+            yield
+        finally:
+            after = self.stats()
+            if after is not None:
+                gauge(f"mem.{name}.end_bytes", after.get("bytes_in_use", 0))
+                peak = after.get("peak_bytes_in_use")
+                if peak is not None:
+                    gauge(f"mem.{name}.peak_bytes", peak)

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..fields import ext as hext
@@ -60,6 +61,11 @@ class DeviceEvaluator:
         pair = self.preprocessed if entry == "preprocessed" else self.parts[part]
         return (pair[0] if offset == 0 else pair[1])[index]
 
+    def eval_vars(self, entry: str, part: int, offset: int, indices):
+        """The columns ``indices`` (a tensor) of one part at one row offset."""
+        pair = self.preprocessed if entry == "preprocessed" else self.parts[part]
+        return (pair[0] if offset == 0 else pair[1]).index_select(0, indices)
+
     def eval_sel(self, kind: str):
         return self.sels[_SELECTORS[kind]]
 
@@ -98,8 +104,10 @@ def eval_nodes(dag: ConstraintsDag, evaluator) -> list:
 
 VECTORIZE_THRESHOLD = 128
 
-# EF4 terms (int64 elements) the weighted constraint sum forms at once
-TERM_CHUNK_ELEMS = 1 << 27
+# EF4 terms (int64 elements) a weighted sum forms at once: a group's values,
+# product and its reduction hold 9/4 x 8 bytes a term element (0.6 GB),
+# near what the interaction sums held a term at a time on a round-0 grid
+TERM_CHUNK_ELEMS = 1 << 25
 
 
 def _eval_nodes_device(dag: ConstraintsDag, ev):
@@ -115,37 +123,35 @@ def _times_ef(ev: DeviceEvaluator, value, weight):
     return F.ext_mul(value, weight) if ev.ext_mode else F.mul(value[..., None], weight)
 
 
-def _weighted_sum_gather(nodes: NodeValues, indices, weights, ev: DeviceEvaluator):
-    """sum_i weights[i] * nodes[indices[i]] by gathers from the
-    interpreter's buffer and sums, in groups of at most TERM_CHUNK_ELEMS
-    term elements (field sums are associative, so the grouping changes no
-    value). weights: (k, 4) EF. -> (*batch, 4)."""
+def _weighted_sum_gather(nodes, indices, weights, ev: DeviceEvaluator):
+    """sum_i weights[i] * nodes[indices[i]] by gathers (from the
+    interpreter's buffer, or stacks of a node list's values) and sums, in
+    groups of at most TERM_CHUNK_ELEMS term elements (field sums are
+    associative, so the grouping changes no value). weights: (k, 4) EF.
+    -> (*batch, 4)."""
     batch = tuple(ev.batch_shape())
     group = max(1, TERM_CHUNK_ELEMS // (4 * torch.Size(batch).numel() or 1))
-    pos = nodes.positions(indices)
-    acc = None
+    if isinstance(nodes, NodeValues):
+        pos = nodes.positions(indices)
+        take = lambda g: nodes.buf.index_select(0, pos[g : g + group])  # noqa: E731
+    else:
+        shape = batch + ((4,) if ev.ext_mode else ())
+        take = lambda g: torch.stack(  # noqa: E731
+            [torch.broadcast_to(nodes[i], shape) for i in indices[g : g + group]])
+    acc = torch.zeros(batch + (4,), dtype=F.DTYPE, device=ev.sels.device)
     for g in range(0, len(indices), group):
-        vals = nodes.buf.index_select(0, pos[g : g + group])
+        vals = take(g)
         w = weights[g : g + len(vals)].reshape((len(vals),) + (1,) * len(batch) + (4,))
-        part = _times_ef(ev, vals, w).sum(0)
-        acc = part if acc is None else acc + part
+        acc = acc + _times_ef(ev, vals, w).sum(0)
     return acc % P
 
 
 def acc_constraints(dag: ConstraintsDag, ev: DeviceEvaluator, lambda_pows):
     """sum_i lambda^i * constraint_i as an EF tensor over the batch: one
-    gather and sum from the interpreter's buffer, or one product and add a
-    constraint for a node list (a small DAG's sum then holds one EF tensor
-    of the batch at a time, not a stack of all its constraints)."""
-    acc = torch.zeros(tuple(ev.batch_shape()) + (4,), dtype=F.DTYPE, device=ev.sels.device)
+    weighted sum of the constraints' node values."""
     if not dag.constraint_idx:
-        return acc
-    nodes = _eval_nodes_device(dag, ev)
-    if isinstance(nodes, NodeValues):
-        return _weighted_sum_gather(nodes, dag.constraint_idx, lambda_pows, ev)
-    for i, idx in enumerate(dag.constraint_idx):
-        acc = F.add(acc, _times_ef(ev, nodes[idx], lambda_pows[i]))
-    return acc
+        return torch.zeros(tuple(ev.batch_shape()) + (4,), dtype=F.DTYPE, device=ev.sels.device)
+    return _weighted_sum_gather(_eval_nodes_device(dag, ev), dag.constraint_idx, lambda_pows, ev)
 
 
 def _h_beta(ev, nodes, it, bus_term, beta_pows):
@@ -157,14 +163,24 @@ def _h_beta(ev, nodes, it, bus_term, beta_pows):
 
 def acc_interactions(dag, ev: DeviceEvaluator, beta_pows, bus_terms, eq_3bs):
     """(numer, denom) EF tensors: numer = sum_s eq3b_s * count_s,
-    denom = sum_s eq3b_s * h_beta_s (denominators exclude the alpha shift)."""
+    denom = sum_s eq3b_s * h_beta_s (denominators exclude the alpha shift).
+    Each is one weighted sum over the interactions' nodes: h_beta_s =
+    bus_s + sum_j beta^j * message_s[j], so denom = sum_s eq3b_s * bus_s
+    + sum_(s, j) (eq3b_s * beta^j) * message_s[j], the same field values
+    in launches that do not grow with the interaction count."""
     nodes = _eval_nodes_device(dag, ev)
-    numer = denom = None
-    for s, it in enumerate(dag.interactions):
-        n_term = _times_ef(ev, nodes[it.count], eq_3bs[s])
-        d_term = F.ext_mul(_h_beta(ev, nodes, it, bus_terms[s], beta_pows), eq_3bs[s])
-        numer = n_term if numer is None else F.add(numer, n_term)
-        denom = d_term if denom is None else F.add(denom, d_term)
+    its = dag.interactions
+    numer = _weighted_sum_gather(nodes, [it.count for it in its], eq_3bs, ev)
+    msg = [m for it in its for m in it.message]
+    terms = F.cached_const(
+        ("interaction message terms", tuple(len(it.message) for it in its)),
+        lambda: np.array([(s, j) for s, it in enumerate(its) for j in range(len(it.message))],
+                         dtype=np.uint64).reshape(-1, 2),
+        ev.sels.device,
+    )
+    weights = F.ext_mul(eq_3bs.index_select(0, terms[:, 0]), beta_pows.index_select(0, terms[:, 1]))
+    bus = F.ext_sum(F.ext_mul(eq_3bs, bus_terms), axis=0)
+    denom = F.add(_weighted_sum_gather(nodes, msg, weights, ev), bus)
     return numer, denom
 
 

@@ -28,6 +28,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..fields.babybear import P
 from ..symbolic import ConstraintsDag
 
 OPS = ("add", "sub", "mul", "neg")
@@ -86,10 +87,54 @@ class DagSchedule:
             self._device[device] = (levels, {})
         return self._device[device][0]
 
+    def leaf_groups(self, device) -> List[Tuple[Tuple, torch.Tensor, object]]:
+        """The leaves grouped as :func:`_leaf_buffer` writes them: (key,
+        their buffer rows, the column indices of a "var" group or None),
+        key ("const",), ("var", entry, part, offset), ("sel", kind) or
+        ("public", entry, part, offset, index) (a public value, one a
+        group), made once per device."""
+        cache = self._cache(device)
+        if "leaf groups" not in cache:
+            rows: Dict[Tuple, List[int]] = {}
+            cols: Dict[Tuple, List[int]] = {}
+            for k, node in enumerate(self.leaf_kinds):
+                if node[0] == "const":
+                    key = ("const",)
+                elif node[0] == "sel":
+                    key = ("sel", node[1])
+                elif node[1] == "public":
+                    key = ("public",) + tuple(node[1:])
+                else:
+                    key = ("var",) + tuple(node[1:4])
+                    cols.setdefault(key, []).append(node[4])
+                rows.setdefault(key, []).append(k)
+
+            def on(xs):
+                return torch.as_tensor(np.array(xs, dtype=np.int64), device=device)
+
+            cache["leaf groups"] = [
+                (key, on(ks), on(cols[key]) if key in cols else None) for key, ks in rows.items()
+            ]
+        return cache["leaf groups"]
+
+    def leaf_consts(self, device, ext_dims: int) -> torch.Tensor:
+        """The constant leaves, canonical: (k,) base values, or (k, 4) EF
+        values with ``ext_dims`` 1."""
+        cache = self._cache(device)
+        if ("leaf consts", ext_dims) not in cache:
+            vals = np.array([node[1] % P for node in self.leaf_kinds if node[0] == "const"], dtype=np.int64)
+            if ext_dims:
+                vals = np.concatenate([vals[:, None], np.zeros((len(vals), 3), dtype=np.int64)], axis=1)
+            cache[("leaf consts", ext_dims)] = torch.as_tensor(vals, device=device)
+        return cache[("leaf consts", ext_dims)]
+
+    def _cache(self, device) -> Dict:
+        self.on(device)
+        return self._device[torch.device(device)][1]
+
     def positions(self, orig_indices: Sequence[int], device) -> torch.Tensor:
         """Final-buffer rows of output nodes, as a tensor cached on ``device``."""
-        self.on(device)
-        cache = self._device[torch.device(device)][1]
+        cache = self._cache(device)
         key = tuple(int(i) for i in orig_indices)
         if key not in cache:
             pos = np.array([self.out_pos[i] for i in key], dtype=np.int64)
@@ -202,23 +247,35 @@ def get_schedule(dag: ConstraintsDag) -> DagSchedule:
 
 
 def _leaf_buffer(sched: DagSchedule, evaluator) -> torch.Tensor:
-    """(num_live_leaves, *batch) stack of the leaves, broadcast to the batch."""
-    leaf_vals = []
-    batch_shape = None
-    for node in sched.leaf_kinds:
-        tag = node[0]
-        if tag == "const":
-            v = evaluator.eval_const(node[1])
-        elif tag == "var":
-            v = evaluator.eval_var(node[1], node[2], node[3], node[4])
-            batch_shape = v.shape
+    """(num_live_leaves, *batch) stack of the leaves, broadcast to the batch:
+    written group by group (the constants from one table, the variables of
+    one trace part and row offset by one gather), so its launches do not
+    grow with the leaf count."""
+    proto = evaluator.eval_const(0)
+    device = proto.device
+    parts = []
+    shape = None
+    for key, pos, cols in sched.leaf_groups(device):
+        if key[0] == "var":
+            v = evaluator.eval_vars(key[1], key[2], key[3], cols)
+            shape = v.shape[1:]
+        elif key[0] == "sel":
+            v = evaluator.eval_sel(key[1])
+            shape = v.shape
+            v = v[None]
+        elif key[0] == "public":
+            v = evaluator.eval_var(*key[1:])[None]
         else:
-            v = evaluator.eval_sel(node[1])
-            batch_shape = v.shape
-        leaf_vals.append(v)
-    if batch_shape is None:
+            v = sched.leaf_consts(device, proto.dim())
+        parts.append((pos, v))
+    if shape is None:
         raise ValueError("vectorized eval needs at least one var/sel leaf")
-    return torch.stack([torch.broadcast_to(v, batch_shape) for v in leaf_vals])
+    buf = torch.empty((len(sched.leaf_kinds),) + tuple(shape), dtype=proto.dtype, device=device)
+    for pos, v in parts:
+        if v.dim() < buf.dim():  # constants and public values: (k,) or (k, 4)
+            v = v.reshape((v.shape[0],) + (1,) * (buf.dim() - v.dim()) + v.shape[1:])
+        buf.index_put_((pos,), v)
+    return buf
 
 
 def eval_dag_vectorized(dag: ConstraintsDag, evaluator) -> "NodeValues":

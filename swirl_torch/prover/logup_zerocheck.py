@@ -195,7 +195,8 @@ def prove_gkr_phase(tr, params: SystemParams, traces: List[TraceProver]):
     xi_parts = []
     if inter_layout.sorted_cols:
         metrics.counter("gkr_interaction_cells", 1 << (l_skip + n_logup))
-        p_dev, q_dev = _gkr_input_pq(traces, inter_layout, l_skip, n_logup, beta_pows, alpha, device)
+        with metrics.span("gkr_input"):
+            p_dev, q_dev = _gkr_input_pq(traces, inter_layout, l_skip, n_logup, beta_pows, alpha, device)
         with metrics.span("fractional_sumcheck"):
             frac = fractional_sumcheck(tr, p_dev, q_dev, assert_zero=True)
         xi_parts.append(frac.xi)
@@ -323,86 +324,89 @@ def prove_batch_phase(
     # ---- univariate round 0 ---------------------------------------------
     sp0_zc: List[Optional[torch.Tensor]] = []  # (sp0_deg_air + 1, 4) coefficients
     sp0_logup: List[Optional[torch.Tensor]] = []  # (2, d_air << l_skip, 4): numerator, denominator
-    g = GENERATOR
-    for t_idx, t in enumerate(traces):
-        eq_tab = eq_table(l_skip, l_skip + t.n_lift)  # (2^n_lift, 4)
-        d_air = t.d_air
-        sels_base = selectors_matrix(t.height, l_skip, device)
+    # a span of its own: round 0's coset grids, AIR by AIR, can set the
+    # stage's peak (chip_smoke.py's peak by span)
+    with metrics.span("zerocheck_round0"):
+        g = GENERATOR
+        for t_idx, t in enumerate(traces):
+            eq_tab = eq_table(l_skip, l_skip + t.n_lift)  # (2^n_lift, 4)
+            d_air = t.d_air
+            sels_base = selectors_matrix(t.height, l_skip, device)
 
-        # a segment's rows: selectors are row-global, so slicing them needs
-        # an unlifted trace, which the height bound guarantees
-        chunked = save_memory and t.height >= 1 << (l_skip + _SAVE_MEMORY_MIN_CHUNKS_LOG)
-        segments = SAVE_MEMORY_SEGMENTS if chunked else 1
-        seg_chunks = (1 << t.n_lift) // segments
+            # a segment's rows: selectors are row-global, so slicing them needs
+            # an unlifted trace, which the height bound guarantees
+            chunked = save_memory and t.height >= 1 << (l_skip + _SAVE_MEMORY_MIN_CHUNKS_LOG)
+            segments = SAVE_MEMORY_SEGMENTS if chunked else 1
+            seg_chunks = (1 << t.n_lift) // segments
 
-        def grid_sums(num_cosets: int, eval_fn):
-            """eq-weighted chunk sums of eval_fn's EF outputs on the coset
-            grids: (cosets << l_skip, 4) tensors (grouped by coset), summed
-            over the row segments (one segment: the whole grid)."""
-            shifts = [pow(g, c + 1, P) for c in range(num_cosets)]
-            rows = seg_chunks << l_skip
-            total = None
-            for ci in range(segments):
+            def grid_sums(num_cosets: int, eval_fn):
+                """eq-weighted chunk sums of eval_fn's EF outputs on the coset
+                grids: (cosets << l_skip, 4) tensors (grouped by coset), summed
+                over the row segments (one segment: the whole grid)."""
+                shifts = [pow(g, c + 1, P) for c in range(num_cosets)]
+                rows = seg_chunks << l_skip
+                total = None
+                for ci in range(segments):
 
-                def grid(m, is_rot):
-                    if segments > 1:
-                        m, is_rot = _row_segment(m, ci * rows, rows, is_rot), False
-                    return coset_eval_chunks(m, l_skip, shifts, is_rot)
+                    def grid(m, is_rot):
+                        if segments > 1:
+                            m, is_rot = _row_segment(m, ci * rows, rows, is_rot), False
+                        return coset_eval_chunks(m, l_skip, shifts, is_rot)
 
-                sels_g = grid(sels_base, False)
-                pairs = [
-                    (grid(m, False), grid(m, True) if t.needs_next else None)
-                    for m in t.base_parts()
-                ]
-                prep_g, main_g = t.split_pairs(pairs)
-                ev = DeviceEvaluator(sels_g, prep_g, main_g, t.public_values, False)
-                eq_seg = eq_tab[ci * seg_chunks : (ci + 1) * seg_chunks, None, :]
-                sums = [F.ext_sum(F.ext_mul(p, eq_seg), axis=0) for p in eval_fn(ev)]
-                # free this segment's grids before the next one is built
-                del sels_g, pairs, prep_g, main_g, ev
-                total = sums if total is None else [F.add(a, b) for a, b in zip(total, sums)]
-            return total
+                    sels_g = grid(sels_base, False)
+                    pairs = [
+                        (grid(m, False), grid(m, True) if t.needs_next else None)
+                        for m in t.base_parts()
+                    ]
+                    prep_g, main_g = t.split_pairs(pairs)
+                    ev = DeviceEvaluator(sels_g, prep_g, main_g, t.public_values, False)
+                    eq_seg = eq_tab[ci * seg_chunks : (ci + 1) * seg_chunks, None, :]
+                    sums = [F.ext_sum(F.ext_mul(p, eq_seg), axis=0) for p in eval_fn(ev)]
+                    # free this segment's grids before the next one is built
+                    del sels_g, pairs, prep_g, main_g, ev
+                    total = sums if total is None else [F.add(a, b) for a, b in zip(total, sums)]
+                return total
 
-        # zerocheck: (d_air - 1) cosets, divide by the zerofier, interpolate
-        num_zc_cosets = d_air - 1
-        sp0_deg_air = sumcheck_round0_deg(l_skip, d_air)
-        if num_zc_cosets == 0:
-            sp0_zc.append(None)
-        else:
-            (sums,) = grid_sums(
-                num_zc_cosets, lambda ev: (acc_constraints(t.dag, ev, lambda_pows),)
-            )
-            zf_inv = F.cached_const(
-                ("zerofier inverses", l_skip, num_zc_cosets),
-                lambda: np.repeat(
-                    batch_inverse(
-                        np.array(
-                            [(pow(g, (c + 1) << l_skip, P) - 1) % P for c in range(num_zc_cosets)],
-                            dtype=np.uint64,
-                        )
+            # zerocheck: (d_air - 1) cosets, divide by the zerofier, interpolate
+            num_zc_cosets = d_air - 1
+            sp0_deg_air = sumcheck_round0_deg(l_skip, d_air)
+            if num_zc_cosets == 0:
+                sp0_zc.append(None)
+            else:
+                (sums,) = grid_sums(
+                    num_zc_cosets, lambda ev: (acc_constraints(t.dag, ev, lambda_pows),)
+                )
+                zf_inv = F.cached_const(
+                    ("zerofier inverses", l_skip, num_zc_cosets),
+                    lambda: np.repeat(
+                        batch_inverse(
+                            np.array(
+                                [(pow(g, (c + 1) << l_skip, P) - 1) % P for c in range(num_zc_cosets)],
+                                dtype=np.uint64,
+                            )
+                        ),
+                        1 << l_skip,
                     ),
-                    1 << l_skip,
-                ),
-                device,
-            )
-            grid = F.mul(sums, zf_inv[:, None]).reshape(num_zc_cosets, 1 << l_skip, 4)
-            q_coeffs = tpoly.from_geometric_cosets_evals(grid.transpose(0, 1), g, g)
-            # -q(X) + X^(2^l_skip) q(X), cut at the round's degree
-            n = sp0_deg_air + 1
-            sp0_zc.append(F.sub(_placed(q_coeffs, 1 << l_skip, n), _placed(q_coeffs, 0, n)))
+                    device,
+                )
+                grid = F.mul(sums, zf_inv[:, None]).reshape(num_zc_cosets, 1 << l_skip, 4)
+                q_coeffs = tpoly.from_geometric_cosets_evals(grid.transpose(0, 1), g, g)
+                # -q(X) + X^(2^l_skip) q(X), cut at the round's degree
+                n = sp0_deg_air + 1
+                sp0_zc.append(F.sub(_placed(q_coeffs, 1 << l_skip, n), _placed(q_coeffs, 0, n)))
 
-        # logup: d_air cosets, interpolate numerator and denominator
-        if not t.dag.interactions:
-            sp0_logup.append(None)
-        else:
-            sums = grid_sums(
-                d_air,
-                lambda ev: acc_interactions(t.dag, ev, beta_pows, bus_terms[t_idx], eq_3b[t_idx]),
-            )
-            grids = torch.stack(sums).reshape(2, d_air, 1 << l_skip, 4).transpose(1, 2)
-            coeffs = tpoly.from_geometric_cosets_evals(grids, g, g)
-            norm = pow(1 << max(0, -t.n), P - 2, P)
-            sp0_logup.append(torch.stack([F.mul(coeffs[0], norm), coeffs[1]]))
+            # logup: d_air cosets, interpolate numerator and denominator
+            if not t.dag.interactions:
+                sp0_logup.append(None)
+            else:
+                sums = grid_sums(
+                    d_air,
+                    lambda ev: acc_interactions(t.dag, ev, beta_pows, bus_terms[t_idx], eq_3b[t_idx]),
+                )
+                grids = torch.stack(sums).reshape(2, d_air, 1 << l_skip, 4).transpose(1, 2)
+                coeffs = tpoly.from_geometric_cosets_evals(grids, g, g)
+                norm = pow(1 << max(0, -t.n), P - 2, P)
+                sp0_logup.append(torch.stack([F.mul(coeffs[0], norm), coeffs[1]]))
 
     # ---- assemble s_0, observe the sum claims ---------------------------
     s_deg = d_global + 1

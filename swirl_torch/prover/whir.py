@@ -64,6 +64,13 @@ def prove_whir_opening(
     num_rounds = whir.num_whir_rounds()
     if not committed:
         raise WhirProverError("prove_whir_opening: no committed data")
+    if not whir.rounds:
+        # the JAX package proves on here, and its own verifier refuses the
+        # proof (WhirShapeMismatch: codeword_commits should have -1 entries)
+        raise WhirProverError(
+            "prove_whir_opening: params.whir.rounds == () (no WHIR round); "
+            "the opening needs at least one round"
+        )
     expected_h = committed[0].layout.height
     for d in committed:
         h = d.layout.height

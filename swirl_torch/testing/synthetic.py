@@ -14,6 +14,7 @@ Shape atlases are plain JSON: {"source": ..., "shapes": [{...}]}.
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass, field
 from typing import List, Optional
 
@@ -36,6 +37,12 @@ class SyntheticShape:
     occurrences: int = 1
 
 
+def load_shape_atlas(path: str) -> List[SyntheticShape]:
+    with open(path) as f:
+        data = json.load(f)
+    return [SyntheticShape(**{k: v for k, v in s.items() if k in SyntheticShape.__dataclass_fields__}) for s in data["shapes"]]
+
+
 def shape_from_record(rec: dict, max_log_height: int = 22) -> SyntheticShape:
     """Per-AIR shape from a reth-atlas record (peer of the reference's
     ``shape_from_record``, ``benchmarks/synthetic/src/bin/synthetic_runner.rs:111``:
@@ -53,6 +60,28 @@ def shape_from_record(rec: dict, max_log_height: int = 22) -> SyntheticShape:
         interaction_message_lens=list(rec["interaction_message_lens"]),
         interaction_count_weights=list(rec["interaction_count_weights"]),
     )
+
+
+def load_segment_atlas(path: str, max_log_height: int = 22) -> List[dict]:
+    """Load a segment atlas (``benchmarks/reth_atlas.py`` output): returns
+    [{"segment_idx": n, "clamped": bool, "shapes": [SyntheticShape...]}]."""
+    with open(path) as f:
+        data = json.load(f)
+    out = []
+    for seg in data["segments"]:
+        shapes = [shape_from_record(r, max_log_height) for r in seg["airs"]]
+        clamped = any(r["log_height"] > max_log_height for r in seg["airs"])
+        out.append(
+            {
+                "segment_idx": seg["segment_idx"],
+                "clamped": clamped,
+                "shapes": shapes,
+                "max_constraint_degree": int(
+                    seg.get("global_max_constraint_degree", 3)
+                ),
+            }
+        )
+    return out
 
 
 class SyntheticAir(Air):

@@ -2,17 +2,21 @@
 card's busy time, kernel launches and host syncs. Run on a machine with the
 card:
 
-    python -m swirl_torch.tools.prove_profile
+    python -m swirl_torch.tools.prove_profile [--workloads app,keccak,reth204,reth13]
 
-It proves two workloads on both transcripts (the host ``Transcript`` and
-the ``DeviceTranscript``), each once to warm up
-(kernel build, tables) and once under ``torch.profiler`` (CPU and CUDA
+It proves each workload (by default app and keccak) on both transcripts
+(the host ``Transcript`` and the ``DeviceTranscript``), each once to warm
+up (kernel build, tables) and once under ``torch.profiler`` (CPU and CUDA
 activity):
 
 - app: the 2^20 x 64 SyntheticAir (degree 3, 16 constraints, 8
   interactions) under ``app_params_with_100_bits_security(22)``;
 - keccak: 2^10 keccak-f permutations (the reference keccakf example's
-  inputs, a 2^15 x 2633 trace) under ``app_params_with_100_bits_security(17)``.
+  inputs, a 2^15 x 2633 trace) under ``app_params_with_100_bits_security(17)``;
+- reth<N>: segment N of ``benchmarks/reth-block-23992138-atlas.json`` at
+  the 2^22 clamp, every AIR in one proof, traces from
+  ``segment_fit.seeded_traces``, under ``segment_fit.runner_params`` (the
+  synthetic runner's parameters).
 
 Each stage span of ``swirl_torch.metrics`` is marked in the trace with
 ``record_function``. For each span the tool prints its host wall ms; the
@@ -153,7 +157,7 @@ def app_workload():
     air = SyntheticAir(uniform_shape(20, 64, num_constraints=16, num_interactions=8, degree=3))
     trace = np.random.default_rng(0).integers(0, P, (1 << 20, air.common_main_width()), dtype=np.uint64)
     trace[:, 0] = 0
-    return app_params_with_100_bits_security(22), air, trace
+    return app_params_with_100_bits_security(22), [air], [trace]
 
 
 def keccak_workload():
@@ -166,7 +170,19 @@ def keccak_workload():
     inputs = np.random.default_rng(0).integers(0, 1 << 63, (1 << 10, 5, 5), dtype=np.uint64)
     trace = air.generate_trace(inputs)
     log_height = trace.shape[0].bit_length() - 1
-    return app_params_with_100_bits_security(max(log_height + 2, 16)), air, trace
+    return app_params_with_100_bits_security(max(log_height + 2, 16)), [air], [trace]
+
+
+def reth_workload(segment_idx: int):
+    import os
+
+    from ..testing.synthetic import SyntheticAir, load_segment_atlas
+    from .segment_fit import ATLAS, runner_params, seeded_traces
+
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    seg = next(s for s in load_segment_atlas(os.path.join(root, ATLAS), 22) if s["segment_idx"] == segment_idx)
+    airs = [SyntheticAir(shape) for shape in seg["shapes"]]
+    return runner_params(22, seg["max_constraint_degree"]), airs, seeded_traces(airs)
 
 
 def profile_prove(tag: str, eng, dpk, ctx, transcript) -> tuple:
@@ -195,14 +211,14 @@ def profile_prove(tag: str, eng, dpk, ctx, transcript) -> tuple:
     return rows, encode_proof(proof)
 
 
-def profile_workload(tag: str, params, air, trace, transcripts) -> None:
+def profile_workload(tag: str, params, airs, traces, transcripts) -> None:
     from ..engine import StarkEngine
     from ..prover.backend import ProvingContext
 
     eng = StarkEngine(params, device="cuda")
-    pk, _ = eng.keygen([air])
+    pk, _ = eng.keygen(airs)
     dpk = eng.transport_pk(pk)
-    ctx = ProvingContext([eng.context_for(0, trace, [], [])])
+    ctx = ProvingContext([eng.context_for(i, trace, [], []) for i, trace in enumerate(traces)])
     tables, proofs = {}, set()
     for kind, make in transcripts:
         tables[kind], data = profile_prove(f"{tag} {kind}", eng, dpk, ctx, make)
@@ -221,7 +237,8 @@ def profile_workload(tag: str, params, air, trace, transcripts) -> None:
                       f"{blocked:.1f} | {grind:.1f} | {launches} | {syncs} | {d2h} | {h2d}", flush=True)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
     import subprocess
 
     import torch
@@ -229,14 +246,21 @@ def main() -> int:
     from ..prover.device_transcript import DeviceTranscript
     from ..transcript import Transcript
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--workloads", default="app,keccak", help="comma-separated: app, keccak, reth<segment>")
+    names = ap.parse_args(argv).workloads.split(",")
     if not torch.cuda.is_available():
         raise SystemExit("prove_profile: no CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
     transcripts = [("host", Transcript), ("device", lambda: DeviceTranscript("cuda"))]
-    for tag, workload in (("app", app_workload), ("keccak", keccak_workload)):
-        profile_workload(tag, *workload(), transcripts)
+    for tag in names:
+        if tag.startswith("reth"):
+            workload = reth_workload(int(tag[len("reth"):]))
+        else:
+            workload = {"app": app_workload, "keccak": keccak_workload}[tag]()
+        profile_workload(tag, *workload, transcripts)
         torch.cuda.empty_cache()
     return 0
 

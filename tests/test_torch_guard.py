@@ -28,14 +28,15 @@ sys.meta_path.insert(0, _BlockJax())
 
 
 # the verifier, the pre-prove checks, the models, the DAG interpreter, the
-# device transcript, the memory model and the BN254 outer scheme's modules
-# (its field among them), which the walk must reach
+# device transcript, the memory model, the soundness calculator and the
+# BN254 outer scheme's modules (its field among them), which the walk must
+# reach
 NEW_MODULES = {f"swirl_torch.verifier.{m}" for m in (
     "errors", "proof_shape", "gkr", "stacked_reduction", "whir", "batch_constraints",
     "transcript_extractor")} | {
     "swirl_torch.verifier", "swirl_torch.debug", "swirl_torch.sanitize", "swirl_torch.testing.pipeline",
     "swirl_torch.models", "swirl_torch.models.keccak", "swirl_torch.prover.dag_vectorized",
-    "swirl_torch.prover.device_transcript", "swirl_torch.memory_metering"} | {
+    "swirl_torch.prover.device_transcript", "swirl_torch.memory_metering", "swirl_torch.soundness"} | {
     f"swirl_torch.hash.{m}" for m in (
         "bn254_constants", "grain", "bn254_rc3", "bn254_poseidon2", "multi_field", "scheme")} | {
     "swirl_torch.fields.bn254"}

@@ -12,6 +12,8 @@ transcripts, with the segment threshold lowered as
 exact equality (proof bytes, integer byte counts).
 """
 
+import dataclasses
+
 import pytest
 
 import jax
@@ -228,6 +230,42 @@ def test_save_memory_divides_round0_only_where_the_prover_segments(log_height, s
     on = _cfg(zerocheck_save_memory=True).batch_constraint_memory_bytes(counts)
     off = _cfg(zerocheck_save_memory=False).batch_constraint_memory_bytes(counts)
     assert (on < off) == segmented
+
+
+def test_round0_is_the_largest_air_segmented_by_its_own_height():
+    """Round 0 runs AIR by AIR, each segmented by its own height: the batch
+    term is the largest AIR's round 0. The sum over AIRs segmented by the
+    tallest trace fell below one unsegmented AIR's grid."""
+    cfg = _cfg(zerocheck_save_memory=True)  # l_skip 2: segments from 2^15 rows
+    tall, wide = (1 << 15) * 4, (1 << 14) * 64  # segmented; not segmented
+    counts = _counts(with_rot=tall + wide, max_log_height=15, round0_airs=((tall, 0, 15), (wide, 0, 14)))
+    per_cell = (cfg.max_constraint_degree - 1) * (mm.BASE_FIELD_SIZE + mm.EXT_DEGREE * mm.BASE_FIELD_SIZE)
+    assert cfg.round0_memory_bytes(tall, 0, 15) == tall * per_cell // 8
+    assert cfg.round0_memory_bytes(wide, 0, 14) == wide * per_cell
+    assert cfg.batch_constraint_memory_bytes(counts) == wide * per_cell + mm.ALLOCATOR_ALLOWANCE
+    assert (tall + wide) * per_cell // 8 < wide * per_cell
+    # with no AIRs listed, the counts are one AIR, as before
+    whole = dataclasses.replace(counts, round0_airs=())
+    folded = (tall + wide) * 2 * mm.EXT_DEGREE * mm.BASE_FIELD_SIZE >> cfg.l_skip
+    assert cfg.batch_constraint_memory_bytes(whole) == (
+        max(folded, (tall + wide) * per_cell // 8) + mm.ALLOCATOR_ALLOWANCE
+    )
+
+
+def test_counts_for_lists_each_air_for_round0():
+    """counts_for lists each AIR's lifted cells, interpreter values and log
+    height; the 8-row AIR is lifted to 2^l_skip rows only where it is
+    shorter. The estimate's batch phase is what round 0's span may hold."""
+    params, airs, ctxs = _mixed_heights_case()
+    eng = StarkEngine(params, device="cpu")
+    _, vk = eng.keygen(airs)
+    counts = mm.counts_for(vk, [64, 8])
+    assert counts.round0_airs == ((64 * 2, 0, 6), (max(8, 1 << params.l_skip) * 4, 0, 3))
+    assert mm.counts_for(vk, [None, 8]).round0_airs == ((max(8, 1 << params.l_skip) * 4, 0, 3),)
+    est = eng.proving_memory_config().estimate(counts)
+    assert est.batch_phase == est.main + est.stacked_matrix + est.rs_code_matrix + est.batch_constraint
+    off = mm.ProvingMemoryConfig.from_params(params, cache_rs_code_matrix=False).estimate(counts)
+    assert off.batch_phase == off.main + off.stacked_matrix + off.batch_constraint
 
 
 def test_counts_for_and_the_engine_config():
