@@ -29,6 +29,29 @@ Phases, each printing its result on lines of its own:
    card (debug check, prove, verify), byte for byte against
    ``tests/golden`` (vk, proof, transcript log), then proved again on a
    ``DeviceTranscript`` (the proof's bytes);
+3b. queue_b: the port's modules beside the prover, each on the card. The
+   monomial constraint engine against the DAG interpreter, bit for bit,
+   with each one's ms (CUDA events, after a warm-up), aten ops (a launch or
+   a view each) and peak: ``KeccakAir``'s constraints on 2^15 random rows in
+   the base field and 2^12 in EF, and reth segment 13's ``KeccakfPermAir``
+   shape (6,365 monomials) on 2^14. The plain sumchecks (multilinear, and
+   prismalinear at l_skip 4) on 2^24 random EF values, verified with fresh
+   transcripts, and a 2^10 prism proof's final claim against the host
+   evaluation. The stacked commit as one CUDA graph at the app's shape (16
+   x 2^22) and Keccak's (659 x 2^17): the replay's codeword and layers
+   against the eager commit's, its root against ``stacked_commit``'s, the
+   first results unchanged by two more commits on other inputs, the
+   capture's seconds, replay, clone and eager ms, and kernels A-D's
+   launches a commit (the counts reset just before the commit and read
+   after: a replay enqueues no wrapper, so the capture's count is the
+   graph's). The generic field zoo: for each of the eight fields, add, sub,
+   mul and inv on 2^20 random elements against Python ints on 257 sampled
+   lanes and a * a^-1 = 1 on every lane, with mul's and inv's ms. The
+   golden cases through ``testing.golden.build_case`` on the card (the
+   files' bytes), verified against a ``TranscriptValidator`` of the recorded
+   log, which a log with one event changed must fail. The stage roofline of
+   the app and leaf cells (``swirl_torch.roofline.report``) is printed
+   after their proves, joined to their spans;
 4. app: keygen, debug check, prove and verify of the 2^20 x 64
    ``SyntheticAir`` cell (degree 3) under
    ``app_params_with_100_bits_security(22)``;
@@ -140,6 +163,8 @@ import sys
 import time
 from contextlib import contextmanager
 
+from swirl_torch.roofline import BOOST_HZ, BUTTERFLY, PERM, SMS, THREADS_PER_SM, bound, plus, times
+
 LOG_ROWS = 20
 WIDTH = 64
 APP_LOG_STACKED = 22
@@ -153,39 +178,12 @@ KECCAK_LOG_PERMS = 10
 KECCAK_STACKED = 659
 GOLDEN_CASES = ("fib", "interactions", "preprocessed", "cached_preprocessed")
 
-# The least time of a kernel's work is the larger of its bytes over the
-# H100's 3.35 TB/s (NVIDIA's data sheet) and its 32-bit integer operations
-# over the rate of the pipes that run them. A Hopper SM issues 64 32-bit
-# integer multiplies or multiply-adds a clock (its FMA pipe) and 64 other
-# 32-bit integer operations a clock (add, subtract, compare, min and max:
-# its ALU pipe), by the arithmetic throughput table of the CUDA C++
-# Programming Guide for compute capability 9.0. The two pipes run side by
-# side and the FMA pipe can also add, so m multiplies and a other
-# operations take at least max(m, (m + a) / 2) clocks of 64 lanes. 132 SMs
-# at the 1.98 GHz boost clock give 64 x 132 x 1.98e9 = 16.7e12 lane
-# operations a second for each pipe. A field operation counts the fewest
-# instructions that sm_90a issues for it (the SASS of
-# swirl_torch/csrc/poseidon2.cu, by swirl_torch/tools/isa.py): a Montgomery
-# product 3 multiplies (the wide a*b, q = lo*P^-1, the high half of q*P)
-# and 2 other operations (hi(a*b) - hi(q*P) + P in one IADD3, then
-# min(r, r - P) in one VIADDMNMX); a product left in (0, 2P) 1 other; an
-# add or a subtract 2 other operations (IADD3, VIADDMNMX); a halving 1
-# multiply-add and 2 others; a product by 2^-k without a Montgomery
-# product 1 multiply-add (hi - 15 * 2^(27-k) * lo) and 3 others.
-HBM_BYTES_PER_S = 3.35e12
-BOOST_HZ = 1.98e9
-SMS, THREADS_PER_SM = 132, 2048  # the H100 SXM's SMs and resident threads an SM
-INT32_LANE_OPS_PER_S = 64 * 132 * BOOST_HZ
-MONT_MUL, ADD = (3, 2), (0, 2)  # (multiplies, other operations)
-SBOX = (12, 7)  # x^7: x^2, x^4 and x^3 * x^4 reduced, x^3 left in (0, 2P)
-HALVE, DIV2K = (1, 2), (1, 3)
-# one Poseidon2-16 permutation: 141 S-boxes (16 in each of 8 full rounds,
-# 1 in each of 13 partial rounds); 1309 adds (9 M_E layers of 72, 128 + 13
-# round constants, 41 in each partial round's tree sum and diagonal); the
-# diagonal's 2 halvings and 7 products by 2^-k in each partial round
-PERM = tuple(141 * s + 1309 * a + 26 * h + 91 * d for s, a, h, d in zip(SBOX, ADD, HALVE, DIV2K))
-# one radix-2 butterfly: a product, an add and a subtract
-BUTTERFLY = (MONT_MUL[0], MONT_MUL[1] + 2 * ADD[1])
+# The least time of a kernel's work, and the per-operation model it counts
+# in (MONT_MUL, ADD, PERM, BUTTERFLY: multiplies and other 32-bit integer
+# operations), are swirl_torch/roofline.py's: the larger of its bytes over
+# the H100's 3.35 TB/s and its operations over the rate of the pipes that
+# run them, max(m, (m + a) / 2) / (64 x 132 x 1.98e9) seconds.
+
 # BN254 (kernels G-J, csrc/bn254.cuh), the same model: an 8-word CIOS
 # product issues 128 32 x 32 -> 64-bit multiply-adds (IMAD.WIDE: a * b_i
 # and m * P) and 8 quotient products m = t_0 * (-P^-1), with about two
@@ -270,20 +268,20 @@ def ntt_work(shape):
     one write per element, N/2 log N butterflies per row."""
     batch, n = shape
     butterflies = batch * (n // 2) * (n.bit_length() - 1)
-    return 2 * batch * n * 8, _times(BUTTERFLY, butterflies)
+    return 2 * batch * n * 8, times(BUTTERFLY, butterflies)
 
 
 def hash_work(shape):
     """hash_cols on (w, H) or (w, H, d): w*d*H words in, 8*H out; one
     permutation per 8 absorbed words of each row."""
     w, h = shape[0] * (shape[2] if len(shape) == 3 else 1), shape[1]
-    return (w + 8) * h * 8, _times(PERM, h * -(-w // 8))
+    return (w + 8) * h * 8, times(PERM, h * -(-w // 8))
 
 
 def compress_work(shape):
     """compress_cols on (16, n): 16n words in, 8n out, n permutations."""
     _, n = shape
-    return 24 * n * 8, _times(PERM, n)
+    return 24 * n * 8, times(PERM, n)
 
 
 def layer_work(shape):
@@ -294,15 +292,7 @@ def layer_work(shape):
 def tower_work(shape):
     """The tower on (8, n): 8n words in, every level out."""
     _, n = shape
-    return (8 * n + 8 * (n - 1)) * 8, _times(PERM, n - 1)
-
-
-def _times(ops, k):
-    return ops[0] * k, ops[1] * k
-
-
-def _plus(*ops):
-    return tuple(sum(x) for x in zip(*ops))
+    return (8 * n + 8 * (n - 1)) * 8, times(PERM, n - 1)
 
 
 def bn_hash_work(shape):
@@ -311,21 +301,13 @@ def bn_hash_work(shape):
     conversion to Monty form for each 8 and one out of it."""
     w, h = shape[0] * (shape[2] if len(shape) == 3 else 1), shape[1]
     perms, packs = -(-w // 16), -(-w // 8)
-    return w * h * 8 + 32 * h, _times(_plus(_times(BN_PERM[3], perms), _times(BN_MONT, packs + 1)), h)
+    return w * h * 8 + 32 * h, times(plus(times(BN_PERM[3], perms), times(BN_MONT, packs + 1)), h)
 
 
 def bn_layer_work(n: int):
     """Kernel H's compress on n digests: n in, n/2 out (32 B each); per
     output a width-2 permutation and three conversions."""
-    return (n + n // 2) * 32, _times(_plus(BN_PERM[2], _times(BN_MONT, 3)), n // 2)
-
-
-def bound(work):
-    """(bound_ms, bound_by) of (bytes, (multiplies, others))."""
-    nbytes, (muls, others) = work
-    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    op_ms = max(muls, (muls + others) / 2) / INT32_LANE_OPS_PER_S * 1e3
-    return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
+    return (n + n // 2) * 32, times(plus(BN_PERM[2], times(BN_MONT, 3)), n // 2)
 
 
 def _cols(x, c, k):
@@ -471,7 +453,7 @@ def check_transcript_kernels(device, perm_floor_ms: float) -> dict:
         plain_ms = _cuda_time_ms(lambda: p2.duplex_plain(st0, absorb, host, a, s, n_squeeze, bits), reps=2)
         ms = _graph_time_ms(lambda: p2.duplex(st, absorb, host, a, s, n_squeeze, bits), reps=10)
         perms = duplex_perms(a, s, k + n_host, n_squeeze)
-        work = ((16 + k) * 8 + (16 + n_squeeze) * 8, _times(PERM, perms))
+        work = ((16 + k) * 8 + (16 + n_squeeze) * 8, times(PERM, perms))
         bound_ms, bound_by = bound(work)
         floor_ms = perms * perm_floor_ms
         per = f" ({1e3 * ms / perms:.2f} us a permutation)" if perms else ""
@@ -500,7 +482,7 @@ def check_transcript_kernels(device, perm_floor_ms: float) -> dict:
 
         plain_ms = _cuda_time_ms(lambda: p2.grind_plain(st0, a, bits), reps=2)
         ms = _graph_time_ms(fk, reps=10)
-        work = (2 * 16 * 8 + 8, _times(PERM, witness + 2))
+        work = (2 * 16 * 8 + 8, times(PERM, witness + 2))
         bound_ms, bound_by = bound(work)
         # the latency floor: the sweeps up to the witness's, each one
         # permutation's dependent chain, then the advance's; a sweep holds at
@@ -613,7 +595,7 @@ def check_bn254_kernels(device) -> dict:
         ms = _cuda_time_ms(fk, reps=10)
         plain_ms = _cuda_time_ms(fp, reps=2)
         ops = BN_MONT if op in ("mont_mul", "from_canonical", "to_canonical") else BN_ADD
-        record(K.BN254_FIELD, op, tuple(a.shape), err, ms, plain_ms, (3 * 32 * a.shape[0], _times(ops, a.shape[0])))
+        record(K.BN254_FIELD, op, tuple(a.shape), err, ms, plain_ms, (3 * 32 * a.shape[0], times(ops, a.shape[0])))
     del a, b
 
     # H: the permutations, then the compress levels
@@ -706,7 +688,7 @@ def check_bn254_kernels(device) -> dict:
                 raise AssertionError(f"{what} against the host loop's {host_w}")
             host = f", host loop {host_w}"
         ms = _cuda_time_ms(lambda: bp.grind(state, cur, 31 * k, bits), reps=10)
-        work = (4 * 32 + 8, _times(_plus(BN_PERM[3], _times(BN_MONT, 2)), w + 1))
+        work = (4 * 32 + 8, times(plus(BN_PERM[3], times(BN_MONT, 2)), w + 1))
         record(K.BN254_GRIND, f"{label}, cursor ({cur}, {k} felts), {bits} bits, witness {w}{host}", (4, 8),
                0, ms, plain_ms, work, " (ms by events, the witness's read included; bound: the candidates "
                "up to the witness)")
@@ -1457,6 +1439,335 @@ def reth_phase(device, memory: list) -> None:
     check_rs_kernels(device, codeword)
 
 
+# the queue_b phase: rows of the monomial-engine cases, the plain sumchecks'
+# size, the generic fields' lanes and sampled lanes
+MONOMIAL_CASES = (("keccak", 15, False), ("keccak", 12, True), ("keccakf_perm", 14, False))
+SUMCHECK_LOG_N, SUMCHECK_L_SKIP = 24, 4
+FIELD_LANES, FIELD_SAMPLES = 1 << 20, 257
+
+
+class AtenOps:
+    """Counts the aten ops dispatched inside the block (on the card, each
+    is a launch or a host-side view)."""
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        outer = self
+
+        class Count(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                outer.n += 1
+                return func(*args, **(kwargs or {}))
+
+        self.n, self._mode = 0, Count()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+
+
+def _monomial_dag(name: str):
+    """KeccakAir's DAG, or the SyntheticAir of segment 13's KeccakfPermAir
+    record in the reth atlas."""
+    from swirl_torch.keygen import _air_widths, run_symbolic
+    from swirl_torch.models.keccak import KeccakAir
+    from swirl_torch.testing.synthetic import SyntheticAir, load_segment_atlas
+
+    if name == "keccak":
+        air = KeccakAir()
+    else:
+        seg = next(s for s in load_segment_atlas(RETH_ATLAS, RETH_MAX_LOG_HEIGHT) if s["segment_idx"] == 13)
+        air = SyntheticAir(next(sh for sh in seg["shapes"] if sh.air_name == "KeccakfPermAir"))
+    return run_symbolic(air, _air_widths(air)).build_dag()
+
+
+def check_monomial(device, name: str, log_rows: int, ext: bool) -> None:
+    """The monomial engine against the interpreter on random rows from
+    ``default_rng(SEED)``: bit for bit, each one's ms, aten ops and peak."""
+    import numpy as np
+    import torch
+
+    from swirl_torch.fields.babybear import P
+    from swirl_torch.prover import dag_eval as de
+    from swirl_torch.prover.monomial import acc_constraints_monomial, expand_monomials
+
+    dag = _monomial_dag(name)
+    t0 = time.perf_counter()
+    expanded = expand_monomials(dag)
+    expand_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    width = 1 + max(n[4] for n in dag.nodes if n[0] == "var" and n[1] == "main")
+    tail = (1 << log_rows, 4) if ext else (1 << log_rows,)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.integers(0, P, shape, dtype=np.int64)).to(device)
+
+    sels, local, lam = rand(3, *tail), rand(width, *tail), rand(len(dag.constraint_idx), 4)
+    ev = de.DeviceEvaluator(sels, None, [(local, torch.roll(local, -1, dims=1))], [], ext)
+    engines = (("interpreter", lambda: de.acc_constraints(dag, ev, lam)),
+               ("monomial", lambda: acc_constraints_monomial(expanded, ev, lam)))
+    out = {}
+    for engine, fn in engines:
+        fn()  # the index tensors, made once per device
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        with AtenOps() as ops:
+            value = fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(device) - base
+        out[engine] = (value, _cuda_time_ms(fn, reps=2), ops.n, peak)
+    if not torch.equal(out["monomial"][0], out["interpreter"][0]):
+        raise AssertionError(f"queue_b monomial {name}: the monomial engine differs from the interpreter")
+    tag = f"queue_b monomial [{name}, 2^{log_rows} rows, {'EF' if ext else 'base'}]"
+    _say(f"{tag}: {len(dag.nodes)} DAG nodes, {len(dag.constraint_idx)} constraints, {len(expanded.leaves)} "
+         f"leaves, {expanded.num_monomials()} monomials, expansion {expand_s:.3f} s; equal to the interpreter")
+    for engine, (_, ms, ops, peak) in out.items():
+        _say(f"{tag}: {engine} ms={ms:.3f} aten_ops={ops} peak={peak} B")
+
+
+def prism_eval(evals, l_skip: int, r):
+    """The prism polynomial of host EF ``evals`` at (r0, r1, ...): each
+    chunk's univariate (its iDFT) at r0 by Horner, then the MLE at the rest."""
+    import numpy as np
+
+    from swirl_torch import poly as hpoly
+
+    chunks = evals.reshape(-1, 1 << l_skip, 4)
+    folded = np.stack([hpoly.horner_eval(hpoly.idft_ef(c), r[0]) for c in chunks])
+    return hpoly.eval_mle_evals_at_point(folded, np.stack(r[1:])) if len(r) > 1 else folded[0]
+
+
+def check_plain_sumcheck(device) -> None:
+    """Both plain sumchecks on 2^24 random EF values on the card, verified
+    with fresh transcripts; a 2^10 prism proof's final claim against the
+    host evaluation."""
+    import numpy as np
+    import torch
+
+    from swirl_torch.fields import ext
+    from swirl_torch.fields import field as F
+    from swirl_torch.fields.babybear import P
+    from swirl_torch.prover import plain_sumcheck as ps
+    from swirl_torch.transcript import Transcript
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    evals = torch.randint(0, P, (1 << SUMCHECK_LOG_N, 4), generator=gen, device=device, dtype=torch.int64)
+    n = SUMCHECK_LOG_N
+    for kind, prove, verify in (
+        ("multilinear", lambda t: ps.sumcheck_multilinear(t, evals),
+         lambda t, pr: ps.verify_sumcheck_multilinear(t, pr, n)),
+        ("prismalinear", lambda t: ps.sumcheck_prismalinear(t, SUMCHECK_L_SKIP, evals),
+         lambda t, pr: ps.verify_sumcheck_prismalinear(t, pr, SUMCHECK_L_SKIP, n - SUMCHECK_L_SKIP)),
+    ):
+        (proof, r), prove_s = _synced_seconds(lambda: prove(Transcript()))
+        r2 = verify(Transcript(), proof)
+        if not all(ext.eeq(a, b) for a, b in zip(r, r2)) or len(r) != len(r2):
+            raise AssertionError(f"queue_b sumcheck {kind}: the verifier's challenges differ")
+        _say(f"queue_b sumcheck {kind} (2^{n} EF values, {evals.numel() * 8} B): prove {prove_s * 1e3:.1f} ms, "
+             f"{len(proof.round_polys_eval)} rounds, verified")
+    host = np.random.default_rng(SEED).integers(0, P, (1 << 10, 4), dtype=np.uint64)
+    proof, r = ps.sumcheck_prismalinear(Transcript(), SUMCHECK_L_SKIP, F.const_arr(host, device))
+    ps.verify_sumcheck_prismalinear(Transcript(), proof, SUMCHECK_L_SKIP, 10 - SUMCHECK_L_SKIP)
+    if not ext.eeq(proof.eval_claim, prism_eval(host, SUMCHECK_L_SKIP, r)):
+        raise AssertionError("queue_b sumcheck: the 2^10 prism proof's final claim is not the polynomial at r")
+    _say("queue_b sumcheck: the 2^10 prism proof's final claim equals the host evaluation")
+
+
+def check_commit_graph(device, tag: str, params, width: int, log_h: int) -> None:
+    """``commit_kernel`` at one shape: the graph replay against the eager
+    commit and ``stacked_commit``'s root, results kept through two more
+    commits, capture s, replay / clone / eager ms, A-D's launches a
+    commit (the counts reset just before, read just after)."""
+    import numpy as np
+    import torch
+
+    from swirl_torch import kernels as K
+    from swirl_torch.fields import field as F
+    from swirl_torch.fields.babybear import P
+    from swirl_torch.prover import commit_kernel as ck
+    from swirl_torch.prover.stacked_pcs import stacked_commit
+
+    ls, lb, kw = params.l_skip, params.log_blowup, params.k_whir
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    x, y, z = (torch.randint(0, P, (width, 1 << log_h), generator=gen, device=device, dtype=torch.int64)
+               for _ in range(3))
+    want = ck.commit_eager(ls, lb, kw, x)
+    K.reset_launch_counts()
+    ck.commit_eager(ls, lb, kw, x)
+    eager_launches = K.launch_counts()
+    K.reset_launch_counts()
+    graph, capture_s = _synced_seconds(lambda: ck.commit_graph(ls, lb, kw, x))
+    captured = K.launch_counts()
+    code, layers = ck.commit_kernel(ls, lb, kw, x)
+    torch.cuda.synchronize()
+    if K.launch_counts() != captured:
+        raise AssertionError(f"queue_b commit [{tag}]: a replay went through a kernel wrapper")
+    path = [k.name for k in (K.NTT, K.HASH_COLS, K.COMPRESS, K.TOWER)]
+    if any(captured[k] == 0 or captured[k] != 2 * eager_launches[k] for k in path):
+        raise AssertionError(f"queue_b commit [{tag}]: warm-up and capture launched {captured}, "
+                             f"an eager commit {eager_launches}")
+
+    def same(got, ref):
+        return torch.equal(got[0], ref[0]) and len(got[1]) == len(ref[1]) and all(
+            torch.equal(a, b) for a, b in zip(got[1], ref[1]))
+
+    if not same((code, layers), want):
+        raise AssertionError(f"queue_b commit [{tag}]: the replay differs from the eager commit")
+    root, data = stacked_commit(ls, log_h - ls, lb, kw, [x])
+    if not np.array_equal(F.to_host(layers[-1][:, 0]), root):
+        raise AssertionError(f"queue_b commit [{tag}]: the root differs from stacked_commit's")
+    del data
+    second = ck.commit_kernel(ls, lb, kw, y)
+    ck.commit_kernel(ls, lb, kw, z)
+    if not same((code, layers), want) or not same(second, ck.commit_eager(ls, lb, kw, y)):
+        raise AssertionError(f"queue_b commit [{tag}]: a later commit changed an earlier one's results")
+    replay_ms = _cuda_time_ms(lambda: graph.replay(x), reps=10)
+    clone_ms = _cuda_time_ms(lambda: (graph.code.clone(), [t.clone() for t in graph.layers]), reps=10)
+    eager_ms = _cuda_time_ms(lambda: ck.commit_eager(ls, lb, kw, x), reps=10)
+    per_commit = {k: eager_launches[k] for k in path}
+    _say(f"queue_b commit [{tag}] ({width} x 2^{log_h}, l_skip {ls}, log_blowup {lb}, k_whir {kw}): replay "
+         f"equal to eager (codeword and {len(layers)} layers), root equal to stacked_commit's, results kept "
+         f"through two more commits; capture {capture_s:.3f} s (its eager warm-up included), "
+         f"replay_ms={replay_ms:.4f} clone_ms={clone_ms:.4f} eager_ms={eager_ms:.4f}, kernel launches a commit "
+         f"{per_commit} (warm-up and capture: {({k: captured[k] for k in path})})")
+    ck.release_graphs()
+
+
+def field_oracle_mul(p: int, reduction, a, b):
+    """Python-int products of (d, n) or (n,) host columns."""
+    if reduction is None:
+        return [int(x) * int(y) % p for x, y in zip(a, b)]
+    d = len(reduction)
+    red = [c % p for c in reduction]
+    out = []
+    for col in range(a.shape[1]):
+        conv = [0] * (2 * d - 1)
+        for i in range(d):
+            for j in range(d):
+                conv[i + j] = (conv[i + j] + int(a[i, col]) * int(b[j, col])) % p
+        for k in range(2 * d - 2, d - 1, -1):
+            for i, c in enumerate(red):
+                conv[k - d + i] = (conv[k - d + i] + conv[k] * c) % p
+        out.append(conv[:d])
+    return out
+
+
+def check_generic_fields(device) -> None:
+    """Each field of the zoo on FIELD_LANES random elements on the card."""
+    import numpy as np
+
+    from swirl_torch.fields import generic as G
+
+    rng = np.random.default_rng(SEED)
+    for name, field in G.FIELDS.items():
+        gl = name in ("goldilocks", "gl3")
+        d = 3 if name == "gl3" else getattr(field, "d", 1)
+        p = G.GL_P if gl else field.base.p if d > 1 else field.p
+        reduction = (1, 1, 0) if name == "gl3" else field.reduction if d > 1 else None
+        shape = (d, FIELD_LANES) if d > 1 else (FIELD_LANES,)
+        a, b = rng.integers(1, p, shape, dtype=np.uint64), rng.integers(0, p, shape, dtype=np.uint64)
+        to_dev = field.to_dev if gl else field.to_monty
+        ta, tb = to_dev(a, device), to_dev(b, device)
+        lanes = np.sort(rng.choice(FIELD_LANES, FIELD_SAMPLES, replace=False))
+        cols = lambda v: v[..., lanes]  # noqa: E731
+        for op in ("add", "sub", "mul"):
+            got = cols(field.to_host(getattr(field, op)(ta, tb)))
+            if op == "mul":
+                want = field_oracle_mul(p, reduction, cols(a), cols(b))
+                got = [list(map(int, g)) for g in got.T] if d > 1 else [int(g) for g in got]
+            else:
+                sign = 1 if op == "add" else -1
+                want = [(int(x) + sign * int(y)) % p for x, y in zip(cols(a).ravel(), cols(b).ravel())]
+                got = [int(g) for g in got.ravel()]
+            if got != want:
+                raise AssertionError(f"queue_b field {name}: {op} differs from the Python-int oracle")
+        inv = field.inv(ta)
+        got = cols(field.to_host(inv))
+        want_one = [[1] + [0] * (d - 1)] * FIELD_SAMPLES if d > 1 else [1] * FIELD_SAMPLES
+        if field_oracle_mul(p, reduction, cols(a), got) != want_one:
+            raise AssertionError(f"queue_b field {name}: inv is not the oracle's inverse")
+        one = field.to_host(field.mul(ta, inv))
+        if not ((one[0] == 1).all() and (one[1:] == 0).all() if d > 1 else (one == 1).all()):
+            raise AssertionError(f"queue_b field {name}: a * a^-1 != 1 on some lane")
+        mul_ms = _cuda_time_ms(lambda: field.mul(ta, tb), reps=10)
+        inv_ms = _cuda_time_ms(lambda: field.inv(ta), reps=1)
+        _say(f"queue_b field {name} (2^{FIELD_LANES.bit_length() - 1} elements of degree {d}): add, sub, mul, "
+             f"inv equal to Python ints on {FIELD_SAMPLES} lanes, a * a^-1 = 1 on all; mul_ms={mul_ms:.4f} "
+             f"inv_ms={inv_ms:.3f}")
+
+
+def check_golden_tools(device) -> None:
+    """The golden cases through ``build_case`` on the card against
+    ``tests/golden``, verified against a validator of the recorded log; a
+    log with one event changed must diverge."""
+    from swirl_torch.engine import StarkEngine
+    from swirl_torch.fields.babybear import P
+    from swirl_torch.testing.golden import build_case, encode_transcript_log, golden_cases, paths_for
+    from swirl_torch.transcript import TranscriptDivergence, TranscriptValidator
+
+    for name in GOLDEN_CASES:
+        vk_bytes, pre_hash, proof_bytes, log, vk, proof = build_case(name, device)
+        paths = paths_for(name)
+        for what, got in (("vk", vk_bytes), ("proof", proof_bytes), ("transcript", encode_transcript_log(log)),
+                          ("prehash", (pre_hash + "\n").encode())):
+            with open(paths[what], "rb") as f:
+                if f.read() != got:
+                    raise AssertionError(f"queue_b golden {name}: build_case's {what} bytes differ")
+        eng = StarkEngine(golden_cases()[name]()[0], device=device)
+        validator = TranscriptValidator(log)
+        eng.verify(vk, proof, transcript=validator)
+        validator.finish()
+        at = len(log) // 2
+        bad = list(log)
+        bad[at] = (bad[at][0], (bad[at][1] + 1) % P)
+        try:
+            eng.verify(vk, proof, transcript=TranscriptValidator(bad))
+        except TranscriptDivergence as err:
+            refusal = str(err)
+        else:
+            raise AssertionError(f"queue_b golden {name}: a tampered log did not diverge")
+        _say(f"queue_b golden {name}: build_case on the card byte-identical to tests/golden; the verifier "
+             f"replays the {len(log)}-event log; a tampered log diverges ({refusal})")
+
+
+def queue_b_phase(device) -> None:
+    import torch
+
+    from swirl_torch.params import app_params_with_100_bits_security
+
+    t0 = time.perf_counter()
+    for name, log_rows, ext in MONOMIAL_CASES:
+        check_monomial(device, name, log_rows, ext)
+        torch.cuda.empty_cache()
+    check_plain_sumcheck(device)
+    torch.cuda.empty_cache()
+    check_commit_graph(device, "app", app_params_with_100_bits_security(APP_LOG_STACKED), 16, APP_LOG_STACKED)
+    torch.cuda.empty_cache()
+    check_commit_graph(device, "keccak", app_params_with_100_bits_security(KECCAK_LOG_PERMS + 7),
+                       KECCAK_STACKED, KECCAK_LOG_PERMS + 7)
+    torch.cuda.empty_cache()
+    check_generic_fields(device)
+    torch.cuda.empty_cache()
+    check_golden_tools(device)
+    torch.cuda.empty_cache()
+    _say(f"queue_b: phase {time.perf_counter() - t0:.1f} s")
+
+
+def report_roofline(tag: str, run: dict, params) -> None:
+    """The stage roofline of a uniform SyntheticAir cell beside its
+    host-transcript prove's spans."""
+    from swirl_torch import roofline
+
+    spans = {k[: -len("_time_ms")]: v for k, v in run["spans_ms"].items()}
+    for stage, entry in roofline.report(params, LOG_ROWS, WIDTH, 8, spans).items():
+        _say(f"queue_b roofline [{tag}] {stage}: {json.dumps(entry)}")
+
+
 def report(tag: str, run: dict, required) -> None:
     _say(f"{tag}: {run['size']}, setup {run['setup_s']:.3f} s, prove {run['prove_s']:.3f} s")
     for line in run.get("extra", []):
@@ -1582,6 +1893,7 @@ def main() -> int:
     check_golden(device)
     counts = K.launch_counts()
     _say(f"golden: kernel launches {counts}")
+    queue_b_phase(device)
     check_outer(device)
 
     # the host-transcript prove launches neither E nor F
@@ -1589,6 +1901,7 @@ def main() -> int:
     memory = []
     app = prove_synthetic(device, app_params_with_100_bits_security(APP_LOG_STACKED), 3, on_card=True)
     report("app", app, app_kernels)
+    report_roofline("app", app, app_params_with_100_bits_security(APP_LOG_STACKED))
     if not app["engine"].backend.config.zerocheck_save_memory:
         raise AssertionError("app: the default ProverConfig does not segment round 0 at log_blowup 1")
     memory.append(report_memory("app (default config: round 0 in 8 segments)", app))
@@ -1601,6 +1914,7 @@ def main() -> int:
     leaf = prove_synthetic(device, leaf_params_with_100_bits_security(LEAF_LOG_STACKED), 4, on_card=True)
     leaf_kernels = [*app_kernels, K.NTT_RECURSIVE.name]
     report("leaf", leaf, leaf_kernels)
+    report_roofline("leaf", leaf, leaf_params_with_100_bits_security(LEAF_LOG_STACKED))
     memory.append(report_memory("leaf", leaf))
     report_memory("leaf, device transcript", leaf["on_card"])
     _say(f"leaf: peak device memory host transcript {leaf['peak_bytes']} B, device transcript "

@@ -1,10 +1,13 @@
-"""Golden parity fixtures: the case builders, schemes, log codec and file
-paths of ``swirl/testing/golden.py``, copied for the port.
+"""Golden parity fixtures: the case builders, schemes, log codec, file
+paths, ``build_case`` and ``regenerate`` of ``swirl/testing/golden.py``,
+copied for the port.
 
 ``tests/golden/`` holds frozen proof bytes, vk bytes and transcript event
 logs of small deterministic proofs made by the JAX package. The port must
-reproduce them byte for byte. Regenerating them is the JAX package's job
-(its ``swirl/testing/golden.py``); this copy only reads them.
+reproduce them byte for byte: ``build_case(name, device)`` proves a case on
+the port's engine on ``device`` (the card unless the caller passes
+``"cpu"``) with a recording transcript, and ``regenerate`` writes the files
+of its cases from it, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -144,6 +147,41 @@ def decode_transcript_log(data: bytes) -> List[Tuple[str, int]]:
     return out
 
 
+def build_case(name: str, device="cuda"):
+    """Prove one golden case on the port's engine on ``device``; returns
+    (vk_bytes, pre_hash_hex, proof_bytes, transcript_log, vk, proof). The
+    recording transcript is the scheme's, made on the engine's device (the
+    outer scheme grinds there)."""
+    from ..codec import encode_proof, encode_vk
+    from ..engine import StarkEngine
+    from ..prover.backend import ProvingContext
+
+    params, airs, ctxs = golden_cases()[name]()
+    eng = StarkEngine(params, hash_scheme=CASE_SCHEME.get(name), device=device)
+    pk, vk = eng.keygen(airs)
+    per_trace = [
+        eng.context_for(i, cm, pvs, cached)
+        for i, (cm, pvs, cached) in enumerate(ctxs)
+    ]
+    ctx = ProvingContext(per_trace)
+    dpk = eng.transport_pk(pk)
+    transcript = eng.scheme.new_transcript(record=True, device=eng.device)
+    proof = eng.prove(dpk, ctx, transcript=transcript)
+    eng.verify(vk, proof)
+    if case_has_codec(name):
+        vk_bytes, proof_bytes = encode_vk(vk), encode_proof(proof)
+    else:
+        vk_bytes, proof_bytes = b"", b""
+    return (
+        vk_bytes,
+        pre_hash_hex(vk.pre_hash),
+        proof_bytes,
+        list(transcript.log),
+        vk,
+        proof,
+    )
+
+
 def paths_for(name: str) -> Dict[str, str]:
     return {
         "vk": os.path.join(GOLDEN_DIR, f"{name}.vk.bin"),
@@ -151,3 +189,25 @@ def paths_for(name: str) -> Dict[str, str]:
         "proof": os.path.join(GOLDEN_DIR, f"{name}.proof.bin"),
         "transcript": os.path.join(GOLDEN_DIR, f"{name}.transcript.txt"),
     }
+
+
+def regenerate(names=None, device="cuda") -> None:
+    """Write the golden files of ``names`` (every case by default) from
+    :func:`build_case` on ``device``."""
+    os.makedirs(GOLDEN_DIR, exist_ok=True)
+    for name in names or golden_cases():
+        vk_bytes, pre_hash, proof_bytes, log, _, _ = build_case(name, device)
+        p = paths_for(name)
+        if case_has_codec(name):
+            with open(p["vk"], "wb") as f:
+                f.write(vk_bytes)
+            with open(p["proof"], "wb") as f:
+                f.write(proof_bytes)
+        with open(p["prehash"], "w") as f:
+            f.write(pre_hash + "\n")
+        with open(p["transcript"], "wb") as f:
+            f.write(encode_transcript_log(log))
+        print(
+            f"golden: {name}: proof {len(proof_bytes)} B, vk {len(vk_bytes)} B, "
+            f"{len(log)} transcript events"
+        )

@@ -149,3 +149,62 @@ class Transcript:
                 return w
             start += n
         raise RuntimeError("failed to find PoW witness")
+
+
+def observe_ext_np(transcript: Transcript, arr: np.ndarray) -> None:
+    """Observe a (..., 4) array of EF values in row-major order."""
+    flat = np.asarray(arr, dtype=np.uint64).reshape(-1, EF_D)
+    for row in flat:
+        transcript.observe_ext(row)
+
+
+class TranscriptValidator(Transcript):
+    """Replays a recorded transcript log, failing on the first divergence.
+
+    Peer of the reference's ``DuplexSpongeValidator``
+    (``transcript/duplex_sponge.rs:196``): record the prover's transcript
+    with ``Transcript(record=True)``, then run the verifier against a
+    validator built from that log — any mismatch in the observe/sample
+    event stream (the classic source of prover/verifier drift) surfaces as
+    a :class:`TranscriptDivergence` at the exact offending event instead of
+    a final proof rejection.
+    """
+
+    __slots__ = ("_expected", "_pos")
+
+    def __init__(self, log):
+        super().__init__()
+        self._expected = list(log)
+        self._pos = 0
+
+    def _next(self, kind: str, value: int):
+        if self._pos >= len(self._expected):
+            raise TranscriptDivergence(
+                f"transcript log exhausted at event {self._pos}: "
+                f"replay produced ({kind}, {value})"
+            )
+        exp_kind, exp_value = self._expected[self._pos]
+        if (exp_kind, exp_value) != (kind, value):
+            raise TranscriptDivergence(
+                f"transcript divergence at event {self._pos}: recorded "
+                f"({exp_kind}, {exp_value}), replay ({kind}, {value})"
+            )
+        self._pos += 1
+
+    def observe(self, value) -> None:
+        v = int(value) % P
+        self._next("observe", v)
+        super().observe(v)
+
+    def sample(self) -> int:
+        v = super().sample()
+        self._next("sample", v)
+        return v
+
+    def finish(self) -> None:
+        """Assert the full log was consumed."""
+        if self._pos != len(self._expected):
+            raise TranscriptDivergence(
+                f"replay consumed {self._pos} of {len(self._expected)} "
+                "recorded transcript events"
+            )

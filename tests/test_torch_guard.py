@@ -28,9 +28,10 @@ sys.meta_path.insert(0, _BlockJax())
 
 
 # the verifier, the pre-prove checks, the models, the DAG interpreter, the
-# device transcript, the memory model, the soundness calculator and the
-# BN254 outer scheme's modules (its field among them), which the walk must
-# reach
+# device transcript, the memory model, the soundness calculator, the BN254
+# outer scheme's modules (its field among them), the monomial engine, the
+# plain sumchecks, the commit graph, the roofline, the generic fields and
+# the host protocol tools, which the walk must reach
 NEW_MODULES = {f"swirl_torch.verifier.{m}" for m in (
     "errors", "proof_shape", "gkr", "stacked_reduction", "whir", "batch_constraints",
     "transcript_extractor")} | {
@@ -39,7 +40,10 @@ NEW_MODULES = {f"swirl_torch.verifier.{m}" for m in (
     "swirl_torch.prover.device_transcript", "swirl_torch.memory_metering", "swirl_torch.soundness"} | {
     f"swirl_torch.hash.{m}" for m in (
         "bn254_constants", "grain", "bn254_rc3", "bn254_poseidon2", "multi_field", "scheme")} | {
-    "swirl_torch.fields.bn254"}
+    "swirl_torch.fields.bn254"} | {
+    "swirl_torch.prover.monomial", "swirl_torch.prover.plain_sumcheck", "swirl_torch.prover.commit_kernel",
+    "swirl_torch.roofline", "swirl_torch.fields.generic", "swirl_torch.lean_extraction",
+    "swirl_torch.transcript", "swirl_torch.testing.golden"}
 
 
 def _is_blocked(module: str) -> bool:

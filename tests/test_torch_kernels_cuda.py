@@ -4,7 +4,9 @@ every four-step strip shape from 2^19 to 2^26 at batch 1 and 3, A′ at
 2^27, sponge widths that are not multiples of 8, extension-field
 codewords hashed in place, digest layers compressed in place at every kind
 of pairing stride, the extreme field values, every tower width, and the
-tower's ticket counter across calls, streams and a CUDA graph), and the
+tower's ticket counter across calls, streams and a CUDA graph), the
+monomial engine against the CPU and the interpreter, the stacked commit's
+captured graph against the eager commit, and the
 device transcript's kernels E (duplex) and F (grind) at ``chip_smoke.py``'s
 cases, F at every absorb cursor, both refusing bad cursors and bit counts,
 the transcript on the card against the CPU and a golden proof on it, the
@@ -304,6 +306,56 @@ def test_dag_interpreter_on_the_card_matches_the_cpu(rand, ext):
     got, want = run("cuda"), run("cpu")
     assert len(got) == len(want) == 4 + 2 * 8
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("ext", [False, True], ids=["base", "ext"])
+def test_monomial_engine_on_the_card_matches_the_cpu(rand, ext):
+    """The monomial engine on CUDA tensors gives the CPU's values and the
+    interpreter's, on the SyntheticAir DAG at 2^10 rows."""
+    from swirl_torch.prover import dag_eval as de
+    from swirl_torch.prover.monomial import acc_constraints_monomial, expand_monomials
+
+    dag = _synthetic_dag()
+    exp = expand_monomials(dag)
+    width = 1 + max(n[4] for n in dag.nodes if n[0] == "var" and n[1] == "main")
+    tail = (1 << 10, 4) if ext else (1 << 10,)
+    sels, local, nxt, lam = rand(3, *tail), rand(width, *tail), rand(width, *tail), rand(32, 4)
+
+    def run(device):
+        ev = de.DeviceEvaluator(sels.to(device), None, [(local.to(device), nxt.to(device))], [], ext)
+        got = acc_constraints_monomial(exp, ev, lam.to(device))
+        assert got.device.type == torch.device(device).type
+        assert torch.equal(got, de.acc_constraints(dag, ev, lam.to(device)))
+        return got.cpu()
+
+    assert torch.equal(run("cuda"), run("cpu"))
+
+
+def test_commit_graph_replay_matches_eager(rand):
+    """The commit replays its captured graph: the codeword and layers equal
+    the eager commit's and the CPU's, a second commit on other data leaves
+    the first one's tensors as they were, and kernels A-D launch only at
+    the warm-up and the capture (a replay enqueues no wrapper)."""
+    from swirl_torch.prover import commit_kernel as ck
+
+    ck.release_graphs()
+    x, y = rand(4, 1 << 12), rand(4, 1 << 12)
+    eager = ck.commit_eager(2, 1, 3, x)
+    K.reset_launch_counts()
+    code, layers = ck.commit_kernel(2, 1, 3, x)
+    per_commit = K.launch_counts()
+    assert all(per_commit[k.name] == 2 * n for k, n in ((K.NTT, 2), (K.HASH_COLS, 1), (K.COMPRESS, 3), (K.TOWER, 1)))
+    assert torch.equal(code, eager[0]) and all(torch.equal(a, b) for a, b in zip(layers, eager[1]))
+    cpu = ck.commit_kernel(2, 1, 3, x.cpu())
+    assert torch.equal(code.cpu(), cpu[0]) and all(torch.equal(a.cpu(), b) for a, b in zip(layers, cpu[1]))
+    first = [code.clone()] + [t.clone() for t in layers]
+    code2, layers2 = ck.commit_kernel(2, 1, 3, y)
+    assert K.launch_counts() == per_commit
+    other = ck.commit_eager(2, 1, 3, y)
+    assert torch.equal(code2, other[0]) and all(torch.equal(a, b) for a, b in zip(layers2, other[1]))
+    assert all(torch.equal(a, b) for a, b in zip([code] + layers, first))
+    assert len(ck._GRAPHS) == 1
+    ck.release_graphs()
 
 
 # ------------------------------------------ the device transcript: E, F ---

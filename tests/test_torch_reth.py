@@ -37,6 +37,8 @@ import swirl_torch.soundness as tsoundness  # noqa: E402
 import swirl_torch.testing.synthetic as tsynth  # noqa: E402
 from swirl_torch.tools.segment_fit import seeded_traces  # noqa: E402
 
+from chip_smoke import AtenOps as _Ops  # noqa: E402
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATLAS = os.path.join(REPO, "benchmarks", "reth-block-23992138-atlas.json")
 GOLDEN = "reth_subset"
@@ -164,28 +166,6 @@ def test_no_whir_round_raises_whir_prover_error():
     ctx = ProvingContext([eng.context_for(0, air.generate_trace(), [], [])])
     with pytest.raises(WhirProverError, match=r"params.whir.rounds == \(\)"):
         eng.prove(eng.transport_pk(pk), ctx)
-
-
-class _Ops:
-    """Counts the aten ops dispatched inside the block (on the card, each
-    is a launch or a host-side view)."""
-
-    def __enter__(self):
-        from torch.utils._python_dispatch import TorchDispatchMode
-
-        outer = self
-
-        class Count(TorchDispatchMode):
-            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-                outer.n += 1
-                return func(*args, **(kwargs or {}))
-
-        self.n, self._mode = 0, Count()
-        self._mode.__enter__()
-        return self
-
-    def __exit__(self, *exc):
-        self._mode.__exit__(*exc)
 
 
 def _synthetic_evaluator(num_constraints: int, num_interactions: int, ext: bool):
