@@ -120,7 +120,26 @@ Phases, each printing its result on lines of its own:
    (the same sha256), the verifier, the two refusals, the AIRs, main cells
    and GKR leaves, the ``trace_metrics`` gauges, launches and host reads,
    the peak by span beside the memory model. Then A and B at the
-   segment's codeword against their plain versions on slices.
+   segment's codeword against their plain versions on slices;
+12. fused: ``prove_fused`` (``swirl_torch/prover/fused.py``) on the app
+   cell in its three modes (eager, jit, segmented) and on the leaf and
+   Keccak cells segmented, each right after the cell's own proves, on its
+   proving key and context: the proof's sha256 must be the cell's
+   device-transcript prove's in every call, one host read a prove (the
+   fetch); the first call's seconds (the eager warm-up, capture and
+   instantiation of the graph modes), the mean of 3 replays, the peaks
+   beside the device-transcript prove's, the aten ops the capture records
+   and the kernel launches while capturing (a replay enqueues no wrapper).
+   The app's jit warm-up (its eager bodies, after the eager mode made
+   every table) runs under ``torch.cuda.set_sync_debug_mode("error")``; its
+   segmented graphs replay a second trace of the shape (its own
+   device-transcript bytes, the first proof unchanged); the
+   ``interactions`` golden case, captured, refuses the unbalanced receiver
+   trace on replay at the fetch; the ``cached_preprocessed`` golden case,
+   captured, then its context freed and the blocks refilled, replays a
+   fresh context of the same cached trace to the golden bytes. Each cell's
+   graphs are released after it. The phase prints its seconds, the Keccak
+   phase's apart.
 
 Phase 2 also holds the BN254 kernels to their plain versions: G on every
 operation over 2^20 random and the edge operands; H's permutations at
@@ -1758,6 +1777,270 @@ def queue_b_phase(device) -> None:
     _say(f"queue_b: phase {time.perf_counter() - t0:.1f} s")
 
 
+# the fused phase: each cell's modes of prove_fused (the graph modes after
+# eager, segmented last: the second trace replays it), the replays timed a
+# graph mode, and the seed of the app's second trace
+FUSED_MODES = {"app": ("eager", "jit", "segmented"), "leaf": ("segmented",), "keccak": ("segmented",)}
+FUSED_REPLAYS = 3
+FUSED_SECOND_SEED = SEED + 1
+
+
+@contextmanager
+def capture_counts(stats: dict, warm_ops: bool, sync_check: bool):
+    """Counts, into ``stats``, the hand-kernel launches of the fused
+    prover's capture and, with ``warm_ops``, the aten ops of its eager
+    warm-up (the op sequence the capture records; the warm-up's seconds
+    then include the count). With ``sync_check`` the warm-up runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: no op of the bodies may
+    wait for the card (the tables exist since the cell's eager mode)."""
+    import torch
+
+    from swirl_torch import kernels as K
+    from swirl_torch.prover import fused
+
+    warm, record = fused._warm_up, fused._record
+
+    def counted_warm(*args, **kwargs):
+        if sync_check:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            with AtenOps() as ops:
+                out = warm(*args, **kwargs)
+        except RuntimeError as err:
+            if sync_check:
+                raise AssertionError(f"fused: a body synchronizes: {err}") from err
+            raise
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        stats["aten_ops"] = ops.n
+        return out
+
+    def counted_record(*args, **kwargs):
+        before = K.launch_counts()
+        out = record(*args, **kwargs)
+        after = K.launch_counts()
+        stats["captured_launches"] = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        return out
+
+    fused._record = counted_record
+    if warm_ops:
+        fused._warm_up = counted_warm
+    try:
+        yield stats
+    finally:
+        fused._warm_up, fused._record = warm, record
+
+
+def fused_sha256(proof) -> str:
+    from swirl_torch.codec import encode_proof
+
+    return hashlib.sha256(encode_proof(proof)).hexdigest()
+
+
+def fused_mode(tag: str, run: dict, mode: str, required, smi: str, stats: dict):
+    """One mode of ``prove_fused`` on a cell's proving key and context: the
+    first call (the eager prove; or the eager warm-up, capture and
+    instantiation), then ``FUSED_REPLAYS`` replays of a graph mode, each
+    proof's sha256 held to the cell's device-transcript prove, one host
+    read each, peaks beside the device transcript's. The launch counters
+    are reset just before the first call and read after it (a replay
+    enqueues no wrapper). The aten ops are counted in the cell's first
+    graph mode's warm-up, which runs under the sync check when the eager
+    mode ran before it. Returns the first call's proof."""
+    import torch
+
+    from swirl_torch import kernels as K
+    from swirl_torch.prover import fused
+    from swirl_torch.testing.host_reads import HostReads
+
+    eng, dpk, ctx = run["engine"], run["dpk"], run["ctx"]
+    want, d_peak = run["on_card"]["proof_sha256"], run["on_card"]["peak_bytes"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    warm_ops = "aten_ops" not in stats and mode != "eager"
+    sync_check = warm_ops and stats.get("eager_ran", False)
+    K.reset_launch_counts()
+    with HostReads() as host, capture_counts(stats, warm_ops, sync_check):
+        proof, first_s = _synced_seconds(lambda: fused.prove_fused(eng.backend, dpk, ctx, mode))
+    launches = K.launch_counts()
+    first_peak = torch.cuda.max_memory_allocated()
+    reads = [host.reads["total"]]
+    if fused_sha256(proof) != want:
+        raise AssertionError(f"fused {tag} [{mode}]: the first proof differs from the device-transcript prove's")
+    missing = [k for k in required if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"fused {tag} [{mode}]: the path never launched {missing}")
+    entry = fused.fused_graphs(dpk, fused.graph_key(eng.backend, ctx.sorted_for_stacking(), mode))
+    if (entry is None) != (mode == "eager"):
+        raise AssertionError(f"fused {tag} [{mode}]: the cache does not hold what the mode captures")
+    if entry is None:
+        stats["eager_ran"] = True
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(FUSED_REPLAYS if entry is not None else 0):
+        with HostReads() as host:
+            again, secs = _synced_seconds(lambda: fused.prove_fused(eng.backend, dpk, ctx, mode))
+        times.append(secs)
+        reads.append(host.reads["total"])
+        if fused_sha256(again) != want:
+            raise AssertionError(f"fused {tag} [{mode}]: a replay's proof differs")
+    if entry is not None and K.launch_counts() != launches:
+        raise AssertionError(f"fused {tag} [{mode}]: a replay went through a kernel wrapper")
+    if reads != [1] * len(reads):
+        raise AssertionError(f"fused {tag} [{mode}]: host reads a prove {reads}, not 1")
+    replay_peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.memory_reserved()
+    if entry is None:
+        _say(f"fused {tag} [eager]: sha256 {want[:16]} (the device-transcript prove's); prove {first_s:.3f} s "
+             f"(device-transcript prove {run['on_card']['prove_s']:.3f} s); host reads 1; peak {first_peak} B "
+             f"(device-transcript prove {d_peak} B); launches {launches} [{smi}]")
+        return proof
+    st = entry.stats
+    mean = sum(times) / len(times)
+    counted = " (the aten op count on)" if warm_ops else ""
+    _say(f"fused {tag} [{mode}]: sha256 {want[:16]} (the device-transcript prove's) in every call; first call "
+         f"{first_s:.3f} s (eager warm-up {st['warm_up_s']:.3f} s{counted}, capture {st['capture_s']:.3f} s, "
+         f"instantiation {st['instantiate_s']:.3f} s; {st['graphs']} graphs); mean of {FUSED_REPLAYS} replays "
+         f"{mean:.3f} s ({', '.join(f'{t:.3f}' for t in times)}; device-transcript prove "
+         f"{run['on_card']['prove_s']:.3f} s); host reads a prove 1; peak first call {first_peak} B, replays "
+         f"{replay_peak} B, reserved {reserved} B (device-transcript prove {d_peak} B) [{smi}]")
+    if sync_check:
+        _say(f"fused {tag} [{mode}]: the warm-up's five bodies ran under set_sync_debug_mode('error') without a sync")
+    source = "this mode's warm-up" if warm_ops else "the cell's first graph mode's warm-up"
+    _say(f"fused {tag} [{mode}]: aten ops {stats['aten_ops']} (counted in {source}: the sequence the capture "
+         f"records), hand-kernel launches recorded while capturing {stats['captured_launches']}; launches of the "
+         f"first call {launches}")
+    return proof
+
+
+def fused_second_trace(run: dict, first, smi: str) -> None:
+    """A replay of the app's segmented graphs on a second trace of the same
+    shape (seed ``FUSED_SECOND_SEED``): that trace's device-transcript bytes,
+    the same cache entry, and ``first``, the first trace's proof by those
+    graphs, unchanged."""
+    import torch
+
+    from swirl_torch.fields.babybear import P
+    from swirl_torch.prover import fused
+    from swirl_torch.prover.backend import ProvingContext
+    from swirl_torch.prover.device_transcript import DeviceTranscript
+
+    eng, dpk, ctx = run["engine"], run["dpk"], run["ctx"]
+    common = ctx.per_trace[0][1].common_main
+    gen = torch.Generator(device=common.device)
+    gen.manual_seed(FUSED_SECOND_SEED)
+    trace = torch.randint(0, P, tuple(common.shape), generator=gen, device=common.device, dtype=torch.int64)
+    trace[0] = 0  # the kill column
+    other = ProvingContext([eng.context_for(0, trace)])
+    want = fused_sha256(eng.prove(dpk, other, DeviceTranscript(eng.device)))
+    entries = {k: id(v) for k, v in dpk._fused_cache.items()}
+    got, secs = _synced_seconds(lambda: fused.prove_fused(eng.backend, dpk, other, "segmented"))
+    if fused_sha256(got) != want or want == run["on_card"]["proof_sha256"]:
+        raise AssertionError("fused app: the replay on a second trace did not give its own bytes")
+    if {k: id(v) for k, v in dpk._fused_cache.items()} != entries:
+        raise AssertionError("fused app: the second trace was captured again, not replayed")
+    if fused_sha256(first) != run["on_card"]["proof_sha256"]:
+        raise AssertionError("fused app: the replay on a second trace changed the first proof")
+    _say(f"fused app [segmented]: second trace (seed {FUSED_SECOND_SEED}) replayed in {secs:.3f} s, sha256 "
+         f"{want[:16]} (its device-transcript prove's); the first proof unchanged [{smi}]")
+
+
+def fused_refusal(device) -> None:
+    """The ``interactions`` golden case captured (segmented), then replayed
+    on the unbalanced receiver of ``tests/test_torch_prove.py``: the GKR
+    zero check, deferred to the fetch, refuses the replayed sum."""
+    import numpy as np
+
+    from swirl_torch.engine import StarkEngine
+    from swirl_torch.prover import fused
+    from swirl_torch.prover.backend import ProvingContext
+    from swirl_torch.testing.fixtures import DummyInteractionAir
+    from swirl_torch.testing.golden import golden_cases, paths_for
+
+    params, airs, ctxs = golden_cases()["interactions"]()
+    eng = StarkEngine(params, device=device)
+    pk, _ = eng.keygen(airs)
+    dpk = eng.transport_pk(pk)
+    ctx = ProvingContext([eng.context_for(i, *c) for i, c in enumerate(ctxs)])
+    with open(paths_for("interactions")["proof"], "rb") as f:
+        if fused_sha256(fused.prove_fused(eng.backend, dpk, ctx, "segmented")) != hashlib.sha256(f.read()).hexdigest():
+            raise AssertionError("fused interactions: the captured proof is not the golden one")
+    recv = np.array(ctxs[1][0], dtype=np.uint64)
+    recv[0, 1] = 8  # (7, 9) -> (8, 9): no sender matches
+    bad = ProvingContext([ctx.per_trace[0], eng.context_for(1, DummyInteractionAir.make_trace(recv.tolist()))])
+    entries = {k: id(v) for k, v in dpk._fused_cache.items()}
+    try:
+        fused.prove_fused(eng.backend, dpk, bad, "segmented")
+    except ValueError as err:
+        refusal = str(err)
+    else:
+        raise AssertionError("fused interactions: a non-zero LogUp sum was not refused on replay")
+    if "fractional sum is non-zero" not in refusal or {k: id(v) for k, v in dpk._fused_cache.items()} != entries:
+        raise AssertionError(f"fused interactions: refused otherwise ({refusal}) or captured again")
+    fused.release_fused(dpk)
+    _say(f"fused interactions [segmented]: golden bytes captured; the unbalanced trace refused on replay at the "
+         f"fetch: {refusal}")
+
+
+def fused_cached(device) -> None:
+    """The ``cached_preprocessed`` golden case captured (segmented); its
+    context freed and the freed blocks filled with other values; a fresh
+    ``context_for`` of the same cached trace hits the entry and replays to
+    the golden bytes: the graphs read their own copies of the cached
+    mains."""
+    import torch
+
+    from swirl_torch.engine import StarkEngine
+    from swirl_torch.prover import fused
+    from swirl_torch.prover.backend import ProvingContext
+    from swirl_torch.testing.golden import golden_cases, paths_for
+
+    params, airs, ctxs = golden_cases()["cached_preprocessed"]()
+    eng = StarkEngine(params, device=device)
+    pk, _ = eng.keygen(airs)
+    dpk = eng.transport_pk(pk)
+    with open(paths_for("cached_preprocessed")["proof"], "rb") as f:
+        want = hashlib.sha256(f.read()).hexdigest()
+    ctx = ProvingContext([eng.context_for(i, *c) for i, c in enumerate(ctxs)])
+    if fused_sha256(fused.prove_fused(eng.backend, dpk, ctx, "segmented")) != want:
+        raise AssertionError("fused cached_preprocessed: the captured proof is not the golden one")
+    entries = {k: id(v) for k, v in dpk._fused_cache.items()}
+    freed = fused.cached_tensors([tc.cached_mains for _, tc in ctx.per_trace])
+    shapes = [(t.shape, t.dtype) for t in freed + [tc.common_main for _, tc in ctx.per_trace]]
+    del ctx, freed
+    junk = [torch.full(shape, 12345, dtype=dtype, device=device) for shape, dtype in shapes]
+    fresh = ProvingContext([eng.context_for(i, *c) for i, c in enumerate(ctxs)])
+    got = fused_sha256(fused.prove_fused(eng.backend, dpk, fresh, "segmented"))
+    if got != want or {k: id(v) for k, v in dpk._fused_cache.items()} != entries:
+        raise AssertionError("fused cached_preprocessed: the replay on a fresh context of the cached trace did not "
+                             "give the golden bytes from the same entry")
+    fused.release_fused(dpk)
+    _say(f"fused cached_preprocessed [segmented]: golden bytes captured; the context freed and {len(junk)} blocks "
+         f"refilled; a fresh context of the same cached trace replayed to the golden bytes")
+
+
+def fused_cell(tag: str, run: dict, required, smi: str) -> float:
+    """The fused phase's share of a cell: its modes (the graphs of one
+    released before the next), and for the app the second trace and the
+    refusal; ``release_fused`` after. Returns seconds."""
+    import torch
+
+    from swirl_torch.prover import fused
+
+    t0 = time.perf_counter()
+    stats = {}
+    for mode in FUSED_MODES[tag]:
+        proof = fused_mode(tag, run, mode, required, smi, stats)
+        if mode != FUSED_MODES[tag][-1]:
+            fused.release_fused(run["dpk"])
+    if tag == "app":
+        fused_second_trace(run, proof, smi)
+        fused_refusal(run["engine"].device)
+        fused_cached(run["engine"].device)
+    fused.release_fused(run["dpk"])
+    torch.cuda.empty_cache()
+    return time.perf_counter() - t0
+
+
 def report_roofline(tag: str, run: dict, params) -> None:
     """The stage roofline of a uniform SyntheticAir cell beside its
     host-transcript prove's spans."""
@@ -1910,6 +2193,8 @@ def main() -> int:
     _say(f"app, zerocheck_save_memory=False: prove {full['prove_s']:.3f} s, peak {full['peak_bytes']} B "
          f"(segmented {app['peak_bytes']} B), proof sha256 {full['proof_sha256'][:16]} (the default's)")
     memory.append(report_memory("app, zerocheck_save_memory=False", full))
+    fused_path = [*app_kernels, K.DUPLEX.name, K.GRIND.name]
+    fused_s = fused_cell("app", app, fused_path, smi)
     release(app)
     leaf = prove_synthetic(device, leaf_params_with_100_bits_security(LEAF_LOG_STACKED), 4, on_card=True)
     leaf_kernels = [*app_kernels, K.NTT_RECURSIVE.name]
@@ -1927,6 +2212,7 @@ def main() -> int:
     if ntt_launches[1] <= ntt_launches[0]:
         raise AssertionError("leaf, both caches off: the recompute launched no more NTTs than the cached prove")
     memory.append(report_memory("leaf, both caches off", lean))
+    fused_s += fused_cell("leaf", leaf, [*fused_path, K.NTT_RECURSIVE.name], smi)
     release(leaf)
     t0 = time.perf_counter()
     check_kernels(device, perm_floor_ms, keccak=True)
@@ -1934,9 +2220,12 @@ def main() -> int:
     report("keccak", keccak, app_kernels)
     memory.append(report_memory("keccak", keccak))
     report_memory("keccak, device transcript", keccak["on_card"])
+    keccak_s = time.perf_counter() - t0
+    fused_s += fused_cell("keccak", keccak, fused_path, smi)
+    _say(f"fused: phase {fused_s:.1f} s (app in three modes, leaf and Keccak segmented)")
     release(keccak)
-    _say(f"keccak: phase {time.perf_counter() - t0:.1f} s (kernel cases, trace, setup, debug, prove, "
-         f"verify, refusals)")
+    _say(f"keccak: phase {keccak_s:.1f} s (kernel cases, trace, setup, debug, prove, verify, refusals; the "
+         f"fused cell apart)")
     t0 = time.perf_counter()
     outer = prove_outer_root(device)
     outer_kernels = [k.name for k in (K.NTT, K.BN254_MERKLE, K.BN254_LEAVES, K.BN254_GRIND)]

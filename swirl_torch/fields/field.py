@@ -109,20 +109,36 @@ def to_host(x) -> np.ndarray:
 ext_to_host = to_host
 
 
+def pack(values):
+    """(flat, layout) of a list of tensors and host values: the tensors'
+    elements in one flat tensor on their device (None without a tensor),
+    and each value's place in it, a shape, or the host value itself."""
+    tensors = [v for v in values if isinstance(v, torch.Tensor)]
+    flat = torch.cat([t.reshape(-1) for t in tensors]) if tensors else None
+    layout = [(True, tuple(v.shape)) if isinstance(v, torch.Tensor) else (False, v) for v in values]
+    return flat, layout
+
+
+def unpack(layout, flat) -> list:
+    """The values of :func:`pack`'s ``layout``, the tensors' read from the
+    host copy ``flat`` of its flat tensor (canonical numpy arrays)."""
+    out, off = [], 0
+    for is_tensor, v in layout:
+        if is_tensor:
+            n = int(np.prod(v, dtype=np.int64))
+            out.append(flat[off : off + n].reshape(v))
+            off += n
+        else:
+            out.append(v)
+    return out
+
+
 def to_host_all(values) -> list:
     """Canonical numpy arrays of a list of tensors in ONE device-to-host
     copy (host values pass through as they are): the proof's values that a
     stage kept on the device until its end."""
-    tensors = [v for v in values if isinstance(v, torch.Tensor)]
-    flat = to_host(torch.cat([t.reshape(-1) for t in tensors])) if tensors else None
-    out, off = [], 0
-    for v in values:
-        if isinstance(v, torch.Tensor):
-            out.append(flat[off : off + v.numel()].reshape(tuple(v.shape)))
-            off += v.numel()
-        else:
-            out.append(v)
-    return out
+    flat, layout = pack(values)
+    return unpack(layout, None if flat is None else to_host(flat))
 
 
 def ext_one(device):

@@ -194,7 +194,6 @@ class Coordinator:
         device = self.backend.device
         transcript.observe_commit(mpk.vk_pre_hash)
 
-        num_airs = len(mpk.per_air)
         common_traces = [tc.common_main for _, tc in ctx.per_trace]
         sanitize.check_traces(common_traces, "common_main")
         with metrics.span("prover.main_trace_commit"):
@@ -203,30 +202,8 @@ class Coordinator:
         if common_data.matrix is not None:
             sanitize.check_canonical(common_data.matrix, "stacked_matrix")
 
-        trace_vdata: List[Optional[TraceVData]] = [None] * num_airs
-        public_values: List[List[int]] = [[] for _ in range(num_airs)]
-        for air_id, tc in ctx.per_trace:
-            trace_vdata[air_id] = TraceVData(
-                log_height=tc.height.bit_length() - 1,
-                cached_commitments=[cd.commitment for cd in tc.cached_mains],
-            )
-            public_values[air_id] = list(tc.public_values)
-
-        transcript.observe_commit(common_commit)
-        for air_id in range(num_airs):
-            pk = mpk.per_air[air_id]
-            vdata = trace_vdata[air_id]
-            if not pk.vk.is_required:
-                transcript.observe(1 if vdata is not None else 0)
-            if vdata is not None:
-                if pk.preprocessed_data is not None:
-                    transcript.observe_commit(pk.preprocessed_data.commitment)
-                else:
-                    transcript.observe(vdata.log_height)
-                for c in vdata.cached_commitments:
-                    transcript.observe_commit(c)
-            for pv in public_values[air_id]:
-                transcript.observe(pv)
+        trace_vdata, public_values = proof_metadata(mpk, ctx)
+        observe_preamble(transcript, mpk, common_commit, trace_vdata, public_values)
         return common_commit, common_data, trace_vdata, public_values
 
     def prove(self, mpk: DeviceMultiStarkProvingKey, unsorted_ctx: ProvingContext) -> Proof:
@@ -262,23 +239,11 @@ class Coordinator:
             )
 
         # stage: openings (stacked reduction + WHIR)
-        stacked_per_commit: List[StackedPcsData] = [common_data]
-        need_rot_per_commit: List[List[bool]] = [
-            [mpk.per_air[air_id].vk.params.need_rot for air_id, _ in ctx.per_trace]
-        ]
-        for air_id, tc in ctx.per_trace:
-            pk = mpk.per_air[air_id]
-            need_rot = pk.vk.params.need_rot
-            if pk.preprocessed_data is not None:
-                stacked_per_commit.append(pk.preprocessed_data.data)
-                need_rot_per_commit.append([need_rot])
-            for cd in tc.cached_mains:
-                stacked_per_commit.append(cd.data)
-                need_rot_per_commit.append([need_rot])
+        datas, need_rot_per_commit = stacked_per_commit(mpk, ctx, common_data)
 
         with metrics.span("prove_stacked_reduction"):
             stacking_proof, u = prove_stacked_opening_reduction(
-                tr, params, stacked_per_commit, need_rot_per_commit, r
+                tr, params, datas, need_rot_per_commit, r
             )
 
         # u_cube: the prism coordinate u0 replaced by its l_skip squarings
@@ -286,7 +251,7 @@ class Coordinator:
 
         with metrics.span("prove_whir"):
             whir_proof = prove_whir_opening(
-                tr, params, stacked_per_commit, u_cube, tree_builder=self.backend.tree_builder
+                tr, params, datas, u_cube, tree_builder=self.backend.tree_builder
             )
 
         return Proof(
@@ -298,6 +263,59 @@ class Coordinator:
             stacking_proof=stacking_proof,
             whir_proof=whir_proof,
         )
+
+
+def proof_metadata(mpk: DeviceMultiStarkProvingKey, ctx: ProvingContext):
+    """(trace_vdata, public_values) of the proof, one entry an AIR (None and
+    [] for an AIR without a trace in ``ctx``)."""
+    num_airs = len(mpk.per_air)
+    trace_vdata: List[Optional[TraceVData]] = [None] * num_airs
+    public_values: List[List[int]] = [[] for _ in range(num_airs)]
+    for air_id, tc in ctx.per_trace:
+        trace_vdata[air_id] = TraceVData(
+            log_height=tc.height.bit_length() - 1,
+            cached_commitments=[cd.commitment for cd in tc.cached_mains],
+        )
+        public_values[air_id] = list(tc.public_values)
+    return trace_vdata, public_values
+
+
+def observe_preamble(transcript, mpk: DeviceMultiStarkProvingKey, common_commit, trace_vdata, public_values) -> None:
+    """The transcript's events after ``vk_pre_hash`` and the commit: the
+    common root (a host or a device digest), then per AIR its presence
+    (when not required), its preprocessed root or log height, its cached
+    roots and its public values."""
+    transcript.observe_commit(common_commit)
+    for air_id, pk in enumerate(mpk.per_air):
+        vdata = trace_vdata[air_id]
+        if not pk.vk.is_required:
+            transcript.observe(1 if vdata is not None else 0)
+        if vdata is not None:
+            if pk.preprocessed_data is not None:
+                transcript.observe_commit(pk.preprocessed_data.commitment)
+            else:
+                transcript.observe(vdata.log_height)
+            for c in vdata.cached_commitments:
+                transcript.observe_commit(c)
+        for pv in public_values[air_id]:
+            transcript.observe(pv)
+
+
+def stacked_per_commit(mpk: DeviceMultiStarkProvingKey, ctx: ProvingContext, common_data: StackedPcsData):
+    """The openings' commitments in proof order, the common one first, then
+    each trace's preprocessed and cached ones, and their need_rot flags."""
+    datas: List[StackedPcsData] = [common_data]
+    need_rot: List[List[bool]] = [[mpk.per_air[air_id].vk.params.need_rot for air_id, _ in ctx.per_trace]]
+    for air_id, tc in ctx.per_trace:
+        pk = mpk.per_air[air_id]
+        rot = pk.vk.params.need_rot
+        if pk.preprocessed_data is not None:
+            datas.append(pk.preprocessed_data.data)
+            need_rot.append([rot])
+        for cd in tc.cached_mains:
+            datas.append(cd.data)
+            need_rot.append([rot])
+    return datas, need_rot
 
 
 def trace_provers(mpk: DeviceMultiStarkProvingKey, ctx: ProvingContext) -> List[TraceProver]:

@@ -103,6 +103,23 @@ class DeviceTranscript:
         self.absorb_idx, self.sample_idx = t.absorb_idx, t.sample_idx
         self._pieces, self._host = [], []
 
+    def save(self):
+        """(state, absorb_idx, sample_idx) with every buffered felt
+        absorbed: what one segment of the fused prover hands the next
+        (``swirl/prover/fused.py:523-530``, ``save_cursor``)."""
+        self._flush()
+        return self.state, self.absorb_idx, self.sample_idx
+
+    @classmethod
+    def restore(cls, state, absorb_idx: int, sample_idx: int) -> "DeviceTranscript":
+        """A transcript that goes on from :meth:`save`'s result, on the same
+        state tensor (``restore_transcript``)."""
+        t = cls.__new__(cls)
+        t.device, t.state = state.device, state
+        t.absorb_idx, t.sample_idx = absorb_idx, sample_idx
+        t._pieces, t._host = [], []
+        return t
+
     def to_host(self) -> Transcript:
         """A host transcript at this one's state (one read of 16 words)."""
         self._flush()

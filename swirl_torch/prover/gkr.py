@@ -13,8 +13,9 @@ the layer claims. On a :class:`~.device_transcript.DeviceTranscript` (the
 device path, ``gkr.py:531-680``) a sub-round is one sponge launch between
 its evaluation and its fold, and the stage reads the host twice: the
 root's zero check, and one copy of every round polynomial, claim and the
-challenge point at the end. On a host transcript each observe reads its
-value first.
+challenge point at the end. :func:`fractional_sumcheck_deferred` leaves
+both to its caller: the fused prover reads them with the whole proof. On a
+host transcript each observe reads its value first.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import torch
 from ..fields import ext as hext
 from ..proof import GkrLayerClaims
 from ..fields import field as F
+from .deferred import Deferred
 from .device_transcript import device_view
 from .sumcheck import eq_hypercube, fold_mle, interp_mle_at_int
 
@@ -74,9 +76,24 @@ def fractional_sumcheck(
 ) -> FracSumcheckResult:
     """p_evals, q_evals: (2^t, 4) EF tensors, or None when there are no
     interactions. ``transcript``: a host :class:`Transcript` or a
-    :class:`~.device_transcript.DeviceTranscript` on their device."""
+    :class:`~.device_transcript.DeviceTranscript` on their device. Reads the
+    root's numerator for the zero check first, then the proof values once."""
+    pending, xi = fractional_sumcheck_deferred(transcript, p_evals, q_evals, assert_zero, check_now=True)
+    result = pending.fetch()
+    result.xi = xi
+    return result
+
+
+def fractional_sumcheck_deferred(
+    transcript, p_evals, q_evals, assert_zero: bool = True, check_now: bool = False
+) -> Tuple[Deferred, Optional[torch.Tensor]]:
+    """The sumcheck with its proof values left on the device: (a
+    :class:`~.deferred.Deferred` of the result without ``xi``, xi). With
+    ``assert_zero`` the root's numerator is not observed but checked: read
+    at once with ``check_now``, else in the build, after the fetch (the
+    fused prover's one copy)."""
     if p_evals is None:
-        return FracSumcheckResult((hext.ezero(), hext.eone()), [], [], None)
+        return Deferred([], lambda host: FracSumcheckResult((hext.ezero(), hext.eone()), [], [], None)), None
     total_rounds = int(p_evals.shape[0]).bit_length() - 1
     assert p_evals.shape[0] == 1 << total_rounds
     device = p_evals.device
@@ -91,9 +108,10 @@ def fractional_sumcheck(
     # copy that a host transcript read to observe it
     root_p, root_q = (x[0] for x in layers[0])
     if assert_zero:
-        root_p = F.to_host(root_p)
-        if root_p.any():
-            raise ValueError("LogUp fractional sum is non-zero")
+        if check_now:
+            root_p = F.to_host(root_p)
+            if root_p.any():
+                raise ValueError("LogUp fractional sum is non-zero")
     else:
         root_p = tr.observe_ext(root_p)
     root_q = tr.observe_ext(root_q)
@@ -118,15 +136,22 @@ def fractional_sumcheck(
         claims.append(tr.observe_slice(torch.stack([c[0] for c in cols[1:]])))
         xi = torch.cat([tr.sample_ext()[None], torch.stack(rho)])
 
-    root_p, root_q, *rest = F.to_host_all([root_p, root_q, *claims, *polys])
-    claims_h, polys_h = rest[: len(claims)], rest[len(claims) :]
-    sumcheck_polys, off = [], 0
-    for rnd in range(1, total_rounds):
-        sumcheck_polys.append([list(e) for e in polys_h[off : off + rnd]])
-        off += rnd
-    return FracSumcheckResult(
-        fractional_sum=(root_p, root_q),
-        claims_per_layer=[_claims(c) for c in claims_h],
-        sumcheck_polys=sumcheck_polys,
-        xi=xi,
-    )
+    n_claims = len(claims)
+
+    def build(host):
+        root_p, root_q, *rest = host
+        if assert_zero and np.asarray(root_p).any():
+            raise ValueError("LogUp fractional sum is non-zero")
+        claims_h, polys_h = rest[:n_claims], rest[n_claims:]
+        sumcheck_polys, off = [], 0
+        for rnd in range(1, total_rounds):
+            sumcheck_polys.append([list(e) for e in polys_h[off : off + rnd]])
+            off += rnd
+        return FracSumcheckResult(
+            fractional_sum=(np.asarray(root_p), root_q),
+            claims_per_layer=[_claims(c) for c in claims_h],
+            sumcheck_polys=sumcheck_polys,
+            xi=None,
+        )
+
+    return Deferred([root_p, root_q, *claims, *polys], build), xi

@@ -9,8 +9,9 @@ assembly (:mod:`swirl_torch.tpoly`), batched over traces. One code path
 serves both transcripts (:func:`~.device_transcript.device_view`): on a
 :class:`~.device_transcript.DeviceTranscript` a round reads nothing back,
 and the stage reads the host three times (GKR's root check and copy, the
-batch phase's one copy at its end); on a host transcript each observe reads
-its value first.
+batch phase's one copy at its end); the fused prover
+(``prover/fused.py``) leaves all three to its one copy of the proof. On a
+host transcript each observe reads its value first.
 With ``save_memory`` (``ProverConfig.zerocheck_save_memory``) round 0's
 coset grids of a tall trace are built and summed in 8 segments of rows
 (``chunked_sums``, :787-880), which bounds the live grid to 1/8; the sums,
@@ -20,7 +21,7 @@ and so the proof bytes, are the same.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,9 +35,10 @@ from .errors import LogupZerocheckError
 from ..symbolic import ConstraintsDag
 
 from ..fields import field as F
+from .deferred import Deferred
 from .dag_eval import DeviceEvaluator, acc_constraints, acc_interactions, interactions_pq
 from .device_transcript import device_view
-from .gkr import fractional_sumcheck
+from .gkr import fractional_sumcheck_deferred
 from .stacked_pcs import StackedLayout
 from .sumcheck import (
     coset_eval_chunks,
@@ -176,13 +178,15 @@ def _bus_terms(beta_pows, t: TraceProver):
     return F.mul(beta_pows.index_select(0, idx), bus[:, None])
 
 
-def prove_gkr_phase(tr, params: SystemParams, traces: List[TraceProver]):
+def prove_gkr_phase(tr, params: SystemParams, traces: List[TraceProver], defer: bool = False):
     """LogUp grind, GKR input evaluation, fractional sumcheck and the xi
     extension sampling on the transcript view ``tr``
-    (:func:`~.device_transcript.device_view`). Returns (gkr_proof, xi, beta):
-    xi an (n, 4) and beta a (4,) tensor on the traces' device; the proof's
-    ``logup_pow_witness`` is what the grind returned (a 0-d tensor on the
-    device transcript, read with the batch phase's copy)."""
+    (:func:`~.device_transcript.device_view`). Returns (a
+    :class:`~.deferred.Deferred` of the GKR proof, xi, beta): xi an (n, 4)
+    and beta a (4,) tensor on the traces' device. The fractional sumcheck's
+    values are read at its end (its zero check first), the grind's witness
+    with the batch phase's copy; with ``defer`` all of them stay on the
+    device, the zero check and the witness check in the build."""
     l_skip = params.l_skip
     n_max, n_logup, inter_layout, max_msg_len = _phase_common(params, traces)
     device = traces[0].common.device
@@ -198,21 +202,31 @@ def prove_gkr_phase(tr, params: SystemParams, traces: List[TraceProver]):
         with metrics.span("gkr_input"):
             p_dev, q_dev = _gkr_input_pq(traces, inter_layout, l_skip, n_logup, beta_pows, alpha, device)
         with metrics.span("fractional_sumcheck"):
-            frac = fractional_sumcheck(tr, p_dev, q_dev, assert_zero=True)
-        xi_parts.append(frac.xi)
+            frac, frac_xi = fractional_sumcheck_deferred(tr, p_dev, q_dev, assert_zero=True, check_now=not defer)
+            if not defer:
+                frac = frac.fetched()
+        xi_parts.append(frac_xi)
     else:
-        frac = fractional_sumcheck(tr, None, None)
+        frac, _ = fractional_sumcheck_deferred(tr, None, None)
     have = sum(int(x.shape[0]) for x in xi_parts)
     xi_parts += [tr.sample_ext()[None] for _ in range(l_skip + max(n_max, n_logup) - have)]
     xi = torch.cat(xi_parts) if xi_parts else torch.zeros((0, 4), dtype=F.DTYPE, device=device)
 
-    gkr_proof = GkrProof(
-        logup_pow_witness=logup_pow_witness,
-        q0_claim=frac.fractional_sum[1],
-        claims_per_layer=frac.claims_per_layer,
-        sumcheck_polys=frac.sumcheck_polys,
-    )
-    return gkr_proof, xi, beta
+    frac_build = frac.build
+
+    def build(host):
+        witness, *rest = host
+        if int(witness) >= P:  # kernel F's -1: no witness below P
+            raise LogupZerocheckError("failed to find the LogUp PoW witness")
+        result = frac_build(rest)
+        return GkrProof(
+            logup_pow_witness=int(witness),
+            q0_claim=result.fractional_sum[1],
+            claims_per_layer=result.claims_per_layer,
+            sumcheck_polys=result.sumcheck_polys,
+        )
+
+    return Deferred([logup_pow_witness, *frac.values], build), xi, beta
 
 
 def _gkr_input_pq(traces, inter_layout, l_skip, n_logup, beta_pows, alpha, device):
@@ -293,16 +307,15 @@ def prove_batch_phase(
     traces: List[TraceProver],
     xi: torch.Tensor,
     beta: torch.Tensor,
-    carry: Sequence = (),
     save_memory: bool = False,
 ):
     """The batched zerocheck + LogUp sumcheck (univariate-skip round 0 and
     the multilinear rounds) and the column openings, on the transcript view
     ``tr``; xi (n, 4) and beta (4,) on the traces' device. Every value stays
-    on the device until one copy at the end, which also reads the ``carry``
-    values of the stage before. ``save_memory``: round 0's grids of a
-    trace of at least 2^(l_skip + 13) rows in 8 segments. Returns (proof, r
-    as an (n_max + 1, 4) tensor, the carry values on the host)."""
+    on the device: the caller fetches them. ``save_memory``: round 0's grids
+    of a trace of at least 2^(l_skip + 13) rows in 8 segments. Returns (a
+    :class:`~.deferred.Deferred` of the proof, r as an (n_max + 1, 4)
+    tensor)."""
     l_skip = params.l_skip
     num_traces = len(traces)
     n_max, n_logup, inter_layout, max_msg_len = _phase_common(params, traces)
@@ -575,25 +588,30 @@ def prove_batch_phase(
     ]
     opened = tr.observe_slice(torch.cat([parts_per_trace[t_idx][i] for t_idx, i in slots]))
 
-    host = F.to_host_all([*carry, claims, univariate, *round_polys, opened])
-    carry_h, (claims_h, univ_h, *rest) = host[: len(carry)], host[len(carry) :]
-    polys_h, opened_h = rest[:-1], rest[-1]
-    column_openings = [[None] * len(parts) for parts in parts_per_trace]
-    off = 0
-    for t_idx, i in slots:
-        n = parts_per_trace[t_idx][i].shape[0]
-        rows = opened_h[off : off + n]
-        off += n
-        column_openings[t_idx][i] = list(rows if traces[t_idx].needs_next else rows[0::2])
+    # the build keeps host data only: what it needs of the traces and parts
+    n_rounds = len(round_polys)
+    slot_rows = [(t_idx, int(parts_per_trace[t_idx][i].shape[0]), traces[t_idx].needs_next) for t_idx, i in slots]
+    slot_ids = list(slots)
+    n_parts = [len(parts) for parts in parts_per_trace]
 
-    batch_proof = BatchConstraintProof(
-        numerator_term_per_air=[claims_h[t][0] for t in range(num_traces)],
-        denominator_term_per_air=[claims_h[t][1] for t in range(num_traces)],
-        univariate_round_coeffs=[univ_h[j] for j in range(s0_deg + 1)],
-        sumcheck_round_polys=[[e[i] for i in range(s_deg)] for e in polys_h],
-        column_openings=column_openings,
-    )
-    return batch_proof, torch.stack(r), carry_h
+    def build(host):
+        claims_h, univ_h, *rest = host
+        polys_h, opened_h = rest[:n_rounds], rest[n_rounds]
+        column_openings = [[None] * n for n in n_parts]
+        off = 0
+        for (t_idx, i), (_, n, needs_next) in zip(slot_ids, slot_rows):
+            rows = opened_h[off : off + n]
+            off += n
+            column_openings[t_idx][i] = list(rows if needs_next else rows[0::2])
+        return BatchConstraintProof(
+            numerator_term_per_air=[claims_h[t][0] for t in range(num_traces)],
+            denominator_term_per_air=[claims_h[t][1] for t in range(num_traces)],
+            univariate_round_coeffs=[univ_h[j] for j in range(s0_deg + 1)],
+            sumcheck_round_polys=[[e[i] for i in range(s_deg)] for e in polys_h],
+            column_openings=column_openings,
+        )
+
+    return Deferred([claims, univariate, *round_polys, opened], build), torch.stack(r)
 
 
 def _all_pairs(t: TraceProver):
@@ -613,12 +631,8 @@ def prove_zerocheck_and_logup(
     grids in segments). Returns the proofs and r, an (n_max + 1, 4) tensor
     on the traces' device."""
     tr = device_view(transcript, traces[0].common.device)
-    gkr_proof, xi, beta = prove_gkr_phase(tr, params, traces)
-    batch_proof, r, (witness,) = prove_batch_phase(
-        tr, params, global_degree, traces, xi, beta, carry=[gkr_proof.logup_pow_witness],
-        save_memory=save_memory,
-    )
-    if int(witness) >= P:  # kernel F's -1: no witness below P
-        raise LogupZerocheckError("failed to find the LogUp PoW witness")
-    gkr_proof.logup_pow_witness = int(witness)
+    gkr, xi, beta = prove_gkr_phase(tr, params, traces)
+    batch, r = prove_batch_phase(tr, params, global_degree, traces, xi, beta, save_memory=save_memory)
+    # one copy: the batch phase's values and the LogUp witness
+    gkr_proof, batch_proof = Deferred.join([gkr, batch]).fetch()
     return gkr_proof, batch_proof, r

@@ -12,8 +12,9 @@ tilde regime's per-view factors (one batched op per group of views of one
 height). One code path serves both transcripts
 (:func:`~.device_transcript.device_view`): on a
 :class:`~.device_transcript.DeviceTranscript` the stage reads the host once,
-the proof's copy at its end; on a host transcript each observe reads its
-value first.
+the proof's copy at its end (:func:`stacked_opening_reduction_deferred`
+leaves it to the fused prover's one copy); on a host transcript each
+observe reads its value first.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from ..proof import StackingProof
 from .errors import StackedReductionError
 
 from ..fields import field as F
+from .deferred import Deferred
 from .device_transcript import device_view
 from .stacked_pcs import StackedPcsData, StackedSlice
 from .sumcheck import coset_eval_chunks, eq_hypercube, fold_mle, fold_ple, interp_mle_at_int
@@ -75,8 +77,23 @@ def prove_stacked_opening_reduction(
 ) -> Tuple[StackingProof, torch.Tensor]:
     """``transcript``: a host :class:`~swirl_torch.transcript.Transcript` or a
     :class:`~.device_transcript.DeviceTranscript` on the data's device; r:
-    the RAP stage's (n, 4) point there. Returns the proof and u as an
-    (n_stack + 1, 4) tensor on the data's device."""
+    the RAP stage's (n, 4) point there. Returns the proof (its values read
+    in one copy) and u as an (n_stack + 1, 4) tensor on the data's device."""
+    pending, u = stacked_opening_reduction_deferred(
+        transcript, params, stacked_per_commit, need_rot_per_commit, r
+    )
+    return pending.fetch(), u
+
+
+def stacked_opening_reduction_deferred(
+    transcript,
+    params: SystemParams,
+    stacked_per_commit: List[StackedPcsData],
+    need_rot_per_commit: List[List[bool]],
+    r: torch.Tensor,
+) -> Tuple[Deferred, torch.Tensor]:
+    """The reduction with its proof values left on the device: (a
+    :class:`~.deferred.Deferred` of the proof, u)."""
     l_skip = params.l_skip
     n_stack = params.n_stack
     omega_skip = two_adic_generator(l_skip)
@@ -265,15 +282,18 @@ def prove_stacked_opening_reduction(
                 eq_ub_g[s] = emul(eq_ub_g.get(s, one), torch.where(b, u_rnd, F.sub(one, u_rnd)))
 
     opened = tr.observe_slice(torch.cat([q[:, 0] for q in q_evals]))  # (sum of widths, 4)
-    s0_h, opened_h, *polys_h = F.to_host_all([s0_coeffs, opened, *sumcheck_round_polys])
-    stacking_openings, off = [], 0
-    for q in q_evals:
-        stacking_openings.append(list(opened_h[off : off + q.shape[0]]))
-        off += q.shape[0]
+    widths = [int(q.shape[0]) for q in q_evals]
 
-    proof = StackingProof(
-        univariate_round_coeffs=list(s0_h),
-        sumcheck_round_polys=[[p[0], p[1]] for p in polys_h],
-        stacking_openings=stacking_openings,
-    )
-    return proof, torch.stack(u)
+    def build(host):
+        s0_h, opened_h, *polys_h = host
+        stacking_openings, off = [], 0
+        for w in widths:
+            stacking_openings.append(list(opened_h[off : off + w]))
+            off += w
+        return StackingProof(
+            univariate_round_coeffs=list(s0_h),
+            sumcheck_round_polys=[[p[0], p[1]] for p in polys_h],
+            stacking_openings=stacking_openings,
+        )
+
+    return Deferred([s0_coeffs, opened, *sumcheck_round_polys], build), torch.stack(u)

@@ -8,7 +8,8 @@ Merkle tree over EF leaves), takes an out-of-domain value, grinds, opens
 the queries and adds the gamma terms to the weight polynomial.
 
 Every value stays on the device, and the proof is assembled from one copy
-at the end (``whir.py:737-745``). On a
+at the end (``whir.py:737-745``; :func:`whir_opening_deferred` leaves it to
+the fused prover's one copy of the proof). On a
 :class:`~.device_transcript.DeviceTranscript` nothing is read back before
 that copy: a fold round is a sponge launch for its evaluations, the
 folding grind (kernel F), a launch for alpha and the two folds; the query
@@ -28,6 +29,7 @@ from ..proof import WhirProof
 from .errors import WhirProverError
 
 from ..fields import field as F
+from .deferred import Deferred
 from .device_transcript import device_view
 from .merkle import build_merkle_tree, get_opened_rows_batch
 from .ntt import mobius_transform, ntt, zeta_transform
@@ -51,7 +53,19 @@ def prove_whir_opening(
     u,
     tree_builder=None,
 ) -> WhirProof:
-    """``transcript``: a host :class:`~swirl_torch.transcript.Transcript` or
+    """:func:`whir_opening_deferred`, its values read in one copy."""
+    return whir_opening_deferred(transcript, params, committed, u, tree_builder).fetch()
+
+
+def whir_opening_deferred(
+    transcript,
+    params: SystemParams,
+    committed: Sequence[StackedPcsData],
+    u,
+    tree_builder=None,
+) -> Deferred:
+    """The opening with its proof values left on the device: a
+    :class:`~.deferred.Deferred` of the proof. ``transcript``: a host :class:`~swirl_torch.transcript.Transcript` or
     a :class:`~.device_transcript.DeviceTranscript` on the data's device; u:
     the opening point, an (m, 4) tensor there or m host EF values.
     ``tree_builder``: when set, ``(matrix, rows_per_query, ext) -> (root,
@@ -182,28 +196,34 @@ def prove_whir_opening(
 
     values = [mu_pow_witness, *folding_wits, *query_wits, *sumcheck_polys, *commits, *oods,
               final_poly, *initial_rows, *initial_paths, *codeword_rows, *codeword_paths]
-    host = iter(F.to_host_all(values))
+    counts = (len(folding_wits), len(query_wits), len(sumcheck_polys), len(commits), len(oods),
+              len(committed), len(codeword_rows), len(codeword_paths))
+    return Deferred(values, lambda host: _build_whir_proof(host, *counts))
+
+
+def _build_whir_proof(host, n_fold, n_query, n_polys, n_commits, n_oods, n_com, n_rows, n_paths) -> WhirProof:
+    """The proof from the host copies of ``whir_opening_deferred``'s values."""
+    host = iter(host)
 
     def take(n):
         return [next(host) for _ in range(n)]
 
-    witnesses = take(1 + len(folding_wits) + len(query_wits))
+    witnesses = take(1 + n_fold + n_query)
     if any(int(w) >= P for w in witnesses):
         raise RuntimeError("failed to find PoW witness")
     witnesses = [int(w) for w in witnesses]
-    polys = take(len(sumcheck_polys))
-    commits_h, oods_h = take(len(commits)), take(len(oods))
+    polys = take(n_polys)
+    commits_h, oods_h = take(n_commits), take(n_oods)
     (final_h,) = take(1)
-    n_com = len(committed)
     rows0, paths0 = take(n_com), take(n_com)
-    rows_cw, paths_cw = take(len(codeword_rows)), take(len(codeword_paths))
+    rows_cw, paths_cw = take(n_rows), take(n_paths)
     return WhirProof(
         mu_pow_witness=witnesses[0],
         whir_sumcheck_polys=[[e[0], e[1]] for e in polys],
         codeword_commits=commits_h,
         ood_values=oods_h,
-        folding_pow_witnesses=witnesses[1 : 1 + len(folding_wits)],
-        query_phase_pow_witnesses=witnesses[1 + len(folding_wits) :],
+        folding_pow_witnesses=witnesses[1 : 1 + n_fold],
+        query_phase_pow_witnesses=witnesses[1 + n_fold :],
         initial_round_opened_rows=[list(r) for r in rows0],
         initial_round_merkle_proofs=[[list(p) for p in paths] for paths in paths0],
         codeword_opened_values=[list(r) for r in rows_cw],

@@ -43,7 +43,8 @@ NEW_MODULES = {f"swirl_torch.verifier.{m}" for m in (
     "swirl_torch.fields.bn254"} | {
     "swirl_torch.prover.monomial", "swirl_torch.prover.plain_sumcheck", "swirl_torch.prover.commit_kernel",
     "swirl_torch.roofline", "swirl_torch.fields.generic", "swirl_torch.lean_extraction",
-    "swirl_torch.transcript", "swirl_torch.testing.golden"}
+    "swirl_torch.transcript", "swirl_torch.testing.golden"} | {
+    "swirl_torch.prover.fused", "swirl_torch.prover.deferred"}
 
 
 def _is_blocked(module: str) -> bool:

@@ -10,7 +10,10 @@ captured graph against the eager commit, and the
 device transcript's kernels E (duplex) and F (grind) at ``chip_smoke.py``'s
 cases, F at every absorb cursor, both refusing bad cursors and bit counts,
 the transcript on the card against the CPU and a golden proof on it, the
-BN254 outer golden case and round 0 in segments on the card, and the BN254
+BN254 outer golden case and round 0 in segments on the card, the fused
+prover's captured proves (golden bytes in segmented and jit mode, a replay
+on another trace, a replay on a fresh context of a cached trace whose
+first context was freed, a failed capture that raises), and the BN254
 kernels G-J against their plain versions (the field's operations on
 random and edge operands, the permutations, compress layers at every kind
 of stride, leaf hashes of every absorb shape and of extension-field
@@ -639,3 +642,122 @@ def test_bn254_kernels_refuse_bad_operands(bn_gen):
         bp.compress_layer(layer.view(-1)[2:258].reshape(32, 8), 1)  # rows 8 bytes off alignment
     with pytest.raises(ValueError):
         bp.compress_layer(layer, 64)
+
+
+# ---- the fused prover (prover/fused.py): captured proves on the card ----
+
+
+def _fused_case(name, edit=None):
+    """(engine, dpk, ctx) of a golden case on the card, its common traces
+    changed by ``edit(index, trace)`` when given."""
+    from swirl_torch.engine import StarkEngine
+    from swirl_torch.prover.backend import ProvingContext
+    from swirl_torch.testing.golden import golden_cases
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    params, airs, ctxs = golden_cases()[name]()
+    eng = StarkEngine(params, device="cuda")
+    pk, _ = eng.keygen(airs)
+    rows = [np.array(cm, dtype=np.uint64) for cm, _, _ in ctxs]
+    if edit is not None:
+        rows = [edit(i, r) for i, r in enumerate(rows)]
+    ctx = ProvingContext([eng.context_for(i, r, pvs, cached) for i, (r, (_, pvs, cached)) in enumerate(zip(rows, ctxs))])
+    return eng, eng.transport_pk(pk), ctx
+
+
+def _other_trace(name):
+    """A second trace of the case's shape and public values: fib with one
+    inner cell changed (the prover does not check constraints), the
+    receiver's rows of ``interactions`` in another order (still balanced)."""
+    def edit(i, rows):
+        rows = rows.copy()
+        if name == "fib":
+            rows[5, 0] = (rows[5, 0] + 1) % P
+        elif i == 1:
+            rows[[0, 2]] = rows[[2, 0]]
+        return rows
+
+    return edit
+
+
+@pytest.mark.parametrize("mode", ["segmented", "jit"])
+@pytest.mark.parametrize("case", ["fib", "interactions"])
+def test_fused_prove_on_the_card_replays_golden_bytes(case, mode):
+    """Captured at the first call, the golden bytes; a replay on another
+    trace of the shape gives that trace's device-transcript bytes through
+    the same graphs, and leaves the first proof as it was."""
+    from swirl_torch.codec import encode_proof
+    from swirl_torch.prover import fused
+    from swirl_torch.prover.device_transcript import DeviceTranscript
+    from swirl_torch.testing.golden import paths_for
+
+    eng, dpk, ctx = _fused_case(case)
+    with open(paths_for(case)["proof"], "rb") as f:
+        want = f.read()
+    first = fused.prove_fused(eng.backend, dpk, ctx, mode=mode)
+    assert encode_proof(first) == want
+    _, _, other = _fused_case(case, _other_trace(case))
+    other_want = encode_proof(eng.prove(dpk, other, DeviceTranscript("cuda")))
+    assert other_want != want
+    entry = next(iter(dpk._fused_cache.values()))
+    assert encode_proof(fused.prove_fused(eng.backend, dpk, other, mode=mode)) == other_want
+    assert len(dpk._fused_cache) == 1 and next(iter(dpk._fused_cache.values())) is entry
+    assert encode_proof(first) == want
+    fused.release_fused(dpk)
+    assert not hasattr(dpk, "_fused_cache")
+
+
+def test_fused_replay_on_a_fresh_context_of_a_cached_trace():
+    """``cached_preprocessed`` captured, then its context dropped and the
+    freed blocks filled with other values: a fresh ``context_for`` of the
+    same cached trace hits the entry and replays to the golden bytes (the
+    graphs read their own copies of the cached mains)."""
+    from swirl_torch.codec import encode_proof
+    from swirl_torch.prover import fused
+    from swirl_torch.prover.backend import ProvingContext
+    from swirl_torch.prover.device_transcript import DeviceTranscript
+    from swirl_torch.testing.golden import golden_cases, paths_for
+
+    eng, dpk, ctx = _fused_case("cached_preprocessed")
+    with open(paths_for("cached_preprocessed")["proof"], "rb") as f:
+        want = f.read()
+    assert encode_proof(fused.prove_fused(eng.backend, dpk, ctx, mode="segmented")) == want
+    entry = next(iter(dpk._fused_cache.values()))
+    freed = fused.cached_tensors([tc.cached_mains for _, tc in ctx.per_trace])
+    freed += [tc.common_main for _, tc in ctx.per_trace]
+    shapes = [(t.shape, t.dtype) for t in freed]
+    del ctx, freed
+    junk = [torch.full(shape, 12345, dtype=dtype, device="cuda") for shape, dtype in shapes]
+    ctxs = golden_cases()["cached_preprocessed"]()[2]
+    fresh = ProvingContext([eng.context_for(i, *c) for i, c in enumerate(ctxs)])
+    assert encode_proof(eng.prove(dpk, fresh, DeviceTranscript("cuda"))) == want
+    assert encode_proof(fused.prove_fused(eng.backend, dpk, fresh, mode="segmented")) == want
+    assert next(iter(dpk._fused_cache.values())) is entry and len(junk) == len(shapes)
+    fused.release_fused(dpk)
+
+
+def test_fused_capture_failure_raises_without_an_eager_fallback(monkeypatch):
+    """A segment that fails while it is captured: ProverError, nothing
+    cached, and no eager prove in its place (the warm-up was the only one)."""
+    from swirl_torch.prover import fused
+    from swirl_torch.prover.errors import ProverError
+
+    eng, dpk, ctx = _fused_case("fib")
+    plain_stacking, plain_run = fused._Prove.stacking, fused.run_segments
+    eager_runs = []
+
+    def stacking(self):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("a segment failed while capturing")
+        return plain_stacking(self)
+
+    def run_segments(*args, **kwargs):
+        eager_runs.append(1)
+        return plain_run(*args, **kwargs)
+
+    monkeypatch.setattr(fused._Prove, "stacking", stacking)
+    monkeypatch.setattr(fused, "run_segments", run_segments)
+    with pytest.raises(ProverError, match="capture failed"):
+        fused.prove_fused(eng.backend, dpk, ctx, mode="segmented")
+    assert not getattr(dpk, "_fused_cache", {}) and len(eager_runs) == 1
