@@ -139,7 +139,20 @@ Phases, each printing its result on lines of its own:
    captured, then its context freed and the blocks refilled, replays a
    fresh context of the same cached trace to the golden bytes. Each cell's
    graphs are released after it. The phase prints its seconds, the Keccak
-   phase's apart.
+   phase's apart;
+13. mesh: right after the fused app cell, the app through
+   ``prove_fused(mode="segmented", mesh=proof_mesh())``, a world of one on
+   NCCL (``swirl_torch/parallel/``): the sha256 008305aaf187766a, one host
+   read a prove, kernels A-F launched and the commits' collectives issued
+   while capturing, the first call's split, the mean of 3 replays, the
+   peaks and the aten ops, as in phase 12; then ``mode="jit"`` once. After
+   the app is released, two gloo ranks spawned on the card
+   (``chip_smoke.py --mesh-rank``) run the prover's sharded commit of the
+   app's stacked shape (16, 2^22) on CUDA tensors: each rank's root,
+   codeword and gathered layers equal this process's one-device commit,
+   A-D launch on each rank, the wrapper refuses the collective gloo does
+   not take on CUDA tensors, and both graph modes refuse the gloo mesh.
+   The phase prints its seconds.
 
 Phase 2 also holds the BN254 kernels to their plain versions: G on every
 operation over 2^20 random and the edge operands; H's permutations at
@@ -1837,10 +1850,12 @@ def fused_sha256(proof) -> str:
     return hashlib.sha256(encode_proof(proof)).hexdigest()
 
 
-def fused_mode(tag: str, run: dict, mode: str, required, smi: str, stats: dict):
+def fused_mode(tag: str, run: dict, mode: str, required, smi: str, stats: dict, mesh=None,
+               replays: int = FUSED_REPLAYS):
     """One mode of ``prove_fused`` on a cell's proving key and context: the
     first call (the eager prove; or the eager warm-up, capture and
-    instantiation), then ``FUSED_REPLAYS`` replays of a graph mode, each
+    instantiation), then ``replays`` replays of a graph mode (on ``mesh``
+    when given), each
     proof's sha256 held to the cell's device-transcript prove, one host
     read each, peaks beside the device transcript's. The launch counters
     are reset just before the first call and read after it (a replay
@@ -1861,7 +1876,7 @@ def fused_mode(tag: str, run: dict, mode: str, required, smi: str, stats: dict):
     sync_check = warm_ops and stats.get("eager_ran", False)
     K.reset_launch_counts()
     with HostReads() as host, capture_counts(stats, warm_ops, sync_check):
-        proof, first_s = _synced_seconds(lambda: fused.prove_fused(eng.backend, dpk, ctx, mode))
+        proof, first_s = _synced_seconds(lambda: fused.prove_fused(eng.backend, dpk, ctx, mode, mesh))
     launches = K.launch_counts()
     first_peak = torch.cuda.max_memory_allocated()
     reads = [host.reads["total"]]
@@ -1870,16 +1885,16 @@ def fused_mode(tag: str, run: dict, mode: str, required, smi: str, stats: dict):
     missing = [k for k in required if launches[k] == 0]
     if missing:
         raise AssertionError(f"fused {tag} [{mode}]: the path never launched {missing}")
-    entry = fused.fused_graphs(dpk, fused.graph_key(eng.backend, ctx.sorted_for_stacking(), mode))
+    entry = fused.fused_graphs(dpk, fused.graph_key(eng.backend, ctx.sorted_for_stacking(), mode, mesh))
     if (entry is None) != (mode == "eager"):
         raise AssertionError(f"fused {tag} [{mode}]: the cache does not hold what the mode captures")
     if entry is None:
         stats["eager_ran"] = True
     torch.cuda.reset_peak_memory_stats()
     times = []
-    for _ in range(FUSED_REPLAYS if entry is not None else 0):
+    for _ in range(replays if entry is not None else 0):
         with HostReads() as host:
-            again, secs = _synced_seconds(lambda: fused.prove_fused(eng.backend, dpk, ctx, mode))
+            again, secs = _synced_seconds(lambda: fused.prove_fused(eng.backend, dpk, ctx, mode, mesh))
         times.append(secs)
         reads.append(host.reads["total"])
         if fused_sha256(again) != want:
@@ -1895,14 +1910,14 @@ def fused_mode(tag: str, run: dict, mode: str, required, smi: str, stats: dict):
              f"(device-transcript prove {d_peak} B); launches {launches} [{smi}]")
         return proof
     st = entry.stats
-    mean = sum(times) / len(times)
     counted = " (the aten op count on)" if warm_ops else ""
+    replayed = (f"mean of {replays} replays {sum(times) / replays:.3f} s ({', '.join(f'{t:.3f}' for t in times)}; "
+                f"device-transcript prove {run['on_card']['prove_s']:.3f} s)" if replays else "no replay")
     _say(f"fused {tag} [{mode}]: sha256 {want[:16]} (the device-transcript prove's) in every call; first call "
          f"{first_s:.3f} s (eager warm-up {st['warm_up_s']:.3f} s{counted}, capture {st['capture_s']:.3f} s, "
-         f"instantiation {st['instantiate_s']:.3f} s; {st['graphs']} graphs); mean of {FUSED_REPLAYS} replays "
-         f"{mean:.3f} s ({', '.join(f'{t:.3f}' for t in times)}; device-transcript prove "
-         f"{run['on_card']['prove_s']:.3f} s); host reads a prove 1; peak first call {first_peak} B, replays "
-         f"{replay_peak} B, reserved {reserved} B (device-transcript prove {d_peak} B) [{smi}]")
+         f"instantiation {st['instantiate_s']:.3f} s; {st['graphs']} graphs); {replayed}; host reads a prove 1; "
+         f"peak first call {first_peak} B, replays {replay_peak} B, reserved {reserved} B (device-transcript prove "
+         f"{d_peak} B) [{smi}]")
     if sync_check:
         _say(f"fused {tag} [{mode}]: the warm-up's five bodies ran under set_sync_debug_mode('error') without a sync")
     source = "this mode's warm-up" if warm_ops else "the cell's first graph mode's warm-up"
@@ -2038,6 +2053,190 @@ def fused_cell(tag: str, run: dict, required, smi: str) -> float:
         fused_cached(run["engine"].device)
     fused.release_fused(run["dpk"])
     torch.cuda.empty_cache()
+    return time.perf_counter() - t0
+
+
+MESH_APP_SHA256 = "008305aaf187766a"  # the app's proof (PRs 10-15)
+MESH_WORLD = 2  # gloo ranks on the one card
+MESH_TIMEOUT_S = 300
+
+
+def mesh_app(run: dict, required, smi: str) -> float:
+    """World of one, NCCL: the app's ``prove_fused(mode="segmented",
+    mesh=proof_mesh())`` (first call split, aten ops of its warm-up, mean of
+    ``FUSED_REPLAYS`` replays, peaks, one host read) with kernels A-F and
+    the commits' collectives captured, its sha256 the app's; then
+    ``mode="jit"`` once. Returns seconds."""
+    import torch
+    import torch.distributed as dist
+
+    from swirl_torch.parallel import multihost, sharded
+    from swirl_torch.prover import fused
+
+    t0 = time.perf_counter()
+    if not run["on_card"]["proof_sha256"].startswith(MESH_APP_SHA256):
+        raise AssertionError(f"mesh app: the app's proof is {run['on_card']['proof_sha256'][:16]}, not {MESH_APP_SHA256}")
+    mesh = multihost.proof_mesh()
+    backend = dist.get_backend(mesh.get_group())
+    if (backend, mesh.size()) != ("nccl", 1):
+        raise AssertionError(f"mesh app: proof_mesh() gave a {backend} mesh of {mesh.size()}")
+    for mode, replays in (("segmented", FUSED_REPLAYS), ("jit", 0)):
+        stats = {} if mode == "segmented" else {"aten_ops": stats["aten_ops"]}
+        sharded.reset_collective_counts()
+        fused_mode("mesh app", run, mode, required, smi, stats, mesh=mesh, replays=replays)
+        collectives = sharded.collective_counts()
+        missing = [k for k in required if stats["captured_launches"].get(k, 0) == 0]
+        if missing or not collectives["all_gather"]:
+            raise AssertionError(f"mesh app [{mode}]: the capture never launched {missing} or gathered nothing")
+        _say(f"mesh app [{mode}]: world of one, {backend}; collectives a prove (warm-up and capture) {collectives}; "
+             f"the mesh in the cache key")
+        fused.release_fused(run["dpk"])
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return time.perf_counter() - t0
+
+
+def mesh_stacked(device):
+    """The app's stacked matrix shape (16, 2^22), random from ``SEED``."""
+    import torch
+
+    from swirl_torch.fields.babybear import P
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    return torch.randint(0, P, (16, 1 << APP_LOG_STACKED), generator=gen, device=device, dtype=torch.int64)
+
+
+def _tensor_sha(t) -> str:
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def mesh_commit_digest(code, layers) -> dict:
+    return {"root": [int(v) for v in layers[-1][:, 0].tolist()], "code": _tensor_sha(code),
+            "layers": [_tensor_sha(layer) for layer in layers]}
+
+
+def mesh_rank_main(rank: int, port: int, out: str) -> int:
+    """One gloo rank of :func:`mesh_world_of_two` on ``cuda:0``: the app's
+    commit across the ranks (the codeword's and layers' sha256, the root),
+    A-D's launches and the collectives, gloo's refusal of a collective it
+    does not take on CUDA, and the graph modes' refusal of a gloo mesh."""
+    import torch
+    import torch.distributed as dist
+
+    from swirl_torch import kernels as K
+    from swirl_torch.engine import StarkEngine
+    from swirl_torch.params import app_params_with_100_bits_security
+    from swirl_torch.parallel import annotate, multihost, sharded
+    from swirl_torch.prover import fused
+    from swirl_torch.prover.backend import ProvingContext
+    from swirl_torch.prover.commit_kernel import commit_eager
+    from swirl_torch.prover.errors import ProverError
+    from swirl_torch.testing.golden import golden_cases
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=MESH_WORLD)
+    try:
+        mesh = multihost.proof_mesh(device_type="cuda")
+        p = app_params_with_100_bits_security(APP_LOG_STACKED)
+        stacked = mesh_stacked(device)
+        K.LIB.get()
+        K.reset_launch_counts()
+        sharded.reset_collective_counts()
+        t0 = time.perf_counter()
+        with annotate.spmd_mesh(mesh):
+            code, layers = commit_eager(p.l_skip, p.log_blowup, p.k_whir, stacked)
+        torch.cuda.synchronize()
+        result = {"rank": dist.get_rank(), "backend": dist.get_backend(mesh.get_group()), "size": mesh.size(),
+                  "seconds": time.perf_counter() - t0, "launches": K.launch_counts(),
+                  "collectives": sharded.collective_counts(), **mesh_commit_digest(code, layers)}
+        del code, layers
+        try:
+            sharded.ppermute(stacked[:, :8], mesh, [(0, 1), (1, 0)])
+        except ProverError as err:
+            result["ppermute"] = str(err)
+        params, airs, ctxs = golden_cases()["fib"]()
+        eng = StarkEngine(params, device=device)
+        pk, _ = eng.keygen(airs)
+        ctx = ProvingContext([eng.context_for(i, *c) for i, c in enumerate(ctxs)])
+        for mode in ("segmented", "jit"):
+            try:
+                fused.prove_fused(eng.backend, eng.transport_pk(pk), ctx, mode=mode, mesh=mesh)
+            except ProverError as err:
+                result[f"refusal_{mode}"] = str(err)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def mesh_world_of_two(device, smi: str) -> float:
+    """``MESH_WORLD`` gloo ranks spawned on the one card run the prover's
+    sharded commit of the app's stacked shape on CUDA tensors
+    (:func:`mesh_rank_main`): every rank's root, codeword and gathered
+    layers must equal this process's one-device commit, A-D launch on each
+    rank, gloo takes the collectives of the commit and the wrapper refuses
+    the one it does not take, and the graph modes refuse the gloo mesh.
+    Every process started is stopped. Returns seconds."""
+    import os
+    import shutil
+    import socket
+    import tempfile
+
+    import torch
+
+    from swirl_torch import kernels as K
+    from swirl_torch.params import app_params_with_100_bits_security
+    from swirl_torch.prover.commit_kernel import commit_eager
+
+    t0 = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    tmp = tempfile.mkdtemp(dir=os.path.join(os.path.dirname(os.path.abspath(__file__)), "build"))
+    outs = [os.path.join(tmp, f"rank{r}.json") for r in range(MESH_WORLD)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r), str(port), outs[r]],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE) for r in range(MESH_WORLD)]
+    try:
+        p = app_params_with_100_bits_security(APP_LOG_STACKED)
+        code, layers = commit_eager(p.l_skip, p.log_blowup, p.k_whir, mesh_stacked(device))
+        want = mesh_commit_digest(code, layers)
+        del code, layers
+        torch.cuda.empty_cache()
+        for proc in procs:
+            _, err = proc.communicate(timeout=MESH_TIMEOUT_S)
+            if proc.returncode != 0:
+                raise AssertionError(f"mesh world of two: a rank failed:\n{err.decode(errors='replace')[-3000:]}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    required = [k.name for k in (K.NTT, K.HASH_COLS, K.COMPRESS, K.TOWER)]
+    results = []
+    for path in outs:
+        with open(path) as f:
+            results.append(json.load(f))
+    shutil.rmtree(tmp)
+    for res in results:
+        tag = f"mesh world of two, rank {res['rank']}"
+        if (res["backend"], res["size"]) != ("gloo", MESH_WORLD):
+            raise AssertionError(f"{tag}: a {res['backend']} mesh of {res['size']}")
+        if {k: res[k] for k in ("root", "code", "layers")} != want:
+            raise AssertionError(f"{tag}: the sharded commit differs from the one-device commit")
+        missing = [k for k in required if res["launches"][k] == 0]
+        if missing:
+            raise AssertionError(f"{tag}: the sharded commit never launched {missing}")
+        refusals = [res.get(k) for k in ("ppermute", "refusal_segmented", "refusal_jit")]
+        if not all(refusals) or not all("cannot be captured" in r for r in refusals[1:]):
+            raise AssertionError(f"{tag}: a refusal is missing: {refusals}")
+        _say(f"{tag}: the app's commit (16, 2^{APP_LOG_STACKED}) on CUDA tensors over gloo in {res['seconds']:.3f} s; "
+             f"root {res['root']}, codeword and {len(res['layers'])} layers equal to the one-device commit's; "
+             f"launches {res['launches']}; collectives {res['collectives']} (gloo took them on CUDA tensors) [{smi}]")
+        _say(f"{tag}: refused: {refusals[0]}; segmented: {refusals[1]}; jit: {refusals[2]}")
     return time.perf_counter() - t0
 
 
@@ -2195,7 +2394,10 @@ def main() -> int:
     memory.append(report_memory("app, zerocheck_save_memory=False", full))
     fused_path = [*app_kernels, K.DUPLEX.name, K.GRIND.name]
     fused_s = fused_cell("app", app, fused_path, smi)
+    mesh_s = mesh_app(app, fused_path, smi)
     release(app)
+    mesh_s += mesh_world_of_two(device, smi)
+    _say(f"mesh: phase {mesh_s:.1f} s (the app on a world of one, NCCL; the commit over {MESH_WORLD} gloo ranks)")
     leaf = prove_synthetic(device, leaf_params_with_100_bits_security(LEAF_LOG_STACKED), 4, on_card=True)
     leaf_kernels = [*app_kernels, K.NTT_RECURSIVE.name]
     report("leaf", leaf, leaf_kernels)
@@ -2277,4 +2479,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 5 and sys.argv[1] == "--mesh-rank":  # a rank of mesh_world_of_two
+        sys.exit(mesh_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

@@ -16,6 +16,8 @@ PyTorch version beside it for a CPU tensor.
 
 from __future__ import annotations
 
+import threading
+from contextlib import contextmanager
 from functools import lru_cache
 
 import numpy as np
@@ -477,11 +479,32 @@ def compress_layer(layer, stride: int):
     return _compress_launch(layer, out, n // 2, n, stride.bit_length() - 1, stride)
 
 
-# the tower's ticket counters, one a (device index, stream): zero between launches
+# the tower's ticket counters, one a (device index, stream): zero between
+# launches. torch hands out pooled streams round robin, so a stream's handle
+# recurs; a capture takes a counter of its own (private_tickets) instead.
 _TICKETS = {}
+_PRIVATE = threading.local()
+
+
+@contextmanager
+def private_tickets(device):
+    """Kernel D's launches on ``device`` from this thread inside it use one
+    new counter, made here (zero) and yielded for the caller to keep: the
+    graphs captured inside it read that counter at every replay, and no
+    other launch shares it."""
+    tickets = torch.zeros(1, dtype=torch.int32, device=device)
+    prev = getattr(_PRIVATE, "tickets", None)
+    _PRIVATE.tickets = tickets
+    try:
+        yield tickets
+    finally:
+        _PRIVATE.tickets = prev
 
 
 def _tower_tickets(device):
+    own = getattr(_PRIVATE, "tickets", None)
+    if own is not None and own.device == device:
+        return own
     key = (device.index, torch.cuda.current_stream(device).cuda_stream)
     tickets = _TICKETS.get(key)
     if tickets is None:

@@ -11,10 +11,13 @@ with the levels above the tower's width through C. A later call copies the
 stacked matrix into the graph's static input and replays it.
 
 Capture needs what the eager path makes at its first call on a stream to
-exist before it: the NTT twiddle tables, the kernels' constants, and kernel
-D's ticket counter, which is kept per (device, stream) and cannot be made
-while the stream captures. So the capture runs one eager commit on its own
-stream first, then captures on that stream. A failed capture raises; there
+exist before it: the NTT twiddle tables and the kernels' constants. So the
+capture runs one eager commit on its own stream first, then captures on
+that stream. Kernel D's launches in both use a ticket counter of the
+graph's own (``p2.private_tickets``), made before them: a zero fill
+captured in the graph would run only at replay, and a counter keyed by the
+stream's handle would be shared with any later pooled stream of that
+handle. A failed capture raises; there
 is no eager fallback on the card. The results are copies of the graph's
 static outputs, so a later commit leaves them as they were.
 
@@ -30,6 +33,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from ..hash import poseidon2 as p2
 from .merkle import build_merkle_tree
 from .stacked_pcs import rs_code_matrix
 
@@ -43,12 +47,14 @@ def commit_eager(l_skip: int, log_blowup: int, k_whir: int, stacked) -> Tuple[to
 
 @dataclass
 class CommitGraph:
-    """One captured commit: its static input and outputs."""
+    """One captured commit: its static input and outputs, and kernel D's
+    ticket counter of the graph (``p2.private_tickets``)."""
 
     graph: torch.cuda.CUDAGraph
     stacked: torch.Tensor
     code: torch.Tensor
     layers: List[torch.Tensor]
+    tickets: torch.Tensor = None
 
     def replay(self, stacked) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """Copy ``stacked`` into the static input and replay; returns the
@@ -71,13 +77,14 @@ def _capture(l_skip: int, log_blowup: int, k_whir: int, stacked) -> CommitGraph:
     static = torch.empty_like(stacked)
     static.copy_(stacked)
     stream.wait_stream(current)
-    with torch.cuda.stream(stream):
-        commit_eager(l_skip, log_blowup, k_whir, static)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=stream):
-        code, layers = commit_eager(l_skip, log_blowup, k_whir, static)
+    with p2.private_tickets(device) as tickets:
+        with torch.cuda.stream(stream):
+            commit_eager(l_skip, log_blowup, k_whir, static)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            code, layers = commit_eager(l_skip, log_blowup, k_whir, static)
     current.wait_stream(stream)
-    return CommitGraph(graph, static, code, layers)
+    return CommitGraph(graph, static, code, layers, tickets)
 
 
 def commit_graph(l_skip: int, log_blowup: int, k_whir: int, stacked) -> CommitGraph:

@@ -42,16 +42,29 @@ prove's peak. The graphs read their own copies of the common traces and
 of the cached mains' tensors (trace, matrices, Merkle layers), into which
 the caller's are copied before each replay: a graph never reads a tensor
 that the caller may free. The first call runs one eager prove on the
-capture stream before it captures: the NTT tables, the kernels' constants, the DAG schedules'
-index tensors and kernel D's ticket counter of that stream are made
-there, since none can be made while the stream captures (what
-``commit_kernel.py`` learned). A capture that fails raises: the card has no
+capture stream before it captures: the NTT tables, the kernels' constants
+and the DAG schedules' index tensors are made there, since none can be
+made while the stream captures (what ``commit_kernel.py`` learned); kernel
+D's launches in both use a ticket counter that the entry owns
+(``p2.private_tickets``). A capture that fails raises: the card has no
 eager fallback. On the CPU every mode runs the five bodies eagerly through
 the plain kernels and captures nothing.
 
-Not ported: the ``mesh`` argument (it comes with ``parallel/``), the
-persistent compile cache and the AOT executable bundles (the kernels are
-built once by nvcc; a graph is captured in-process), trace mode.
+``mesh`` (a 1-D ``DeviceMesh`` named ``rows``, ``parallel/multihost.py``
+``proof_mesh``): every rank runs the same prove on the same whole context,
+the same sponge and so the same challenges, and gets the one-device bytes;
+inside ``parallel.annotate.spmd_mesh`` the commits (the main trace's and
+WHIR's codeword commits) run across the ranks (``parallel/sharded.py``),
+their codewords and layers gathered whole, and the other stages run
+replicated. As in the reference (:869-870) a mesh needs a graph mode. On
+the card the graphs capture the commits' NCCL collectives (the warm-up
+on the capture stream has made the communicator); a mesh whose group is
+not NCCL cannot be captured and is refused. The mesh is part of the cache
+key (``_mesh_key``, :333-341). On the CPU every mode runs eagerly.
+
+Not ported: the persistent compile cache and the AOT executable bundles
+(the kernels are built once by nvcc; a graph is captured in-process),
+trace mode.
 """
 
 from __future__ import annotations
@@ -64,11 +77,14 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import metrics
 from .. import sanitize
 from .. import tpoly
 from ..fields import field as F
+from ..hash import poseidon2 as p2
+from ..parallel import annotate
 from ..proof import Proof
 from .backend import (
     AirContext,
@@ -242,7 +258,10 @@ def static_cached(cached):
 class FusedGraphs:
     """One cache entry: the graphs of one (mode, context key), each group
     with its span, the static inputs (common traces, cached mains) and
-    output, and the first call's seconds and counts."""
+    output, the first call's seconds and counts, and kernel D's ticket
+    counter of the graphs (``p2.private_tickets``): torch's pooled streams
+    recur, so a counter keyed by the capture stream's handle could be
+    shared with an eager launch while a replay runs."""
 
     groups: List[Tuple[str, List[torch.cuda.CUDAGraph]]]
     static: List[torch.Tensor]
@@ -252,14 +271,26 @@ class FusedGraphs:
     build: object
     sync_each: bool
     stats: Dict[str, object] = field(default_factory=dict)
+    tickets: torch.Tensor = None
 
     def refresh(self, ctx: ProvingContext) -> None:
         """Copy the sorted ``ctx``'s common traces and cached mains into the
-        static inputs."""
-        for s, tc in zip(self.static, (tc for _, tc in ctx.per_trace)):
-            s.copy_(tc.common_main)
+        static inputs, after checking that they pair one to one in shape
+        (cached mains committed under another memory policy hold other
+        tensors under the same commitment)."""
+        commons = [tc.common_main for _, tc in ctx.per_trace]
+        cached = cached_tensors([tc.cached_mains for _, tc in ctx.per_trace])
+        mine = cached_tensors(self.cached)
+        if len(commons) != len(self.static) or len(cached) != len(mine) or any(
+            s.shape != c.shape for s, c in zip(self.static + mine, commons + cached)
+        ):
+            raise ProverError("prove_fused: the context's traces or cached mains do not match the captured "
+                              f"prove's in count or shape ({len(commons)} and {len(cached)} tensors against "
+                              f"{len(self.static)} and {len(mine)})")
+        for s, c in zip(self.static, commons):
+            s.copy_(c)
         done = set()
-        for s, c in zip(cached_tensors(self.cached), cached_tensors([tc.cached_mains for _, tc in ctx.per_trace])):
+        for s, c in zip(mine, cached):
             if id(s) not in done:
                 done.add(id(s))
                 s.copy_(c)
@@ -337,21 +368,23 @@ def _capture(backend, mpk, ctx, mode: str) -> FusedGraphs:
     cached = static_cached([tc.cached_mains for _, tc in ctx.per_trace])
     stream = torch.cuda.Stream(device)
     stream.wait_stream(current)
-    t0 = time.perf_counter()
-    _warm_up(backend, mpk, ctx, static, cached, stream)
-    stream.synchronize()
-    warm_s = time.perf_counter() - t0
-    try:
-        groups, run, capture_s, instantiate_s = _record(backend, mpk, ctx, static, cached, stream, mode)
-    except Exception as err:
-        raise ProverError(f"prove_fused(mode={mode!r}): the capture failed ({type(err).__name__}: {err}); "
-                          "the card has no eager fallback") from err
+    with p2.private_tickets(device) as tickets:
+        t0 = time.perf_counter()
+        _warm_up(backend, mpk, ctx, static, cached, stream)
+        stream.synchronize()
+        warm_s = time.perf_counter() - t0
+        try:
+            groups, run, capture_s, instantiate_s = _record(backend, mpk, ctx, static, cached, stream, mode)
+        except Exception as err:
+            raise ProverError(f"prove_fused(mode={mode!r}): the capture failed ({type(err).__name__}: {err}); "
+                              "the card has no eager fallback") from err
     current.wait_stream(stream)
     return FusedGraphs(
         groups=groups, static=static, cached=cached, flat=run.flat, layout=run.layout, build=run.build,
         sync_each=mode == "segmented",
         stats={"warm_up_s": warm_s, "capture_s": capture_s, "instantiate_s": instantiate_s,
                "graphs": sum(len(g) for _, g in groups)},
+        tickets=tickets,
     )
 
 
@@ -360,11 +393,22 @@ def fused_graphs(mpk, key) -> FusedGraphs:
     return getattr(mpk, "_fused_cache", {}).get(key)
 
 
-def graph_key(backend, ctx: ProvingContext, mode: str) -> tuple:
+def _mesh_key(mesh):
+    """None, or a mesh's dims, world size, this rank and its group's
+    backend (``swirl/prover/fused.py:333-341``): a prove captured without a
+    mesh never replays with one."""
+    if mesh is None:
+        return None
+    group = mesh.get_group()
+    return (tuple(mesh.mesh_dim_names), tuple(mesh.mesh.shape), tuple(dist.get_process_group_ranks(group)),
+            dist.get_world_size(), dist.get_rank(), dist.get_backend(group))
+
+
+def graph_key(backend, ctx: ProvingContext, mode: str, mesh=None) -> tuple:
     """The cache key of a captured prove of the sorted ``ctx``."""
     c = backend.config
     policy = (c.cache_stacked_matrix, c.cache_rs_code_matrix, bool(c.zerocheck_save_memory))
-    return (mode, backend.device, policy, ctx_cache_key(ctx))
+    return (mode, backend.device, policy, _mesh_key(mesh), ctx_cache_key(ctx))
 
 
 def cached_entry(mpk, key, capture) -> FusedGraphs:
@@ -386,7 +430,7 @@ def release_fused(mpk) -> None:
         del mpk._fused_cache
 
 
-def prove_fused(backend, mpk, unsorted_ctx: ProvingContext, mode: str = "jit") -> Proof:
+def prove_fused(backend, mpk, unsorted_ctx: ProvingContext, mode: str = "jit", mesh=None) -> Proof:
     """A prove on the device transcript from its first event, byte-identical
     to ``Coordinator.prove``; the proof's values are read in one copy.
 
@@ -397,24 +441,36 @@ def prove_fused(backend, mpk, unsorted_ctx: ProvingContext, mode: str = "jit") -
     the last ``CACHE_ENTRIES`` captures, each with a pool of about the
     eager prove's peak, until :func:`release_fused`). On the CPU every mode
     runs eagerly. The BN254 outer scheme (a backend with a
-    ``tree_builder``) proves on its host transcript and is refused."""
+    ``tree_builder``) proves on its host transcript and is refused.
+
+    ``mesh``: a 1-D ``DeviceMesh`` named ``rows`` over the ranks, each of
+    which calls this with the same context; the commits run across them and
+    each gets the one-device proof. It needs ``mode="jit"`` or
+    ``"segmented"``, and on the card an NCCL group."""
     if mode not in MODES:
         raise ValueError(f"prove_fused: unknown mode {mode!r}; one of {MODES}")
+    if mesh is not None and mode not in ("jit", "segmented"):
+        raise ValueError("mesh sharding requires mode='jit' or 'segmented'")
     if backend.tree_builder is not None:
         raise ProverError("prove_fused: the device transcript is BabyBear Poseidon2-16; a backend with "
                           "another hash scheme's tree builder proves on its host transcript")
     device = backend.device
+    if mesh is not None and device.type == "cuda" and dist.get_backend(mesh.get_group()) != "nccl":
+        raise ProverError(f"prove_fused(mode={mode!r}): a {dist.get_backend(mesh.get_group())} mesh cannot be "
+                          "captured in a CUDA graph; the card's mesh needs an NCCL group, and there is no eager "
+                          "fallback")
     ctx = unsorted_ctx.sorted_for_stacking()
     commons = [tc.common_main for _, tc in ctx.per_trace]
     sanitize.check_traces(commons, "common_main")
     trace_vdata, public_values = proof_metadata(mpk, ctx)
 
-    with metrics.span("stark_prove_excluding_trace"):
+    with metrics.span("stark_prove_excluding_trace"), annotate.spmd_mesh(mesh):
         if device.type != "cuda" or mode == "eager":
             run = run_segments(backend, mpk, ctx, commons)
             flat, layout, build = run.flat, run.layout, run.build
         else:
-            entry = cached_entry(mpk, graph_key(backend, ctx, mode), lambda: _capture(backend, mpk, ctx, mode))
+            key = graph_key(backend, ctx, mode, mesh)
+            entry = cached_entry(mpk, key, lambda: _capture(backend, mpk, ctx, mode))
             entry.replay(ctx, device)
             flat, layout, build = entry.flat, entry.layout, entry.build
         with metrics.span("proof_fetch"):

@@ -8,6 +8,8 @@ log2(rows_per_query) levels pair leaves at stride ``height /
 rows_per_query`` so one query index opens that many coset-aligned rows with
 one path, and ``layers[0]`` is the layer after those strided levels. Query
 paths and opened rows are gathered on the device for all queries at once.
+Under ``parallel.annotate.spmd_mesh`` the build runs across the mesh's
+ranks by query index (``parallel/sharded.py`` ``merkle_layers``).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from .errors import StackedPcsError
 
 from ..fields import field as F
 from ..hash import poseidon2 as p2
+from ..parallel import annotate
 
 
 @dataclass
@@ -66,6 +69,11 @@ def build_merkle_tree(matrix, rows_per_query: int, ext: bool = False) -> MerkleT
         )
     if ext != (matrix.dim() == 3):
         raise StackedPcsError(f"MerkleTree: ext={ext} does not fit a {matrix.dim()}-d matrix")
+    mesh = annotate.active_mesh()
+    if mesh is not None:  # built across the mesh's ranks by query index
+        from ..parallel import sharded
+
+        return MerkleTree(layers=sharded.merkle_layers(matrix, rows_per_query, mesh), rows_per_query=rows_per_query)
     # an EF (w, h, 4) matrix is hashed in place, hash input row c * 4 + d
     cur = p2.hash_cols(matrix.contiguous())
     query_stride = height // rows_per_query

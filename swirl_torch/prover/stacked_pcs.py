@@ -16,6 +16,7 @@ import torch
 from .errors import StackedPcsError
 
 from ..fields import field as F
+from ..parallel import annotate
 from .merkle import build_merkle_tree
 from .ntt import intt, ntt, zeta_transform
 
@@ -161,12 +162,25 @@ def rs_message(l_skip: int, evals):
     return zeta_transform(intt(chunks).reshape(shape), l_skip)
 
 
+def rs_encode(padded, ext: bool = False):
+    """The codewords of zero-padded coefficients, ``ntt(padded, ext=ext)``:
+    the RS encode of the commit and of WHIR's codeword commits. Under
+    ``annotate.spmd_mesh`` it runs across the mesh's ranks
+    (``parallel/sharded.py`` ``rs_ntt``)."""
+    mesh = annotate.active_mesh()
+    if mesh is None:
+        return ntt(padded, ext=ext)
+    from ..parallel import sharded
+
+    return sharded.rs_ntt(padded, mesh, ext=ext)
+
+
 def rs_code_matrix(l_skip: int, log_blowup: int, stacked):
     """Reed-Solomon codewords of all stacked columns (one batched NTT)."""
     width, height = stacked.shape
     padded = torch.zeros((width, height << log_blowup), dtype=F.DTYPE, device=stacked.device)
     padded[:, :height] = rs_message(l_skip, stacked)
-    return ntt(padded)
+    return rs_encode(padded)
 
 
 def stacked_commit(

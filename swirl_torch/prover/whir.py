@@ -32,8 +32,8 @@ from ..fields import field as F
 from .deferred import Deferred
 from .device_transcript import device_view
 from .merkle import build_merkle_tree, get_opened_rows_batch
-from .ntt import mobius_transform, ntt, zeta_transform
-from .stacked_pcs import StackedPcsData, rs_message
+from .ntt import mobius_transform, zeta_transform
+from .stacked_pcs import StackedPcsData, rs_encode, rs_message
 from .sumcheck import (
     eq_pows_base_batch,
     eq_pows_hypercube,
@@ -150,7 +150,7 @@ def whir_opening_deferred(
         if not is_last:
             padded = torch.zeros((1 << (log_rs - 1), 4), dtype=F.DTYPE, device=device)
             padded[: 1 << cur_m] = g_coeffs
-            g_rs = ntt(padded[None], ext=True)  # (1, H, 4)
+            g_rs = rs_encode(padded[None], ext=True)  # (1, H, 4)
             if tree_builder is None:
                 g_tree = build_merkle_tree(g_rs, 1 << k, ext=True)
                 g_commit = g_tree.layers[-1][:, 0]

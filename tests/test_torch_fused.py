@@ -9,7 +9,9 @@ where every mode runs its five segments eagerly through the plain kernels.
   second prove makes no tensor from host data (on the card, a copy that
   would wait for the stream and break a capture).
 - The cache key: public values and cached commitments are part of it, and
-  two contexts of one shape prove their own bytes. A proving key keeps
+  two contexts of one shape prove their own bytes; a refresh refuses
+  cached mains committed under another memory policy (same key, other
+  tensors). A proving key keeps
   ``CACHE_ENTRIES`` captures, and a replay reads copies of the cached
   mains, refreshed from the caller's context (the capture itself runs on
   the card only: ``tests/test_torch_kernels_cuda.py``).
@@ -224,6 +226,36 @@ def test_fused_replay_reads_copies_of_the_cached_mains(golden):
     fresh = fused_mod.cached_tensors([tc.cached_mains for _, tc in again.per_trace])
     assert all(torch.equal(s, c) and s is not c for s, c in zip(walk, fresh))
     assert all(torch.equal(s, tc.common_main) for s, (_, tc) in zip(entry.static, again.per_trace))
+
+
+def test_fused_refresh_refuses_cached_mains_of_another_policy(golden):
+    """The cache key holds the prover's memory policy and the cached
+    commitments, but a cached main carries the policy it was committed
+    under: the same commitment committed with both caches off holds fewer
+    tensors (no stacked matrix, no codeword). A refresh of an entry
+    captured on the cached policy's tensors refuses such a context instead
+    of pairing its tensors by position."""
+    from swirl_torch.prover.backend import ProverConfig
+
+    eng, _, dpk, ctx = golden("cached_preprocessed")
+    ctx = ctx.sorted_for_stacking()
+    entry = fused_mod.FusedGraphs(
+        groups=[], static=[tc.common_main.clone() for _, tc in ctx.per_trace],
+        cached=fused_mod.static_cached([tc.cached_mains for _, tc in ctx.per_trace]),
+        flat=None, layout=None, build=None, sync_each=False,
+    )
+    params, _, ctxs = golden_cases()["cached_preprocessed"]()
+    lean = StarkEngine(params, prover_config=ProverConfig(cache_stacked_matrix=False, cache_rs_code_matrix=False),
+                       device="cpu")
+    other = ProvingContext([lean.context_for(i, *c) for i, c in enumerate(ctxs)]).sorted_for_stacking()
+    assert fused_mod.graph_key(eng.backend, other, "segmented") == fused_mod.graph_key(eng.backend, ctx, "segmented")
+    mine = fused_mod.cached_tensors(entry.cached)
+    theirs = fused_mod.cached_tensors([tc.cached_mains for _, tc in other.per_trace])
+    assert len(theirs) < len(mine)
+    with pytest.raises(ProverError, match="count or shape"):
+        entry.refresh(other)
+    assert all(torch.equal(s, c) for s, c in zip(mine, fused_mod.cached_tensors([tc.cached_mains for _, tc in ctx.per_trace])))
+    entry.refresh(ctx)  # the capturing policy's context still pairs
 
 
 @pytest.mark.parametrize("mode", MODES)

@@ -30,8 +30,9 @@ sys.meta_path.insert(0, _BlockJax())
 # the verifier, the pre-prove checks, the models, the DAG interpreter, the
 # device transcript, the memory model, the soundness calculator, the BN254
 # outer scheme's modules (its field among them), the monomial engine, the
-# plain sumchecks, the commit graph, the roofline, the generic fields and
-# the host protocol tools, which the walk must reach
+# plain sumchecks, the commit graph, the roofline, the generic fields,
+# the host protocol tools, the fused prover and the mesh path, which the
+# walk must reach
 NEW_MODULES = {f"swirl_torch.verifier.{m}" for m in (
     "errors", "proof_shape", "gkr", "stacked_reduction", "whir", "batch_constraints",
     "transcript_extractor")} | {
@@ -44,7 +45,8 @@ NEW_MODULES = {f"swirl_torch.verifier.{m}" for m in (
     "swirl_torch.prover.monomial", "swirl_torch.prover.plain_sumcheck", "swirl_torch.prover.commit_kernel",
     "swirl_torch.roofline", "swirl_torch.fields.generic", "swirl_torch.lean_extraction",
     "swirl_torch.transcript", "swirl_torch.testing.golden"} | {
-    "swirl_torch.prover.fused", "swirl_torch.prover.deferred"}
+    "swirl_torch.prover.fused", "swirl_torch.prover.deferred"} | {
+    f"swirl_torch.parallel.{m}" for m in ("multihost", "annotate", "sharded")}
 
 
 def _is_blocked(module: str) -> bool:

@@ -13,7 +13,9 @@ the transcript on the card against the CPU and a golden proof on it, the
 BN254 outer golden case and round 0 in segments on the card, the fused
 prover's captured proves (golden bytes in segmented and jit mode, a replay
 on another trace, a replay on a fresh context of a cached trace whose
-first context was freed, a failed capture that raises), and the BN254
+first context was freed, a failed capture that raises, kernel D's ticket
+counter owned by each captured prove and commit, the golden bytes on a
+world-of-one NCCL mesh), and the BN254
 kernels G-J against their plain versions (the field's operations on
 random and edge operands, the permutations, compress layers at every kind
 of stride, leaf hashes of every absorb shape and of extension-field
@@ -761,3 +763,66 @@ def test_fused_capture_failure_raises_without_an_eager_fallback(monkeypatch):
     with pytest.raises(ProverError, match="capture failed"):
         fused.prove_fused(eng.backend, dpk, ctx, mode="segmented")
     assert not getattr(dpk, "_fused_cache", {}) and len(eager_runs) == 1
+
+
+def test_captures_own_their_tower_tickets(rand):
+    """Kernel D's ticket counter of a captured prove (and of a captured
+    commit) is the entry's own: torch hands out pooled streams round robin,
+    so the handle of a stream held alive recurs among the next ones, and a
+    counter keyed by the capture stream's handle would be shared with an
+    eager D on that handle while a replay runs. The entries' counters are
+    no stream's, and zero after a replay."""
+    from swirl_torch.prover import commit_kernel as ck
+    from swirl_torch.prover import fused
+
+    held = torch.cuda.Stream()
+    assert held.cuda_stream in {torch.cuda.Stream().cuda_stream for _ in range(64)}
+    eng, dpk, ctx = _fused_case("fib")
+    fused.prove_fused(eng.backend, dpk, ctx, mode="segmented")
+    entry = next(iter(dpk._fused_cache.values()))
+    ck.release_graphs()
+    ck.commit_kernel(2, 1, 3, rand(4, 1 << 12))
+    owned = [entry.tickets, next(iter(ck._GRAPHS.values())).tickets]
+    shared = {t.data_ptr() for t in p2._TICKETS.values()}
+    assert all(t.dtype == torch.int32 and t.numel() == 1 and t.data_ptr() not in shared for t in owned)
+    fused.prove_fused(eng.backend, dpk, ctx, mode="segmented")
+    ck.commit_kernel(2, 1, 3, rand(4, 1 << 12))
+    torch.cuda.synchronize()
+    assert [int(t.item()) for t in owned] == [0, 0]
+    fused.release_fused(dpk)
+    ck.release_graphs()
+
+
+def test_fused_prove_on_a_world_of_one_mesh():
+    """``prove_fused(mesh=proof_mesh())``, NCCL, a world of one: the graphs
+    capture the commits' collectives and replay to the golden bytes (a
+    replay issues no collective from Python); a gloo mesh of CUDA tensors
+    is refused by the graph modes, and eager refuses any mesh."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from swirl_torch.codec import encode_proof
+    from swirl_torch.parallel import multihost, sharded
+    from swirl_torch.prover import fused
+    from swirl_torch.prover.errors import ProverError
+    from swirl_torch.testing.golden import paths_for
+
+    eng, dpk, ctx = _fused_case("fib")
+    with open(paths_for("fib")["proof"], "rb") as f:
+        want = f.read()
+    mesh = multihost.proof_mesh()
+    assert dist.get_backend(mesh.get_group()) == "nccl" and mesh.size() == 1
+    for mode in ("segmented", "jit"):
+        sharded.reset_collective_counts()
+        assert encode_proof(fused.prove_fused(eng.backend, dpk, ctx, mode=mode, mesh=mesh)) == want
+        counts = sharded.collective_counts()
+        assert counts["all_gather"] >= 2
+        assert encode_proof(fused.prove_fused(eng.backend, dpk, ctx, mode=mode, mesh=mesh)) == want
+        assert sharded.collective_counts() == counts
+        assert next(iter(dpk._fused_cache))[3] is not None  # the mesh is in the key
+        fused.release_fused(dpk)
+    gloo = DeviceMesh.from_group(dist.new_group([0], backend="gloo"), "cuda", mesh_dim_names=("rows",))
+    with pytest.raises(ProverError, match="cannot be captured"):
+        fused.prove_fused(eng.backend, dpk, ctx, mode="segmented", mesh=gloo)
+    with pytest.raises(ValueError, match="mesh sharding requires"):
+        fused.prove_fused(eng.backend, dpk, ctx, mode="eager", mesh=mesh)
