@@ -163,7 +163,10 @@ slices of the path's codewords (then timed alone at (32, 2^25) and (1,
 too) and 15 bits, at 20 bits where the query grind runs (against the
 plain search) and from every cursor (the witness checked by the host).
 Phase 1 prints ``tools/isa.py``'s SASS census of G-J beside the bound's
-model of a BN254 product and permutation.
+model of a BN254 product and permutation, and the least SM-clocks a
+permutation can take by that census; phase 2 prints the least time it
+allows (``floor_ms``) beside the model's (``model_bound_ms``) for each H,
+I and J case, and takes the lower of the two as the bound.
 
 Phases 4 to 6, 10 and 11 use random traces from a seed. The debug check runs on
 the card before the prove, the port's host verifier on the proof's
@@ -195,7 +198,7 @@ import sys
 import time
 from contextlib import contextmanager
 
-from swirl_torch.roofline import BOOST_HZ, BUTTERFLY, PERM, SMS, THREADS_PER_SM, bound, plus, times
+from swirl_torch.roofline import BOOST_HZ, BUTTERFLY, HBM_BYTES_PER_S, PERM, SMS, THREADS_PER_SM, bound, plus, times
 
 LOG_ROWS = 20
 WIDTH = 64
@@ -216,13 +219,16 @@ GOLDEN_CASES = ("fib", "interactions", "preprocessed", "cached_preprocessed")
 # the H100's 3.35 TB/s and its operations over the rate of the pipes that
 # run them, max(m, (m + a) / 2) / (64 x 132 x 1.98e9) seconds.
 
-# BN254 (kernels G-J, csrc/bn254.cuh), the same model: an 8-word CIOS
-# product issues 128 32 x 32 -> 64-bit multiply-adds (IMAD.WIDE: a * b_i
-# and m * P) and 8 quotient products m = t_0 * (-P^-1), with about two
-# other operations for each multiply-add's carry and 24 for the final
-# conditional subtract; an add or a subtract 8 add-with-carry and 16 for
-# the conditional subtract. tools/isa.py's census of the kernels' SASS is
-# printed beside it (phase 1).
+# BN254 (kernels G-J, csrc/bn254.cuh), the same model, kept as the yardstick
+# that every design's time is read against: an 8-word CIOS product issues
+# 128 32 x 32 -> 64-bit multiply-adds (IMAD.WIDE: a * b_i and m * P) and 8
+# quotient products m = t_0 * (-P^-1), with about two other operations for
+# each multiply-add's carry and 24 for the final conditional subtract; an
+# add or a subtract 8 add-with-carry and 16 for the conditional subtract.
+# The kernels' products run on the FP64 pipe, which the model does not
+# count: tools/isa.py's census of their SASS is printed (phase 1), and for
+# H, I and J the least time it allows (isa.bn254_perm_floor, ``floor_ms``)
+# stands beside the model's (``model_bound_ms``); the lower is the bound.
 BN_MONT, BN_ADD = (136, 2 * 128 + 24), (0, 24)
 # a permutation: S-boxes x^5 of 3 products (width 3: 8 x 3 + 56 = 80; width
 # 2: 6 x 2 + 50 = 62), the round-constant adds, the external layers'
@@ -584,14 +590,18 @@ BN_GRIND_CASES = (
 )
 
 
-def check_bn254_kernels(device) -> dict:
+def check_bn254_kernels(device, perm_floor) -> dict:
     """Kernels G-J against their plain versions, bit for bit, at the outer
     root cell's shapes (the plain versions on slices of H's and I's big
     inputs, their times summed over the slices); G and H timed by CUDA
     events (mean of 10), I (mean of 3), J by events around each call (its
     witness's read included); each beside its bound and the plain version's
-    time. The first case of each kernel is the one the ``kernels`` line
-    reports."""
+    time. H's, I's and J's bound is the lower of the work model's
+    (``model_bound_ms``, which counts no FP64 pipe) and the least time
+    their permutations' own SASS census allows (``floor_ms``; ``perm_floor``
+    is ``isa.bn254_perm_floor``'s SM-clocks a lane's permutation of each
+    width); without it they fail. The first case of each kernel is the one
+    the ``kernels`` line reports."""
     import numpy as np
     import torch
 
@@ -605,13 +615,29 @@ def check_bn254_kernels(device) -> dict:
     gen.manual_seed(SEED + 2)
     results = {}
 
-    def record(kernel, label, shape, err, ms, plain_ms, work, how=""):
+    def record(kernel, label, shape, err, ms, plain_ms, work, how="", perms=None):
         bound_ms, bound_by = bound(work)
+        extra, floor = {}, ""
+        if perms is not None:
+            # H, I, J: the model counts no FP64 pipe, so the bound is the
+            # lower of the model's and the design's own census floor
+            t, count = perms
+            if t not in (perm_floor or {}):
+                raise AssertionError(f"kernel {kernel.name} [{label}]: no census floor for width {t}")
+            clocks, pipe = perm_floor[t]
+            byte_ms = work[0] / HBM_BYTES_PER_S * 1e3
+            op_ms = count * clocks / (SMS * BOOST_HZ) * 1e3
+            floor_ms = max(byte_ms, op_ms)
+            extra = {"model_bound_ms": bound_ms, "floor_ms": floor_ms}
+            floor = (f" model_bound_ms={bound_ms:.4f} ({bound_by}; the CIOS model) floor_ms={floor_ms:.4f} ({pipe}; "
+                     f"the design's own census, {count} width-{t} permutations)")
+            if floor_ms < bound_ms:
+                bound_ms, bound_by = floor_ms, "bytes" if byte_ms >= op_ms else "operations"
         _say(f"kernel {kernel.name} [{label}] shape={shape} equal=True max_abs_err={err} ms={ms:.4f} "
-             f"plain_ms={plain_ms:.4f}{how} bound_ms={bound_ms:.4f} ({bound_by})")
+             f"plain_ms={plain_ms:.4f}{how} bound_ms={bound_ms:.4f} ({bound_by}){floor}")
         results.setdefault(kernel.name, {
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None,
+            "bound_by": bound_by, "library_ms": None, **extra,
         })
 
     # G: every operation; mont_mul timed
@@ -666,7 +692,7 @@ def check_bn254_kernels(device) -> dict:
         del got
         ms = _cuda_time_ms(lambda: bp.compress_layer(layer, stride), reps=10)
         record(K.BN254_MERKLE, f"{label}, stride {stride}", tuple(layer.shape), err, ms, plain_ms,
-               bn_layer_work(n), how)
+               bn_layer_work(n), how, (2, n // 2))
         del layer
         torch.cuda.empty_cache()
 
@@ -684,8 +710,9 @@ def check_bn254_kernels(device) -> dict:
             raise AssertionError(f"kernel bn254_hash_rows [{label}]: max_abs_err {err}")
         del got
         ms = _cuda_time_ms(lambda: bp.hash_rows(x), reps=3)
+        w = shape[0] * (shape[2] if len(shape) == 3 else 1)
         record(K.BN254_LEAVES, label, shape, err, ms, plain_ms, bn_hash_work(shape),
-               f" (plain on 3 slices of {BN_SLICE} rows)")
+               f" (plain on 3 slices of {BN_SLICE} rows)", (3, shape[1] * -(-w // 16)))
         del x
         torch.cuda.empty_cache()
 
@@ -723,7 +750,7 @@ def check_bn254_kernels(device) -> dict:
         work = (4 * 32 + 8, times(plus(BN_PERM[3], times(BN_MONT, 2)), w + 1))
         record(K.BN254_GRIND, f"{label}, cursor ({cur}, {k} felts), {bits} bits, witness {w}{host}", (4, 8),
                0, ms, plain_ms, work, " (ms by events, the witness's read included; bound: the candidates "
-               "up to the witness)")
+               "up to the witness)", (3, w + 1))
     return results
 
 
@@ -2355,12 +2382,17 @@ def main() -> int:
     _say(f"latency: SM clocks a dependent operation {cycles} (at {ghz:.3f} GHz); one quad permutation's "
          f"chain {isa.QUAD_PERM_CHAIN}: {clocks:.0f} clocks, floor {perm_floor_ms:.6f} ms at the boost clock")
 
+    bn_perm_floor = None
     try:
-        for label, (outside, loops) in isa.report_census("bn254").items():
+        found = isa.report_census("bn254")
+        for label, (outside, loops) in found.items():
             trips = [isa.pipe_counts(body) for _, body in loops]
-            _say(f"census {label}: outside loops (fma, alu) {isa.pipe_counts(outside)}, one trip of each loop "
-                 f"{trips}")
-    except (OSError, subprocess.SubprocessError, SystemExit) as err:
+            _say(f"census {label}: outside loops (wide, fma, alu, fp64) {isa.pipe_counts(outside)}, one trip of each "
+                 f"loop {trips}")
+        bn_perm_floor = isa.bn254_perm_floor(found)
+        _say(f"census floor: SM-clocks a lane's permutation, by width (the pipe that sets it) {bn_perm_floor}, at "
+             f"{isa.PIPE_RATES} lane operations a clock an SM, {isa.ISSUE_RATE} issued")
+    except (OSError, subprocess.SubprocessError, SystemExit, ValueError) as err:
         _say(f"census: not read ({err})")
     _say(f"model: a BN254 product {BN_MONT}, add {BN_ADD}, permutation width 3 {BN_PERM[3]}, "
          f"width 2 {BN_PERM[2]} (multiplies, others)")
@@ -2368,7 +2400,7 @@ def main() -> int:
     results = check_kernels(device, perm_floor_ms)
     results.update(check_transcript_kernels(device, perm_floor_ms))
     t0 = time.perf_counter()
-    results.update(check_bn254_kernels(device))
+    results.update(check_bn254_kernels(device, bn_perm_floor))
     torch.cuda.empty_cache()
     _say(f"bn254 kernels: phase {time.perf_counter() - t0:.1f} s")
     K.reset_launch_counts()

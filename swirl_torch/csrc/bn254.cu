@@ -22,15 +22,25 @@
 //                one thread a candidate in grid-stride sweeps, the least
 //                hit by atomicMin, as kernel F.
 //
-// What bounds them on the H100: the multiply pipe. A product is 64 32 x 32
-// -> 64-bit multiply-adds for a * b and 64 for m * P, plus 8 low products
-// for the quotients; a width-3 permutation has 80 S-boxes (240 products),
-// a width-2 one 62 (186). A leaf of 32 felts reads 256 B and takes two
-// width-3 permutations: ~480 products, far above what its bytes cost.
-// Design: one thread a permutation, its state in registers (24 or 16
-// words), the round loops not unrolled (one round's code; the constants
-// are the same __constant__ word for every thread of a warp), a product's
-// 8 x 8 words unrolled. Digests are 32 B rows, loaded and stored as two
+// What bounds them on the H100: the arithmetic of the BN254 products. A
+// width-3 permutation has 80 S-boxes (240 products, 160 of them squares), a
+// width-2 one 62 (186, 124); a leaf of 32 felts reads 256 B and takes two
+// width-3 permutations, far above what its bytes cost. An 8-word CIOS
+// product issues 128 IMAD.WIDE (a 32 x 32 -> 64-bit product each), which
+// the card runs at about a third of IMAD's rate (tools/isa.py's pipe
+// bench), plus two ALU adds for each one's carry: the wide multiplies bound
+// it. Design: the products run on the FP64 pipe, which nothing else here
+// uses (bn254.cuh: 5 limbs of 2^52, three double operations a partial
+// product, 25 of them a product, 15 a square, 20 for the quotients), and
+// the integer pipes only add the halves into 64-bit column sums; the
+// quotients are 5 integer products a Montgomery product. Values stay
+// unreduced in 2^260-form limbs between products (a product's bound
+// absorbs its operands'), so only the partial rounds' unsboxed lanes are
+// brought below 3P, and a digest is reduced once, by the quotient steps
+// alone and one conditional subtract. One thread a permutation, its state
+// in registers (15 or 10 64-bit limbs), the round loops not unrolled (one
+// round's code; the constants are the same __constant__ words for every
+// thread of a warp). Digests are 32 B rows, loaded and stored as two
 // 16-byte vectors.
 #include <cuda_runtime.h>
 
@@ -83,13 +93,15 @@ __global__ void __launch_bounds__(128) op_kernel(int op, const uint32_t* __restr
   if (i >= n) return;
   const Fe x = load_fe(a + 8 * i);
   const Fe y = load_fe(b + 8 * i);
+  // R = 2^256 against the core's R' = 2^260: x y / 2^256 = x (16 y) / 2^260,
+  // x 2^256 = x K_516 / 2^260 and x / 2^256 = (16 x) / 2^260
   Fe r;
   switch (op) {
     case ADD: r = add(x, y); break;
     case SUB: r = sub(x, y); break;
-    case MONT_MUL: r = mont_mul(x, y); break;
-    case FROM_CANONICAL: r = to_mont(x); break;
-    case TO_CANONICAL: r = from_mont(x); break;
+    case MONT_MUL: r = words(canon(mul(to_d5(limbs(x)), to_d5(limbs(y, 4))))); break;
+    case FROM_CANONICAL: r = words(canon(mul(to_d5(limbs(x)), const_d5<BN254_K516_LIMBS>()))); break;
+    case TO_CANONICAL: r = words(canon(redc_only(limbs(x, 4)))); break;
     default: r = add(x, x); break;
   }
   store_fe(out + 8 * i, r);
@@ -100,25 +112,27 @@ __global__ void __launch_bounds__(128) permute_kernel(const uint32_t* __restrict
                                                       uint32_t* __restrict__ out, long long n) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  Fe s[T];
+  // R-form lanes into R' form (a product by K_264) and back (by K_256)
+  F5 s[T];
 #pragma unroll
-  for (int k = 0; k < T; ++k) s[k] = load_fe(in + (i * T + k) * 8);
+  for (int k = 0; k < T; ++k) s[k] = mul(to_d5(limbs(load_fe(in + (i * T + k) * 8))), const_d5<BN254_K264_LIMBS>());
   permute<T>(s);
 #pragma unroll
-  for (int k = 0; k < T; ++k) store_fe(out + (i * T + k) * 8, s[k]);
+  for (int k = 0; k < T; ++k)
+    store_fe(out + (i * T + k) * 8, words(canon(mul(to_d5(norm(s[k])), const_d5<BN254_K256_LIMBS>()))));
 }
 
 // Output o < m compresses digest l = 2s (o / s) + o % s (s = 2^log_s) with
-// digest l + s, both canonical, Monty inside.
+// digest l + s, both canonical, R' form inside.
 __global__ void __launch_bounds__(128) compress_kernel(const uint32_t* __restrict__ in,
                                                        uint32_t* __restrict__ out, long long m,
                                                        int log_s) {
   const long long o = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (o >= m) return;
   const long long left = ((o >> log_s) << (log_s + 1)) + (o & ((1LL << log_s) - 1));
-  Fe s[2] = {to_mont(load_fe(in + 8 * left)), to_mont(load_fe(in + 8 * (left + (1LL << log_s))))};
+  F5 s[2] = {to_mont(load_fe(in + 8 * left)), to_mont(load_fe(in + 8 * (left + (1LL << log_s))))};
   permute<2>(s);
-  store_fe(out + 8 * o, from_mont(s[0]));
+  store_fe(out + 8 * o, to_canonical(s[0]));
 }
 
 // Value r (of w) of leaf col lies at in[(r >> log_d) * (n << log_d) +
@@ -132,7 +146,7 @@ __global__ void __launch_bounds__(128) hash_rows_kernel(const int64_t* __restric
   const int64_t* src = in + (col << log_d);
   const long long row_stride = n << log_d;
   const int dmask = (1 << log_d) - 1;
-  Fe s[3] = {fe_zero(), fe_zero(), fe_zero()};
+  F5 s[3] = {};
   for (int base = 0; base < w; base += BLOCK) {
     const int len = w - base < BLOCK ? w - base : BLOCK;
     uint32_t f[BLOCK];
@@ -145,7 +159,7 @@ __global__ void __launch_bounds__(128) hash_rows_kernel(const int64_t* __restric
     if (len > FELTS) s[1] = to_mont(pack8(f + FELTS));
     permute<3>(s);
   }
-  store_fe(out + 8 * col, from_mont(s[0]));
+  store_fe(out + 8 * col, to_canonical(s[0]));
 }
 
 // Kernel J: the smallest w in [0, end) whose observe + sample_bits gives 0
@@ -160,7 +174,7 @@ __global__ void __launch_bounds__(128) hash_rows_kernel(const int64_t* __restric
 __global__ void __launch_bounds__(128) grind_kernel(const uint32_t* __restrict__ st, int a, int shift,
                                                     uint32_t mask, unsigned long long end,
                                                     unsigned long long* found) {
-  Fe s0[3];
+  F5 s0[3];
 #pragma unroll
   for (int k = 0; k < 3; ++k) s0[k] = to_mont(load_fe(st + 8 * k));
   const Fe prefix = load_fe(st + 24);
@@ -176,10 +190,10 @@ __global__ void __launch_bounds__(128) grind_kernel(const uint32_t* __restrict__
       if (i == q) v.w[i] |= (uint32_t)(w << rbit);
       if (i == q + 1 && rbit != 0) v.w[i] |= (uint32_t)(w >> (32 - rbit));
     }
-    const Fe vm = to_mont(v);
-    Fe s[3] = {a == 0 ? vm : s0[0], a == 1 ? vm : s0[1], s0[2]};
+    const F5 vm = to_mont(v);
+    F5 s[3] = {a == 0 ? vm : s0[0], a == 1 ? vm : s0[1], s0[2]};
     permute<3>(s);
-    const Fe x = from_mont(s[1]);
+    const Fe x = to_canonical(s[1]);
     unsigned long long r = 0;
 #pragma unroll
     for (int i = L - 1; i >= 0; --i) r = ((r << 32) | x.w[i]) % BB_P;
@@ -191,10 +205,10 @@ unsigned blocks_for(long long n, int threads) { return (unsigned)((n + threads -
 
 }  // namespace
 
-// Round constants in Montgomery form, 8 words each, flat in the order
-// external initial (4, 3), internal (56), external final (4, 3) for width 3
-// and (3, 2), (50), (3, 2) for width 2.
-extern "C" int swirl_bn254_set_constants(const uint32_t* c3, const uint32_t* c2) {
+// Round constants in R' form (c 2^260 mod P), 5 limbs of 2^52 each, flat in
+// the order external initial (4, 3), internal (56), external final (4, 3)
+// for width 3 and (3, 2), (50), (3, 2) for width 2.
+extern "C" int swirl_bn254_set_constants(const uint64_t* c3, const uint64_t* c2) {
   cudaMemcpyToSymbol(c_rc3, c3, sizeof(c_rc3));
   cudaMemcpyToSymbol(c_rc2, c2, sizeof(c_rc2));
   return (int)cudaGetLastError();

@@ -25,6 +25,8 @@ plain permutation stays in that form between operations.
 
 from __future__ import annotations
 
+from fractions import Fraction
+
 import numpy as np
 import torch
 
@@ -249,3 +251,255 @@ def to_canonical(a):
 
 def dbl(a):
     return _op("dbl", a)
+
+
+# -- the card's arithmetic, modelled step by step ------------------------------
+#
+# Kernels G-J (csrc/bn254.cuh) multiply on the FP64 pipe: an element is 5
+# limbs of radix 2^52 (R' = 2^260 inside the kernels), each limb of a
+# product's operand an exact double below 2^52. A partial product a * b (a,
+# b < 2^52) takes three double operations (Emmart, Zheng and Weems, ARITH
+# 2018):
+#
+#     hi = fma_rz(a, b, 2^104)             2^104 + H 2^52, H = a b >> 52
+#     lo = fma_rz(a, b, (2^104 + 2^52) - hi)   2^52 + L, L = a b mod 2^52
+#
+# and the bit patterns of lo and hi, read as integers, are L and H plus a
+# constant (the exponent's bits), which the 64-bit integer column sums
+# take off at once by starting from minus their total (f64_offset). The
+# functions below repeat every operation of the kernels on Python ints,
+# the double operations rounded as the card rounds them, and assert every
+# bound the kernels rely on.
+
+F64_LIMBS, F64_RADIX = 5, 52
+F64_MASK = (1 << F64_RADIX) - 1
+F64_R = 1 << (F64_LIMBS * F64_RADIX)
+F64_NP = (-pow(P, -1, 1 << F64_RADIX)) % (1 << F64_RADIX)  # -P^-1 mod 2^52
+F64_LO_BITS, F64_HI_BITS = (1023 + 52) << 52, (1023 + 104) << 52  # 2^52, 2^104 as doubles
+_U64 = (1 << 64) - 1
+_C1, _C2 = 1 << 104, (1 << 104) + (1 << 52)
+# the quotient estimate of f64_reduce: q = floor((top >> 5) * INV), INV = 32 /
+# (P >> 208 + 1) rounded toward zero to a double
+F64_P4 = P >> 208
+
+
+def f64_limbs(v: int) -> list:
+    """An int below 2^260 -> its 5 limbs of radix 2^52."""
+    assert 0 <= v < F64_R
+    return [(v >> (F64_RADIX * k)) & F64_MASK for k in range(F64_LIMBS)]
+
+
+def f64_value(x) -> int:
+    """The value of 5 limbs (normalized or not)."""
+    return sum(int(v) << (F64_RADIX * k) for k, v in enumerate(x))
+
+
+def _rz53(x):
+    """x (an int or a Fraction) rounded toward zero to 53 significant bits:
+    what the card's rz operations return for that exact result."""
+    if x == 0:
+        return 0
+    sign, x = (1, x) if x > 0 else (-1, -x)
+    x = Fraction(x)
+    e = x.numerator.bit_length() - x.denominator.bit_length()
+    if Fraction(2) ** e > x:
+        e -= 1
+    ulp = Fraction(2) ** (e - 52)
+    r = (x // ulp) * ulp
+    return sign * (int(r) if r.denominator == 1 else r)
+
+
+F64_INV = _rz53(Fraction(32, F64_P4 + 1))
+
+
+def _exact(x):
+    assert _rz53(x) == x, f"{x} is not a double"
+    return x
+
+
+def f64_bits(x: int) -> int:
+    """The bit pattern of a positive double of integer value x."""
+    x = _exact(x)
+    assert x > 0
+    e = x.bit_length() - 1
+    mant = (x >> (e - 52)) if e >= 52 else (x << (52 - e))
+    return ((e + 1023) << 52) | (mant & F64_MASK)
+
+
+def f64_fma_rz(a, b, c):
+    return _rz53(a * b + c)
+
+
+def f64_double(x: int) -> int:
+    """A limb (below 2^52) as the double the kernels make of it: its bits
+    with 2^52's exponent, minus 2^52 (exact)."""
+    assert 0 <= x <= F64_MASK, f"limb {x} is not below 2^52"
+    return _exact((x | F64_LO_BITS) - F64_LO_BITS)
+
+
+def _split(a: int, b: int):
+    """(bits of lo, L, bits of hi, H) of the three double operations on a * b."""
+    assert 0 <= a <= F64_MASK and 0 <= b <= F64_MASK
+    hi = f64_fma_rz(a, b, _C1)
+    s = _exact(_C2 - hi)  # the subtract is exact
+    lo = f64_fma_rz(a, b, s)
+    assert lo == a * b + s, "the low half is not exact"
+    h, l = divmod(a * b, 1 << F64_RADIX)
+    lo_bits, hi_bits = f64_bits(lo), f64_bits(hi)
+    assert lo_bits == F64_LO_BITS + l and hi_bits == F64_HI_BITS + h
+    return lo_bits, l, hi_bits, h
+
+
+def _pairs(k: int) -> int:
+    """Products a_i b_j (i, j < 5) whose low half lands in column k = i + j."""
+    return k + 1 if 0 <= k < 5 else (9 - k if 5 <= k <= 8 else 0)
+
+
+def _red_lo(k: int) -> int:
+    """Low halves of the quotient products m_s P_t (t >= 1) in column s + t."""
+    return sum(1 for s in range(F64_LIMBS) for t in range(1, F64_LIMBS) if s + t == k)
+
+
+def f64_offset(k: int, ab: bool) -> int:
+    """Column k's starting value, mod 2^64: minus the exponent bits of every
+    low (2^52's) and high (2^104's) half it will take: a * b's (``ab``) and
+    the quotients' m_s P_t (low halves for t >= 1 at s + t, high halves at
+    s + t + 1). A square adds the same counts (its cross products twice)."""
+    lo = (_pairs(k) if ab else 0) + _red_lo(k)
+    hi = (_pairs(k - 1) if ab else 0) + _pairs(k - 1)
+    return (-(lo * F64_LO_BITS + hi * F64_HI_BITS)) & _U64
+
+
+class _Columns:
+    """The kernels' 10 uint64 column sums: the bits they add (mod 2^64) beside
+    the values those stand for; a read asserts the two agree."""
+
+    def __init__(self, ab: bool):
+        self.raw = [f64_offset(k, ab) for k in range(2 * F64_LIMBS)]
+        self.val = [0] * (2 * F64_LIMBS)
+
+    def add(self, k: int, bits: int, value: int, times: int = 1) -> None:
+        self.raw[k] = (self.raw[k] + times * bits) & _U64
+        self.val[k] += times * value
+
+    def read(self, k: int) -> int:
+        assert self.raw[k] == self.val[k] < (1 << 64), f"column {k}: {self.raw[k]} against {self.val[k]}"
+        return self.raw[k]
+
+
+def _redc_columns(c: _Columns) -> list:
+    """The 5 quotient steps and the final carries of every product: step s
+    clears column s with m = (c_s mod 2^52) (-P^-1) mod 2^52 (an integer
+    product) and carries ceil(c_s / 2^52) into column s + 1 (c_s + m P_0's
+    low half is that multiple of 2^52, so that half is never made); returns
+    columns 5-9, normalized (value < 2^260)."""
+    p = f64_limbs(P)
+    for s in range(F64_LIMBS):
+        cs = c.read(s)
+        m = ((cs & F64_MASK) * F64_NP) & _U64 & F64_MASK
+        md = f64_double(m)
+        h0 = f64_fma_rz(md, p[0], _C1)
+        h = (m * p[0]) >> F64_RADIX
+        assert f64_bits(h0) == F64_HI_BITS + h
+        c.add(s + 1, f64_bits(h0), h)
+        assert (cs + (m * p[0])) & F64_MASK == 0
+        carry = ((cs + F64_MASK) & _U64) >> F64_RADIX
+        assert carry == (cs + ((m * p[0]) & F64_MASK)) >> F64_RADIX
+        c.add(s + 1, carry, carry)
+        for t in range(1, F64_LIMBS):
+            lo_bits, l, hi_bits, hh = _split(md, p[t])
+            c.add(s + t, lo_bits, l)
+            c.add(s + t + 1, hi_bits, hh)
+    out = [c.read(k) for k in range(F64_LIMBS, 2 * F64_LIMBS)]
+    return f64_norm(out)
+
+
+def f64_mont(a: list, b: list, square: bool = False) -> list:
+    """The kernels' product a b / 2^260 (mod P, below a b / 2^260 + P) of
+    normalized limbs (``square``: b is a, 15 partial products, the cross
+    ones added twice); normalized limbs out."""
+    a = [f64_double(v) for v in a]
+    b = a if square else [f64_double(v) for v in b]
+    c = _Columns(ab=True)
+    for i in range(F64_LIMBS):
+        for j in range(i if square else 0, F64_LIMBS):
+            lo_bits, l, hi_bits, h = _split(a[i], b[j])
+            times = 2 if square and i != j else 1
+            c.add(i + j, lo_bits, l, times)
+            c.add(i + j + 1, hi_bits, h, times)
+    return _redc_columns(c)
+
+
+def f64_redc(x: list) -> list:
+    """x / 2^260 (mod P, below x / 2^260 + P): the quotient steps alone, on
+    x's limbs (below 2^57 each) in columns 0-4."""
+    c = _Columns(ab=False)
+    for k, v in enumerate(x):
+        c.raw[k] = (c.raw[k] + v) & _U64
+        c.val[k] += v
+    return _redc_columns(c)
+
+
+def f64_add(*xs) -> list:
+    """Limb by limb, no carry (each limb stays far below 2^64)."""
+    out = [sum(v) for v in zip(*xs)]
+    assert max(out) < 1 << 57
+    return out
+
+
+def f64_norm(x: list) -> list:
+    """The carries of limbs below 2^64: limbs below 2^52, value below 2^260."""
+    x = list(x)
+    for k in range(F64_LIMBS - 1):
+        x[k + 1] += x[k] >> F64_RADIX
+        x[k] &= F64_MASK
+        assert x[k + 1] < 1 << 64
+    assert x[-1] <= F64_MASK, f"value {f64_value(x)} is not below 2^260"
+    return x
+
+
+def f64_reduce(x: list) -> list:
+    """A value below 3P with the value of x mod P, x's limbs below 2^56: q =
+    floor(top / (P_4 + 1)) from top = x_4 + (x_3 >> 52) (below x / 2^208, so
+    q P <= x) by one fma on the FP64 pipe, then x - q P limb by limb and
+    signed carries."""
+    assert max(x) < 1 << 56
+    top = x[4] + (x[3] >> F64_RADIX)
+    td = f64_double(top >> 5)
+    qd = f64_fma_rz(td, F64_INV, Fraction(1 << 52))
+    assert (1 << 52) <= qd < (1 << 53)
+    q = f64_bits(int(qd)) - F64_LO_BITS
+    assert q == int(Fraction(td) * F64_INV) and q * P <= f64_value(x)
+    p = f64_limbs(P)
+    y = [v - q * pk for v, pk in zip(x, p)]
+    assert all(q * pk < 1 << 63 for pk in p)
+    for k in range(F64_LIMBS - 1):
+        y[k + 1] += y[k] >> F64_RADIX  # arithmetic: a negative limb borrows
+        y[k] &= F64_MASK
+    assert 0 <= y[4] <= F64_MASK and f64_value(y) < 3 * P
+    return y
+
+
+def f64_canon(x: list) -> int:
+    """The canonical value of normalized limbs below 2P: x - P where that is
+    not negative (signed carries), else x."""
+    assert f64_value(x) < 2 * P and max(x) <= F64_MASK
+    d = [v - pk for v, pk in zip(x, f64_limbs(P))]
+    for k in range(F64_LIMBS - 1):
+        d[k + 1] += d[k] >> F64_RADIX
+        d[k] &= F64_MASK
+    return f64_value(x if d[4] < 0 else d)
+
+
+# R'-form constants (R' = 2^260): a product by K_e takes x to x 2^(e - 260)
+F64_K = {e: pow(2, e, P) for e in (256, 264, 516, 520)}
+
+
+def f64_mont_mul_model(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Kernel G's ``mont_mul`` (R = 2^256) on (..., 8) int32 operands, by the
+    model: a b / 2^256 = mont'(a, 16 b) (16 b below 2^260), then one
+    conditional subtract. Operands below P, or P itself."""
+    a, b = torch.broadcast_tensors(a, b)
+    out = [f64_canon(f64_mont(f64_limbs(x), f64_limbs(16 * y)))
+           for x, y in zip(to_ints(a), to_ints(b))]
+    return from_ints(out, a.device).reshape(a.shape)

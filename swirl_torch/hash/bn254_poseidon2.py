@@ -365,7 +365,7 @@ def grind_plain(state, a: int, shift: int, bits: int, end: int = None) -> int:
     end = _grind_operand(state, a, shift, bits, end)
     st = fb.words(state)
     monty = fb.from_canonical_w(st[:3])
-    batch = min(1 << 16 if state.is_cuda else 1 << 12, max(64, 4 << bits))
+    batch = min(1 << 20 if state.is_cuda else 1 << 12, max(64, 4 << bits))
     q, r = divmod(shift, fb.WORD_BITS)
     for lo in range(0, end, batch):
         w = torch.arange(lo, min(lo + batch, end), dtype=torch.int64, device=state.device)
@@ -398,3 +398,154 @@ def grind(state, a: int, shift: int, bits: int, end: int = None) -> int:
                  found.data_ptr())
     w = int(found.item())
     return w if w < end else -1
+
+
+# -- the kernels' arithmetic, modelled step by step ----------------------------
+#
+# csrc/bn254.cuh keeps a lane as 5 limbs of radix 2^52 in R' = 2^260 form
+# (fields/bn254.py f64_*): products on the FP64 pipe, adds limb by limb
+# with no carry, the carries only before a product's operand is made
+# (f64_norm). The partial rounds' lanes 1 .. t - 1, which no S-box takes,
+# are brought below 3P after each internal layer (f64_reduce); nothing else
+# is reduced until a digest leaves (f64_redc, f64_canon). The functions
+# below repeat the kernels on Python ints and assert every bound;
+# f64_permute_bounds proves the value bounds for every input below the
+# bounds it is given.
+
+
+@lru_cache(maxsize=None)
+def f64_constants(t: int):
+    """(ext_i, internal, ext_f) in R' form (c 2^260 mod P), 5 limbs each: the
+    kernels' round constants."""
+    lim = lambda c: tuple(fb.f64_limbs(c * fb.F64_R % P_BN254))
+    ext_i, internal, ext_f = constants(t)
+    return (tuple(tuple(lim(c) for c in r) for r in ext_i), tuple(lim(c) for c in internal),
+            tuple(tuple(lim(c) for c in r) for r in ext_f))
+
+
+def f64_constant_words(t: int) -> np.ndarray:
+    """:func:`f64_constants` flat as uint64 limbs, in the order external
+    initial, internal, external final: what the kernels' __constant__
+    tables hold."""
+    ext_i, internal, ext_f = f64_constants(t)
+    flat = [c for r in ext_i for c in r] + list(internal) + [c for r in ext_f for c in r]
+    return np.ascontiguousarray(np.array(flat, dtype=np.uint64).reshape(-1))
+
+
+def _f64_sbox(x):
+    x2 = fb.f64_mont(x, None, square=True)
+    x4 = fb.f64_mont(x2, None, square=True)
+    return fb.f64_mont(x4, x)
+
+
+def _f64_external(s):
+    total = fb.f64_add(*s)
+    return [fb.f64_add(total, x) for x in s]
+
+
+def _f64_full_round(s, rc):
+    return _f64_external([_f64_sbox(fb.f64_norm(fb.f64_add(x, c))) for x, c in zip(s, rc)])
+
+
+def f64_permute(s: list, t: int) -> list:
+    """The kernels' ``permute<t>`` on t lanes of limbs (R' form)."""
+    ext_i, internal, ext_f = f64_constants(t)
+    s = _f64_external(s)
+    for rc in ext_i:
+        s = _f64_full_round(s, rc)
+    for c in internal:
+        s[0] = _f64_sbox(fb.f64_norm(fb.f64_add(s[0], c)))
+        total = fb.f64_add(*s)
+        s[-1] = fb.f64_add(s[-1], s[-1])
+        s = [fb.f64_add(total, x) for x in s]
+        s = [s[0]] + [fb.f64_reduce(x) for x in s[1:]]
+    for rc in ext_f:
+        s = _f64_full_round(s, rc)
+    return s
+
+
+def _f64_to_mont(v: int, e: int = 520) -> list:
+    """v 2^(e - 260) by one product: e = 520 takes a canonical value to R' form."""
+    return fb.f64_mont(fb.f64_limbs(v), fb.f64_limbs(fb.F64_K[e]))
+
+
+def _f64_digest(x: list) -> int:
+    """A lane (R' form) -> its canonical value: the quotient steps alone,
+    then one conditional subtract."""
+    return fb.f64_canon(fb.f64_redc(x))
+
+
+def permute_model(state, t: int):
+    """``permute_kernel<t>`` by the model: each (t, 8) Monty (R = 2^256) state
+    of an (n, t, 8) tensor into R' form by a product with 2^264 mod P,
+    permuted, back by a product with 2^256 mod P, made canonical."""
+    out = []
+    for lanes in np.asarray(fb.to_ints(state), dtype=object).reshape(-1, t):
+        s = f64_permute([_f64_to_mont(int(v), 264) for v in lanes], t)
+        out += [fb.f64_canon(fb.f64_mont(fb.f64_norm(x), fb.f64_limbs(fb.F64_K[256]))) for x in s]
+    return fb.from_ints(out, state.device).reshape(state.shape)
+
+
+def compress_layer_model(layer, stride: int):
+    """``compress_kernel`` by the model (the pairing of :func:`compress_layer_plain`)."""
+    v = fb.to_ints(layer)
+    n = len(v)
+    left = [2 * stride * (o // stride) + o % stride for o in range(n // 2)]
+    out = [_f64_digest(f64_permute([_f64_to_mont(v[i]), _f64_to_mont(v[i + stride])], 2)[0]) for i in left]
+    return fb.from_ints(out, layer.device)
+
+
+def hash_rows_model(mat):
+    """``hash_rows_kernel`` by the model: per 16-felt block the packed scalars
+    into R' form over lanes 0 and 1 (lane 0 alone for a last block of at
+    most 8), one width-3 permutation; lane 0's digest."""
+    from .multi_field import BABY_BEAR_RATE, FELTS_PER_SCALAR, pack_felts
+
+    rows = _leaf_rows(mat).tolist()
+    out = []
+    for row in rows:
+        s = [[0] * fb.F64_LIMBS for _ in range(3)]
+        for i in range(0, len(row), BABY_BEAR_RATE):
+            for k, v in enumerate(pack_felts(row[i : i + BABY_BEAR_RATE])):
+                s[k] = _f64_to_mont(v)
+            s = f64_permute(s, 3)
+        out.append(_f64_digest(s[0]))
+    return fb.from_ints(out, mat.device)
+
+
+def f64_permute_bounds(t: int, lane_max: int) -> int:
+    """Worst-case values through the kernels' ``permute<t>`` for lanes below
+    ``lane_max`` (normalized limbs): asserts every operand of a product is
+    below 2^260 and every limb that f64_reduce takes below 2^56; returns
+    the bound of the output lanes. A product of values below a and b is
+    below a b / 2^260 + P; a sum of k normalized values has limbs below
+    k 2^52."""
+    R, P, M = fb.F64_R, P_BN254, fb.F64_MASK
+
+    def mont(a, b):
+        assert a < R and b < R
+        return a * b // R + P
+
+    def sbox(x):
+        x2 = mont(x, x)
+        return mont(mont(x2, x2), x)
+
+    rc = P  # round constants below P
+    r_f, r_p, _ = _PARAMS[t]
+    s = [lane_max] * t
+    s = [sum(s) + x for x in s]
+    for _ in range(r_f // 2):
+        s = [sbox(x + rc) for x in s]
+        s = [sum(s) + x for x in s]
+    for _ in range(r_p):
+        s[0] = sbox(s[0] + rc)
+        total = sum(s)
+        s = [total + s[0]] + [total + x for x in s[1:-1]] + [total + 2 * s[-1]]
+        terms = 1 + (t - 1) + 2  # s0 and the reduced lanes, the last twice more
+        assert terms * M < 1 << 56
+        s = [s[0]] + [3 * P] * (t - 1)
+    for _ in range(r_f // 2):
+        s = [sbox(x + rc) for x in s]
+        s = [sum(s) + x for x in s]
+    assert max(s) < R
+    return max(s)

@@ -271,14 +271,12 @@ def _upload_poseidon2_constants(lib) -> None:
 
 
 def _upload_bn254_constants(lib) -> None:
-    """The BN254 Poseidon2 round constants of widths 3 and 2, Monty words,
-    each flat in the order external initial, internal, external final."""
-    from ..hash.bn254_poseidon2 import _dev_constants
+    """The BN254 Poseidon2 round constants of widths 3 and 2 in the kernels'
+    form (c 2^260 mod P, 5 uint64 limbs of 2^52), each flat in the order
+    external initial, internal, external final."""
+    from ..hash.bn254_poseidon2 import f64_constant_words
 
-    flat = [
-        np.ascontiguousarray(np.concatenate([c.reshape(-1) for c in _dev_constants(t)]), dtype=np.uint32)
-        for t in (3, 2)
-    ]
+    flat = [f64_constant_words(t) for t in (3, 2)]
     rc = lib.swirl_bn254_set_constants(*[f.ctypes.data for f in flat])
     if rc != 0:
         raise KernelError(f"bn254 constant upload failed: CUDA error {rc}")

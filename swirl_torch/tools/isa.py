@@ -39,7 +39,9 @@ import sys
 
 from .. import kernels as K
 
+WIDE = ("IMAD.WIDE", "IMAD.HI")  # the high half of a 32 x 32 product: a third of IMAD's rate
 FMA_PIPE = ("IMAD",)
+FP64_PIPE = ("DFMA", "DADD", "DMUL", "DSETP", "DMNMX")
 ALU_PIPE = ("IADD3", "ISETP", "SEL", "VIMNMX", "IMNMX", "LOP3", "SHF", "LEA", "MOV", "PRMT", "PLOP3", "IABS")
 CLASSES = ("IMAD.WIDE", "IMAD.HI", "IMAD.MOV", "IMAD.IADD", "IMAD.SHL", "IMAD")
 # the kernels the census lists, by source file (the tag in a mangled name)
@@ -84,11 +86,18 @@ def klass(opcode: str) -> str:
 
 
 def pipe(c: str) -> str:
+    if c in WIDE:
+        return "wide"
     if c.startswith(FMA_PIPE):
         return "fma"
     if c in ALU_PIPE:
         return "alu"
+    if c in FP64_PIPE:
+        return "fp64"
     return "other"
+
+
+PIPES = ("wide", "fma", "alu", "fp64", "other")
 
 
 def census(insns) -> tuple:
@@ -114,7 +123,7 @@ def _by_pipe(counter) -> str:
     tot = collections.Counter()
     for c, n in counter.items():
         tot[pipe(c)] += n
-    return f"fma {tot['fma']} alu {tot['alu']} other {tot['other']} total {sum(counter.values())}"
+    return " ".join(f"{p} {tot[p]}" for p in PIPES) + f" total {sum(counter.values())}"
 
 
 def _fmt(counter, top: int = 0) -> str:
@@ -137,10 +146,10 @@ def kernel_label(name: str):
 
 
 def pipe_counts(counter) -> tuple:
-    """(FMA-pipe, ALU-pipe) instructions of a class counter."""
-    fma = sum(n for c, n in counter.items() if pipe(c) == "fma")
-    alu = sum(n for c, n in counter.items() if pipe(c) == "alu")
-    return fma, alu
+    """(wide, FMA-pipe, ALU-pipe, FP64-pipe) instructions of a class counter:
+    ``wide`` is IMAD.WIDE and IMAD.HI, ``fma`` the FMA pipe's other
+    instructions."""
+    return tuple(sum(n for c, n in counter.items() if pipe(c) == p) for p in PIPES[:4])
 
 
 def report_census(only: str = "") -> dict:
@@ -162,29 +171,76 @@ def report_census(only: str = "") -> dict:
     return found
 
 
+# the published rates of an H100 SM, lane operations a clock: 64 on each of
+# the FP64, ALU and FMA pipes (the CUDA C++ Programming Guide's throughput
+# table, compute capability 9.0), 128 issued (4 schedulers of a warp each)
+PIPE_RATES = {"fp64": 64, "alu": 64, "fma": 64}
+ISSUE_RATE = 128
+# the rounds of csrc/bn254.cuh's permute<t>: (full rounds a loop, partial rounds)
+BN254_ROUNDS = {3: (4, 56), 2: (3, 50)}
+
+
+def bn254_perm_floor(found: dict) -> dict:
+    """{t: (SM-clocks, pipe)}: the least SM-clocks one lane's width-t
+    permutation of csrc/bn254.cuh can take on an H100 by its own SASS
+    census (``report_census("bn254")``'s ``bn254.permute_kernel<t>``): its two
+    full-round loops' trips times the full rounds of each, its partial-round
+    loop (the smallest of the three) times the partial rounds, each pipe's
+    count at :data:`PIPE_RATES` (IMAD.WIDE on the FMA pipe) and all of them
+    at :data:`ISSUE_RATE`; the largest of those, and what sets it. Raises
+    ValueError when a width's kernel is missing or has not three loops."""
+    out = {}
+    for t, (half, partial) in BN254_ROUNDS.items():
+        label = f"bn254.permute_kernel<{t}>"
+        if label not in found:
+            raise ValueError(f"census floor: not read ({label} not in the census)")
+        loops = sorted((body for _, body in found[label][1] if sum(body.values()) > 1), key=lambda b: sum(b.values()))
+        if len(loops) != 3:
+            raise ValueError(f"census floor: not read ({label}: {len(loops)} loops, not 3)")
+        total = collections.Counter()
+        for body, n in zip(loops, (partial, half, half)):
+            for c, k in body.items():
+                total[c] += k * n
+        wide, fma, alu, fp64 = pipe_counts(total)
+        clocks = {"fp64": fp64 / PIPE_RATES["fp64"], "alu": alu / PIPE_RATES["alu"],
+                  "fma": (wide + fma) / PIPE_RATES["fma"], "issue": sum(total.values()) / ISSUE_RATE}
+        pipe_name = max(clocks, key=clocks.get)
+        out[t] = (clocks[pipe_name], pipe_name)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # pipe bench
 # ---------------------------------------------------------------------------
 
+# (name, lane operations a chain's step counts): PTX operations, then field
+# operations of csrc/field.cuh, csrc/poseidon2.cu and csrc/bn254.cuh (a
+# BN254 product counts one)
 OPS = (
-    "mul.lo.u32", "mul.hi.u32", "mul.wide.u32", "add.u32", "min.u32", "xor.b32",
-    "shf.l.wrap.b32", "field.cuh mont_mul", "field.cuh add", "poseidon2.cu mont",
-    "poseidon2.cu add",
+    ("mul.lo.u32", 1), ("mul.hi.u32", 1), ("mul.wide.u32", 1), ("add.u32", 1), ("min.u32", 1),
+    ("xor.b32", 1), ("shf.l.wrap.b32", 1), ("field.cuh mont_mul", 1), ("field.cuh add", 1),
+    ("poseidon2.cu mont", 1), ("poseidon2.cu add", 1), ("fma.rz.f64", 1), ("add.rz.f64", 1),
+    ("mad.lo.cc.u32 + madc.hi.u32", 2), ("bn254.cuh product", 1), ("bn254.cuh square", 1),
 )
 CHAINS = 8
 
 BENCH_CU = r"""
 #include <cstdint>
 #include "poseidon2_copy.cuh"  // csrc/poseidon2.cu, for its device functions
+#include "bn254.cuh"
 
 template <int OP>
 __global__ void bench_kernel(uint32_t* out, long long* clocks, int iters, uint32_t seed) {
   uint32_t a[%(chains)d];
   uint64_t w[%(chains)d];
+  double d[%(chains)d];
   const uint32_t tid = blockIdx.x * blockDim.x + threadIdx.x;
 #pragma unroll
-  for (int c = 0; c < %(chains)d; ++c) { a[c] = (seed * (tid + 7 * c + 1)) %% bb::P; w[c] = a[c]; }
+  for (int c = 0; c < %(chains)d; ++c) {
+    a[c] = (seed * (tid + 7 * c + 1)) %% bb::P; w[c] = a[c]; d[c] = (double)a[c];
+  }
   const uint32_t y = (seed ^ tid) %% bb::P | 1u;
+  const double yd = 0.5 + 1e-9 * (double)(tid & 1023), zd = 1.0 + (double)y;
   long long t0 = clock64(), g0;
   asm volatile("mov.u64 %%0, %%%%globaltimer;" : "=l"(g0));
 #pragma unroll 1
@@ -203,6 +259,14 @@ __global__ void bench_kernel(uint32_t* out, long long* clocks, int iters, uint32
       if (OP == 8) a[c] = bb::add(a[c], b);
       if (OP == 9) a[c] = mont(a[c], y %% bb::P);
       if (OP == 10) a[c] = add(a[c], b);
+      if (OP == 11) asm volatile("fma.rz.f64 %%0, %%0, %%1, %%2;" : "+d"(d[c]) : "d"(yd), "d"(zd));
+      if (OP == 12) asm volatile("add.rz.f64 %%0, %%0, %%1;" : "+d"(d[c]) : "d"(yd));
+      if (OP == 13) {
+        uint32_t lo = (uint32_t)w[c], hi = (uint32_t)(w[c] >> 32);
+        asm volatile("mad.lo.cc.u32 %%0, %%0, %%2, %%3; madc.hi.u32 %%1, %%0, %%2, %%1;"
+                     : "+r"(lo), "+r"(hi) : "r"(y), "r"(b));
+        w[c] = ((uint64_t)hi << 32) | lo;
+      }
     }
   }
   long long g1;
@@ -210,27 +274,77 @@ __global__ void bench_kernel(uint32_t* out, long long* clocks, int iters, uint32
   const long long t1 = clock64();
   uint32_t acc = 0;
 #pragma unroll
-  for (int c = 0; c < %(chains)d; ++c) acc ^= a[c] ^ (uint32_t)w[c] ^ (uint32_t)(w[c] >> 32);
+  for (int c = 0; c < %(chains)d; ++c)
+    acc ^= a[c] ^ (uint32_t)w[c] ^ (uint32_t)(w[c] >> 32) ^ (uint32_t)__double2loint(d[c]);
   out[tid] = acc;
   if (threadIdx.x == 0) { clocks[2 * blockIdx.x] = t1 - t0; clocks[2 * blockIdx.x + 1] = g1 - g0; }
 }
 
+// the BN254 product (OP 14) and square (OP 15) of csrc/bn254.cuh, one
+// chain a lane op, 4 chains a thread
+%(bn254_bench)s
+
 #define CASE(k) case k: bench_kernel<k><<<blocks, threads, 0, (cudaStream_t)stream>>>(out, clocks, iters, 12345u); break;
+#define BN_CASE(k) case k: bn_bench_kernel<k><<<blocks, threads, 0, (cudaStream_t)stream>>>(out, clocks, iters, 12345u); break;
 extern "C" int isa_bench(int op, int blocks, int threads, int iters, uint32_t* out, long long* clocks, void* stream) {
-  switch (op) { CASE(0) CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8) CASE(9) CASE(10) default: return -1; }
+  switch (op) {
+    CASE(0) CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8) CASE(9) CASE(10) CASE(11) CASE(12)
+    CASE(13) BN_CASE(14) BN_CASE(15)
+    default: return -1;
+  }
   return (int)cudaGetLastError();
+}
+"""
+BN_CHAINS = 4
+# the BN254 bench kernel: the product (OP 14) and the square (OP 15) of the
+# core in csrc/bn254.cuh, on BN_CHAINS independent chains a thread
+BN254_BENCH = r"""
+template <int OP>
+__global__ void bn_bench_kernel(uint32_t* out, long long* clocks, int iters, uint32_t seed) {
+  using namespace bn254;
+  const uint32_t tid = blockIdx.x * blockDim.x + threadIdx.x;
+  F5 x[%(bn_chains)d];
+  Fe y;
+#pragma unroll
+  for (int i = 0; i < L; ++i) y.w[i] = (seed ^ tid) * (2 * i + 1) & (i == L - 1 ? 0x0fffffffu : ~0u);
+  const D5 yd = to_d5(limbs(y));
+#pragma unroll
+  for (int c = 0; c < %(bn_chains)d; ++c) {
+    Fe v;
+#pragma unroll
+    for (int i = 0; i < L; ++i) v.w[i] = seed * (tid + 7 * c + i + 1) & (i == L - 1 ? 0x0fffffffu : ~0u);
+    x[c] = limbs(v);
+  }
+  long long t0 = clock64(), g0;
+  asm volatile("mov.u64 %%0, %%%%globaltimer;" : "=l"(g0));
+#pragma unroll 1
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int c = 0; c < %(bn_chains)d; ++c) x[c] = OP == 14 ? mul(to_d5(x[c]), yd) : sqr(to_d5(x[c]));
+  }
+  long long g1;
+  asm volatile("mov.u64 %%0, %%%%globaltimer;" : "=l"(g1));
+  const long long t1 = clock64();
+  uint32_t acc = 0;
+#pragma unroll
+  for (int c = 0; c < %(bn_chains)d; ++c)
+#pragma unroll
+    for (int i = 0; i < NL; ++i) acc ^= (uint32_t)x[c].l[i];
+  out[tid] = acc;
+  if (threadIdx.x == 0) { clocks[2 * blockIdx.x] = t1 - t0; clocks[2 * blockIdx.x + 1] = g1 - g0; }
 }
 """
 
 
 def _build_bench(name: str, source: str) -> str:
-    """Builds ``source`` beside copies of csrc/field.cuh and csrc/poseidon2.cu
+    """Builds ``source`` beside copies of csrc/field.cuh, csrc/bn254.cuh and csrc/poseidon2.cu
     into ``build/<name>/bench.so``; returns its path."""
     src_dir = os.path.join(K.BUILD_DIR, name)
     os.makedirs(src_dir, exist_ok=True)
     with open(os.path.join(src_dir, "bench.cu"), "w") as f:
         f.write(source)
     shutil.copy(os.path.join(K.CSRC, "field.cuh"), src_dir)
+    shutil.copy(os.path.join(K.CSRC, "bn254.cuh"), src_dir)
     shutil.copy(os.path.join(K.CSRC, "poseidon2.cu"), os.path.join(src_dir, "poseidon2_copy.cuh"))
     out = os.path.join(src_dir, "bench.so")
     cmd = [_tool("nvcc"), *K.NVCC_FLAGS, "-I", src_dir, "-o", out, os.path.join(src_dir, "bench.cu")]
@@ -243,7 +357,8 @@ def _build_bench(name: str, source: str) -> str:
 def pipe_bench(iters: int = 2048) -> None:
     import torch
 
-    lib_path = _build_bench("isa_bench", BENCH_CU % {"chains": CHAINS})
+    bn = BN254_BENCH % {"bn_chains": BN_CHAINS}
+    lib_path = _build_bench("isa_bench", BENCH_CU % {"chains": CHAINS, "bn254_bench": bn})
     lib = ctypes.CDLL(lib_path)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.isa_bench.argtypes = [i32, i32, i32, i32, vp, vp, vp]
@@ -256,7 +371,7 @@ def pipe_bench(iters: int = 2048) -> None:
     out = torch.empty(blocks * threads, dtype=torch.int32, device=dev)
     clocks = torch.empty(2 * blocks, dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    for op, name in enumerate(OPS):
+    for op, (name, per_step) in enumerate(OPS):
         def run():
             rc = lib.isa_bench(op, blocks, threads, iters, out.data_ptr(), clocks.data_ptr(), stream)
             if rc != 0:
@@ -271,12 +386,13 @@ def pipe_bench(iters: int = 2048) -> None:
         ms = start.elapsed_time(end)
         c = clocks.view(-1, 2).double()
         ghz = float((c[:, 0] / c[:, 1]).median())
-        lane_ops = blocks * threads * iters * CHAINS
+        chains = BN_CHAINS if name.startswith("bn254") else CHAINS
+        lane_ops = blocks * threads * iters * chains * per_step
         rate = lane_ops / (ms * 1e-3 * ghz * 1e9 * sms)
         body = max(census(funcs[op])[1], key=lambda lp: sum(lp[1].values()), default=None)
         classes = _fmt(body[1], 6) if body else "no loop"
         print(f"pipe {name}: {rate:.2f} lane ops a clock per SM at {ghz:.3f} GHz "
-              f"({ms:.3f} ms; loop of {iters} x {CHAINS} chains: {classes})")
+              f"({ms:.3f} ms; loop of {iters} x {chains} chains: {classes})")
 
 
 # ---------------------------------------------------------------------------
@@ -293,20 +409,30 @@ def pipe_bench(iters: int = 2048) -> None:
 # product (taken beside the shuffle): 3 adds, 3 products, 1 shuffle. The
 # permutation: M_E, 8 full rounds, 13 partial rounds.
 QUAD_PERM_CHAIN = {"add": 7 + 8 * 8 + 13 * 3, "mont": 8 * 3 + 13 * 3, "shfl": 2 + 8 * 2 + 13}
-LATENCY_OPS = ("add", "mont", "shfl")
+LATENCY_OPS = ("add", "mont", "shfl", "bn254")
 LATENCY_STEPS = 16  # dependent operations a loop trip
 LATENCY_ITERS = 4096  # loop trips: 65,536 dependent operations, 0.7-2 M clocks
 
 LATENCY_CU = r"""
 #include <cstdint>
 #include "field.cuh"
+#include "bn254.cuh"
 
 // one warp, one dependent chain a lane: OP 0 bb::fast::add, 1 bb::fast::mont,
-// 2 a quad's __shfl_xor_sync, the operations of permute_quad
+// 2 a quad's __shfl_xor_sync, the operations of permute_quad; 3 the BN254
+// product of bn254.cuh
 template <int OP>
 __global__ void latency_kernel(uint32_t* out, long long* clocks, int iters, uint32_t seed) {
   uint32_t a = (seed * (threadIdx.x + 1)) % bb::P;
   const uint32_t y = (seed ^ threadIdx.x) % bb::P | 1u;
+  bn254::Fe xw, zw;
+#pragma unroll
+  for (int i = 0; i < bn254::L; ++i) {
+    xw.w[i] = seed * (threadIdx.x + i + 1) & (i == bn254::L - 1 ? 0x0fffffffu : ~0u);
+    zw.w[i] = (seed ^ threadIdx.x) * (2 * i + 1) & (i == bn254::L - 1 ? 0x0fffffffu : ~0u);
+  }
+  bn254::F5 x = bn254::limbs(xw);
+  const bn254::D5 z = bn254::to_d5(bn254::limbs(zw));
   long long g0, g1;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g0));
   const long long t0 = clock64();
@@ -317,17 +443,20 @@ __global__ void latency_kernel(uint32_t* out, long long* clocks, int iters, uint
       if (OP == 0) a = bb::fast::add(a, y);
       if (OP == 1) a = bb::fast::mont(a, y);
       if (OP == 2) a = __shfl_xor_sync(0xffffffffu, a, 1 + (j & 1), 4);
+      if (OP == 3) x = bn254::mul(bn254::to_d5(x), z);
     }
   }
   const long long t1 = clock64();
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g1));
+#pragma unroll
+  for (int i = 0; i < bn254::NL; ++i) a ^= (uint32_t)x.l[i];
   out[threadIdx.x] = a;
   if (threadIdx.x == 0) { clocks[0] = t1 - t0; clocks[1] = g1 - g0; }
 }
 
 #define CASE(k) case k: latency_kernel<k><<<1, 32, 0, (cudaStream_t)stream>>>(out, clocks, iters, 12345u); break;
 extern "C" int isa_latency(int op, int iters, uint32_t* out, long long* clocks, void* stream) {
-  switch (op) { CASE(0) CASE(1) CASE(2) default: return -1; }
+  switch (op) { CASE(0) CASE(1) CASE(2) CASE(3) default: return -1; }
   return (int)cudaGetLastError();
 }
 """

@@ -121,17 +121,30 @@ def test_field_broadcasts_and_round_trips():
 
 
 def test_cuda_source_constants():
-    """The modulus, R^2 and -P^-1 mod 2^32 written into bn254.cuh."""
+    """The modulus (words and 2^52 limbs), -P^-1 mod 2^52, the R'-form
+    factors K_e = 2^e mod P, the exponent bits and the quotient's 1 / P
+    written into bn254.cuh."""
     src = open(os.path.join(CSRC, "bn254.cuh")).read()
 
     def words(name):
         body = re.search(rf"#define {name} \\\s*\n([^\n]*)", src).group(1)
         return sum(int(w, 16) << (32 * i) for i, w in enumerate(re.findall(r"0x([0-9a-f]{8})u", body)))
 
+    def limbs(name):
+        body = re.search(rf"#define {name} ([^\n]*)", src).group(1)
+        return sum(int(w, 16) << (52 * i) for i, w in enumerate(re.findall(r"0x([0-9a-f]+)ull", body)))
+
+    def const(name):
+        return re.search(rf"constexpr \w+ {name} = ([^;]*);", src).group(1)
+
     assert words("BN254_P_WORDS") == P
-    assert words("BN254_R2_WORDS") == pow(2, 512, P)
-    np0 = int(re.search(r"NP0 = 0x([0-9a-f]{8})u", src).group(1), 16)
-    assert np0 == (-pow(P, -1, 1 << 32)) % (1 << 32)
+    assert limbs("BN254_P_LIMBS") == P
+    for e, k in fb.F64_K.items():
+        assert limbs(f"BN254_K{e}_LIMBS") == k == pow(2, e, P)
+    assert int(const("NP52").rstrip("ull"), 16) == fb.F64_NP == (-pow(P, -1, 1 << 52)) % (1 << 52)
+    assert float.fromhex(const("INV_P4")) == fb.F64_INV
+    assert int(const("LO_BITS").rstrip("ull"), 16) == fb.F64_LO_BITS
+    assert int(const("HI_BITS").rstrip("ull"), 16) == fb.F64_HI_BITS
 
 
 @pytest.mark.parametrize("t", [2, 3])
@@ -330,3 +343,117 @@ def test_hash_rows_matches_jax_hash_rows_dev(w):
     mat = rng.integers(0, P_BB, (w, 2), dtype=np.int64)
     want = jp.hash_rows_dev(mat.T.astype(np.uint32))
     assert torch.equal(bp.hash_rows(torch.from_numpy(mat)), _from16(np.asarray(want)))
+
+
+# -- the kernels' FP64 arithmetic, modelled step by step ------------------------
+#
+# fields/bn254.py f64_* and hash/bn254_poseidon2.py f64_* repeat csrc/bn254.cuh
+# operation by operation on Python ints (every double operation rounded as
+# the card rounds it, every bound asserted); here they are held to the plain
+# versions and to the JAX package.
+
+
+def _monty_edges():
+    return [fb.limbs_from_int(v) for v in EDGES]
+
+
+@pytest.mark.parametrize("shape", [(12,), (3, 5)])
+def test_f64_product_matches_plain_and_jax(shape):
+    """Kernel G's mont_mul on the FP64 core (x (16 y) / 2^260) equals the plain
+    mont_mul and jbn254.mont_mul, on random, batched and edge operands."""
+    a = _operands(11, shape)
+    b = _operands(12, shape).flip(0)
+    got = fb.f64_mont_mul_model(a, b)
+    assert torch.equal(got, fb.mont_mul(a, b))
+    assert torch.equal(got, _from16(np.asarray(jb.mont_mul(_to16(a), _to16(b)))))
+    e = fb.tensor(np.stack(_monty_edges()), "cpu")
+    ea, eb = e[:, None].expand(4, 4, 8).contiguous(), e[None].expand(4, 4, 8).contiguous()
+    got = fb.f64_mont_mul_model(ea, eb)
+    assert torch.equal(got, fb.mont_mul(ea, eb))
+    assert torch.equal(got, _from16(np.asarray(jb.mont_mul(_to16(ea), _to16(eb)))))
+
+
+def test_f64_square_redc_reduce_and_canon():
+    """The square equals the product of a value by itself, the quotient steps
+    alone divide by 2^260, reduce keeps the value mod P below 3P, canon
+    gives the least residue: on random values and edges up to the bounds the
+    permutation gives an operand (below 16P) and reduce (limbs below 2^55)."""
+    rng = np.random.default_rng(13)
+    r_inv = pow(fb.F64_R, -1, P)
+    vals = [0, 1, P - 1, P, 2 * P - 1, 16 * P - 1] + [int.from_bytes(rng.bytes(33), "little") % (16 * P)
+                                                      for _ in range(20)]
+    for v in vals:
+        x = fb.f64_limbs(v)
+        sq = fb.f64_mont(x, None, square=True)
+        assert sq == fb.f64_mont(x, x)
+        assert fb.f64_value(sq) % P == v * v * r_inv % P and fb.f64_value(sq) < v * v // fb.F64_R + P
+        assert fb.f64_value(fb.f64_redc(x)) % P == v * r_inv % P
+        if v < 2 * P:
+            assert fb.f64_canon(x) == v % P
+    top = (1 << 52) - 1
+    for limbs in ([5 * top] * 5, [5 * top] * 4 + [0], [0, 0, 0, 5 * top, 3 * (P >> 208)], [0] * 5):
+        y = fb.f64_reduce(limbs)
+        assert fb.f64_value(y) % P == fb.f64_value(limbs) % P
+
+
+def _model_states(t):
+    """Random Monty states, all P - 1 and all 0."""
+    _, monty = _monty_states(40 + t, 3, t)
+    return torch.cat([monty, torch.zeros((1, t, 8), dtype=torch.int32)])
+
+
+@pytest.mark.parametrize("t", [2, 3])
+def test_f64_permute_model_matches_plain(t):
+    """The kernels' permutation by the model (R-form lanes into R' form and
+    back) equals permute_plain (which the ``slow``
+    test_permute_matches_jax_permute_dev holds to the JAX package)."""
+    state = _model_states(t)
+    assert torch.equal(bp.permute_model(state, t), bp.permute_plain(state, t))
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("t", [2, 3])
+def test_f64_permute_model_matches_jax_permute_dev(t):
+    """The model's permutation equals jbn254_poseidon2.permute_dev (about 50 s
+    of XLA compile a width)."""
+    state = _model_states(t)
+    assert torch.equal(bp.permute_model(state, t), _from16(np.asarray(jp.permute_dev(_to16(state), t))))
+
+
+@pytest.mark.parametrize("fill", ["random", "zero", "p_minus_1"])
+def test_f64_compress_model_matches_plain(fill):
+    rng = np.random.default_rng(14)
+    n = 8
+    vals = {"random": _ints(rng, n), "zero": [0] * n, "p_minus_1": [P - 1] * n}[fill]
+    layer = fb.from_ints(vals, "cpu")
+    for stride in (1, 2, n // 2):
+        assert torch.equal(bp.compress_layer_model(layer, stride), bp.compress_layer_plain(layer, stride))
+
+
+@pytest.mark.parametrize("w", [1, 8, 9, 16, 17, 32, 33])
+def test_f64_hash_rows_model_matches_plain(w):
+    """Leaves of every absorb shape: one column random, one of BabyBear P - 1."""
+    rng = np.random.default_rng(50 + w)
+    mat = rng.integers(0, P_BB, (w, 2), dtype=np.int64)
+    mat[:, 1] = P_BB - 1
+    mat = torch.from_numpy(mat)
+    assert torch.equal(bp.hash_rows_model(mat), bp.hash_rows_plain(mat))
+
+
+def test_f64_hash_rows_model_matches_plain_in_place():
+    mat = torch.full((3, 2, 4), P_BB - 1, dtype=torch.int64)
+    mat[0, 0] = torch.tensor([0, 1, 2, 3])
+    assert torch.equal(bp.hash_rows_model(mat), bp.hash_rows_plain(mat))
+
+
+@pytest.mark.parametrize("t", [2, 3])
+def test_f64_permute_bounds_hold_for_every_input(t):
+    """Worst-case values through the kernels' permutation: every product
+    operand below 2^260, every limb f64_reduce takes below 2^56. Inputs: a
+    product's output (H's lanes, I's packed scalars: below 2P), and for
+    width 3 the lane I carries from one permutation to the next (a fixed
+    point of the output bound)."""
+    out = bp.f64_permute_bounds(t, 2 * P)
+    assert out < 16 * P
+    if t == 3:
+        assert bp.f64_permute_bounds(3, out) <= out

@@ -20,7 +20,8 @@ kernels G-J against their plain versions (the field's operations on
 random and edge operands, the permutations, compress layers at every kind
 of stride, leaf hashes of every absorb shape and of extension-field
 codewords, the device tree against the host tree, the grind from every
-sponge cursor). Skips
+sponge cursor; all-zero and all-(P - 1) digest layers and codewords, and
+the product on every pair of edge values, for the FP64 core). Skips
 without a card. This file imports no jax, so on a machine without jax run it with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
@@ -632,6 +633,66 @@ def test_bn254_grind_kernel_witness_is_the_least_at_20_bits(bn_gen, a, k):
     t._obs_buf = list(felts)
     assert w >= 0 and t.check_witness(20, w)
     assert bp.grind(state, a, 31 * k, 20, end=w) == -1
+
+
+# Edge operands of the redesigned core (csrc/bn254.cuh: 2^52 limbs, products
+# on the FP64 pipe, lanes unreduced between products): the largest values
+# and zeros, where a limb or a column sum is at its bound.
+
+
+@pytest.mark.parametrize("fill", ["zero", "p_minus_1", "alternating"])
+@pytest.mark.parametrize("stride", [1, 2, "half"])
+def test_bn254_compress_kernel_on_edge_digests(bn_gen, fill, stride):
+    from swirl_torch.fields import bn254 as fb
+    from swirl_torch.hash import bn254_poseidon2 as bp
+
+    n = 512
+    stride = n // 2 if stride == "half" else stride
+    vals = {"zero": [0] * n, "p_minus_1": [fb.P - 1] * n, "alternating": [0, fb.P - 1] * (n // 2)}[fill]
+    layer = fb.from_ints(vals, "cuda")
+    assert torch.equal(bp.compress_layer(layer, stride), bp.compress_layer_plain(layer, stride))
+
+
+@pytest.mark.parametrize("shape", [(1, 130), (8, 130), (9, 130), (16, 130), (17, 130), (32, 130), (33, 130),
+                                   (3, 100, 4), (8, 64, 4), (9, 64, 4)])
+def test_bn254_hash_rows_kernel_on_edge_felts(shape):
+    """Codewords of BabyBear P - 1 everywhere, and (w, h, 4) ones read in place."""
+    from swirl_torch.hash import bn254_poseidon2 as bp
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    mat = torch.full(shape, P - 1, dtype=torch.int64, device="cuda")
+    assert torch.equal(bp.hash_rows(mat), bp.hash_rows_plain(mat))
+
+
+def test_bn254_device_tree_root_at_16_rows_a_query_on_edge_felts(rand):
+    """A tree with strided levels at a query stride of 2^10 and levels above
+    it: its root and openings equal the host tree's."""
+    from swirl_torch.hash import scheme as sc
+
+    mat = rand(3, 1 << 14)
+    mat[:, ::3] = P - 1
+    tree = sc.DeviceBn254Tree(mat, 16, False)
+    s = sc.Bn254OuterScheme
+    host = sc.build_host_tree(mat.cpu().numpy().astype(np.uint64), 16, False, s.hash_slice, s.compress)
+    assert tree.root == host.root
+    idx = [0, 1, host.query_stride - 1, 77]
+    assert tree.batch_query_proofs_arr(torch.tensor(idx, device="cuda")) == host.batch_query_proofs(idx)
+
+
+def test_bn254_mont_mul_edges_through_the_new_core(bn_gen):
+    """Kernel G's product (x (16 y) / 2^260 on the FP64 core) and the
+    conversions on every pair of edge values, against plain."""
+    from swirl_torch.fields import bn254 as fb
+
+    r = (1 << 256) % fb.P
+    vals = [0, 1, 2, fb.P - 2, fb.P - 1, fb.P, r, fb.P - r, (1 << 255) % fb.P, fb.P >> 1]
+    e = fb.from_ints(vals, "cuda")
+    a = e.repeat_interleave(len(vals), 0).contiguous()
+    b = e.repeat(len(vals), 1).contiguous()
+    assert torch.equal(fb.mont_mul(a, b), fb.op_plain("mont_mul", a, b))
+    for op in ("from_canonical", "to_canonical"):
+        assert torch.equal(getattr(fb, op)(e), fb.op_plain(op, e))
 
 
 def test_bn254_kernels_refuse_bad_operands(bn_gen):
