@@ -24,7 +24,9 @@ Phases, each printing its result on lines of its own:
    floor is the chain's length times one quad permutation's longest
    dependent chain of field operations (``tools/isa.py``
    ``QUAD_PERM_CHAIN``) at the latencies its latency bench measures on the
-   card, at the boost clock (the tower at n = 8192: 13 levels);
+   card, at the boost clock (the tower at n = 8192: 13 levels); E's own
+   layout, a state word a lane, has its chain too (``ROW_PERM_CHAIN``,
+   ``row_floor_ms``);
 3. golden: the four golden proofs through the port's ``run_test`` on the
    card (debug check, prove, verify), byte for byte against
    ``tests/golden`` (vk, proof, transcript log), then proved again on a
@@ -68,11 +70,15 @@ Phases, each printing its result on lines of its own:
    proof-of-work grind) against their plain versions at the cases of the
    path (a GKR sub-round's absorb of 12 felts and squeeze of 4 from every
    entry cursor, an EF squeeze from every sample cursor, the absorb of the
-   2^10-coefficient final polynomial, the query indices of a WHIR round;
+   2^10-coefficient final polynomial and one felt either side of it,
+   reth segment 13's 38,952-felt column openings (against the host
+   transcript's sponge there), the query indices of a WHIR round;
    the folding, mu and query-phase grinds), and, in the app and Keccak
    phases, a second prove on ``DeviceTranscript()``: its proof's sha256
    must equal the host-transcript proof's, E and F must have launched, and
-   each stage span's host reads (``swirl_torch.testing.host_reads``: each
+   the longest absorb of E's launches is printed (the longest case of
+   ``DUPLEX_CASES`` beside it), and each stage span's host reads
+   (``swirl_torch.testing.host_reads``: each
    waits for the card's stream, as does each host write, a tensor made from
    host data, printed beside them) must not exceed the fixed numbers that
    the CPU tests hold (``STAGE_READS``): the sponge stays on the card from
@@ -105,7 +111,9 @@ Phases, each printing its result on lines of its own:
    5 and 20 bits, LogUp 18 or more): debug check, prove, verify and the
    two refusals as for the other cells, with H, I and J launching in the
    prove, ``build_host_tree`` refusing to run and no device-to-host copy
-   of a codeword's size. The codec holds the inner scheme's digests only,
+   of a codeword's size; kernel J's searches of the prove and their ms,
+   summed by bits (CUDA events around each call, which reads its witness).
+   The codec holds the inner scheme's digests only,
    so this proof is verified as the prover returned it and its sha256 is
    taken over its fields;
 11. reth: OpenVM reth segments of ``benchmarks/reth-block-23992138-atlas.json``
@@ -159,8 +167,10 @@ operation over 2^20 random and the edge operands; H's permutations at
 widths 2 and 3 and its compress at the outer root cell's pairing strides
 (plain on slices of the big levels); I on (32, 2^16) and (1, 2^16, 4)
 slices of the path's codewords (then timed alone at (32, 2^25) and (1,
-2^24, 4)); J from every sponge cursor at 5 bits (against the host loop
-too) and 15 bits, at 20 bits where the query grind runs (against the
+2^24, 4)); J, its operands by value as the outer transcript passes them,
+from every sponge cursor at 5 bits (against the host loop too), 15 bits
+and 18 bits (the logup grind; against the plain search on [0, w]), at
+20 bits where the query grind runs (against the
 plain search) and from every cursor (the witness checked by the host).
 Phase 1 prints ``tools/isa.py``'s SASS census of G-J beside the bound's
 model of a BN254 product and permutation, and the least SM-clocks a
@@ -429,18 +439,70 @@ TOWER_LEVELS = 13  # of the tower's widest layer, TOWER_MAX = 2^13
 # every sample cursor (1 to 3 squeeze across a permutation); the app's
 # WHIR final polynomial, 2^10 EF coefficients; the app's first WHIR round's
 # 193 query indices of 19 bits, after the query grind (cursor (0, 7)); a
-# run with host felts.
+# run with host felts; absorbs of one felt either side of the final
+# polynomial's and one of host felts after device felts that ends on a
+# block's end; the longest absorb of the cells' proves, reth segment 13's
+# column openings (38,952 felts; Keccak's 2,633 columns make 21,064), held
+# against the host transcript's sponge (``HOST_CHECKED``: duplex_plain takes
+# about 29 s there).
+LONGEST_ABSORB = 38952
 DUPLEX_CASES = (
     [(f"gkr_subround_from_{c}", c % 8, c, 12, 0, 4, -1) for c in range(9)]
     + [(f"sample_ext_from_{c}", 0, c, 0, 0, 4, -1) for c in range(9)]
     + [("final_poly_absorb", 0, 4, 4 << 10, 0, 0, -1),
        ("query_indices", 0, 7, 0, 0, 193, 19),
-       ("host_felts", 3, 5, 5, 7, 1, -1)]
+       ("host_felts", 3, 5, 5, 7, 1, -1),
+       ("absorb_4095", 0, 4, (4 << 10) - 1, 0, 4, -1),
+       ("absorb_4097", 0, 4, (4 << 10) + 1, 0, 4, -1),
+       ("absorb_4088_and_5_host_from_3", 3, 8, (4 << 10) - 8, 5, 4, -1),
+       ("longest_absorb", 0, 4, LONGEST_ABSORB, 0, 4, -1)]
 )
+HOST_CHECKED = ("longest_absorb",)
 # Kernel F's cases: (label, absorb cursor, bits): the query-phase grind
 # (after observe_ext(y0)), the mu grind, the folding grind (after an absorb
 # of 8)
 GRIND_CASES = (("query_grind", 4, 20), ("mu_grind", 0, 15), ("folding_grind", 0, 5))
+
+
+def transcript_inputs(device):
+    """E's then F's inputs, in case order, from one generator seeded SEED + 1:
+    ("duplex", case, state, absorb, host) and ("grind", case, state)."""
+    import torch
+
+    from swirl_torch.fields.babybear import P
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 1)
+
+    def rand(*shape):
+        return torch.randint(0, P, shape, generator=gen, device=device, dtype=torch.int64)
+
+    for case in DUPLEX_CASES:
+        k, n_host = case[3], case[4]
+        st, absorb = rand(16), rand(k) if k else None
+        yield "duplex", case, st, absorb, [int(v) for v in rand(n_host).cpu()]
+    for case in GRIND_CASES:
+        yield "grind", case, rand(16)
+
+
+def duplex_host(state, absorb, host, a: int, s: int, n_squeeze: int, bits: int):
+    """Kernel E's function by the host transcript's sponge
+    (``swirl_torch.transcript.Transcript``, its permutation the native host
+    library's when loaded): (new state, squeezed values) as tensors on
+    ``state``'s device."""
+    import numpy as np
+    import torch
+
+    from swirl_torch.transcript import Transcript
+
+    t = Transcript()
+    t.state, t.absorb_idx, t.sample_idx = state.cpu().numpy().astype(np.uint64), a, s
+    for v in ([] if absorb is None else absorb.cpu().tolist()) + list(host):
+        t.observe(v)
+    out = [t.sample() for _ in range(n_squeeze)]
+    out = [v & ((1 << bits) - 1) for v in out] if bits >= 0 else out
+    return (torch.tensor(t.state.astype(np.int64), device=state.device),
+            torch.tensor(out, dtype=torch.int64, device=state.device))
 
 
 def duplex_perms(a, s, k, n_squeeze) -> int:
@@ -456,56 +518,55 @@ def duplex_perms(a, s, k, n_squeeze) -> int:
     return perms
 
 
-def check_transcript_kernels(device, perm_floor_ms: float) -> dict:
+def check_transcript_kernels(device, perm_floor_ms: float, row_floor_ms: float) -> dict:
     """Kernels E and F against their plain versions on seeded random states
     and felts, bit for bit (the new state, the squeezed values, the
     witness). Both timed by CUDA graph replay (they run faster than Python
-    enqueues them). E's ms beside the bound and its floor, the chain of its
+    enqueues them). E's ms beside the bound and its floors: the chain of its
     launch's dependent permutations times ``perm_floor_ms`` (one quad
-    permutation's latency floor), and its ms per permutation; F's with its input state
-    restored before every call, the bound counted from the witness found
-    (w + 1 candidates and the advance), the floor from the sweeps up to the
-    witness's and the advance, each one permutation's latency floor."""
+    permutation's latency floor, ``floor_ms``) and times ``row_floor_ms``
+    (E's own layout, a word a lane: ``row_floor_ms``), and its ms per
+    permutation; its plain version timed once, by the call that is compared
+    (``HOST_CHECKED`` rows: the host transcript's sponge, ``host_ms``).
+    F's with its input state restored before every call, the bound counted
+    from the witness found (w + 1 candidates and the advance), the floor
+    from the sweeps up to the witness's and the advance, each one
+    permutation's latency floor."""
     import torch
 
     from swirl_torch import kernels as K
-    from swirl_torch.fields.babybear import P
     from swirl_torch.hash import poseidon2 as p2
 
-    gen = torch.Generator(device=device)
-    gen.manual_seed(SEED + 1)
-
-    def rand(*shape):
-        return torch.randint(0, P, shape, generator=gen, device=device, dtype=torch.int64)
-
     results = {}
-    for label, a, s, k, n_host, n_squeeze, bits in DUPLEX_CASES:
-        st0, absorb = rand(16), rand(k) if k else None
-        host = [int(v) for v in rand(n_host).cpu()]
-        st = st0.clone()
-        got = torch.cat([p2.duplex(st, absorb, host, a, s, n_squeeze, bits), st])
-        new, out = p2.duplex_plain(st0, absorb, host, a, s, n_squeeze, bits)
-        err = _max_abs_err(got, torch.cat([out, new]))
-        if err:
-            raise AssertionError(f"kernel duplex [{label}]: max_abs_err {err}")
-        plain_ms = _cuda_time_ms(lambda: p2.duplex_plain(st0, absorb, host, a, s, n_squeeze, bits), reps=2)
-        ms = _graph_time_ms(lambda: p2.duplex(st, absorb, host, a, s, n_squeeze, bits), reps=10)
-        perms = duplex_perms(a, s, k + n_host, n_squeeze)
-        work = ((16 + k) * 8 + (16 + n_squeeze) * 8, times(PERM, perms))
-        bound_ms, bound_by = bound(work)
-        floor_ms = perms * perm_floor_ms
-        per = f" ({1e3 * ms / perms:.2f} us a permutation)" if perms else ""
-        _say(
-            f"kernel duplex [{label}] cursors=({a}, {s}) absorb={k}+{n_host} squeeze={n_squeeze} bits={bits} "
-            f"equal=True max_abs_err={err} ms={ms:.4f} (by CUDA graph replay){per} plain_ms={plain_ms:.4f} "
-            f"bound_ms={bound_ms:.6f} ({bound_by}) floor_ms={floor_ms:.4f} ({perms} x the permutation's floor)"
-        )
-        results.setdefault(K.DUPLEX.name, {
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None, "floor_ms": floor_ms,
-        })
-    for label, a, bits in GRIND_CASES:
-        st0 = rand(16)
+    for kind, case, st0, *rest in transcript_inputs(device):
+        if kind == "duplex":
+            label, a, s, k, n_host, n_squeeze, bits = case
+            absorb, host = rest
+            st = st0.clone()
+            got = torch.cat([p2.duplex(st, absorb, host, a, s, n_squeeze, bits), st])
+            ref, what = (duplex_host, "host_ms") if label in HOST_CHECKED else (p2.duplex_plain, "plain_ms")
+            (new, out), plain_ms = _timed_ms(lambda: ref(st0, absorb, host, a, s, n_squeeze, bits))
+            err = _max_abs_err(got, torch.cat([out, new]))
+            if err:
+                raise AssertionError(f"kernel duplex [{label}]: max_abs_err {err}")
+            ms = _graph_time_ms(lambda: p2.duplex(st, absorb, host, a, s, n_squeeze, bits), reps=10)
+            perms = duplex_perms(a, s, k + n_host, n_squeeze)
+            work = ((16 + k) * 8 + (16 + n_squeeze) * 8, times(PERM, perms))
+            bound_ms, bound_by = bound(work)
+            floor_ms, row_ms = perms * perm_floor_ms, perms * row_floor_ms
+            per = f" ({1e3 * ms / perms:.2f} us a permutation)" if perms else ""
+            _say(
+                f"kernel duplex [{label}] cursors=({a}, {s}) absorb={k}+{n_host} squeeze={n_squeeze} bits={bits} "
+                f"equal=True max_abs_err={err} ms={ms:.4f} (by CUDA graph replay){per} {what}={plain_ms:.4f} "
+                f"bound_ms={bound_ms:.6f} ({bound_by}) floor_ms={floor_ms:.4f} ({perms} x the quad permutation's "
+                f"floor) row_floor_ms={row_ms:.4f} ({perms} x the row permutation's floor)"
+            )
+            results.setdefault(K.DUPLEX.name, {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None, "floor_ms": floor_ms, "row_floor_ms": row_ms,
+            })
+            continue
+        label, a, bits = case
         st = st0.clone()
         w = p2.grind(st, a, bits)
         new, want_w = p2.grind_plain(st0, a, bits)
@@ -580,14 +641,32 @@ BN_LEAF_CASES = (("root_codeword", (32, 1 << 25)), ("root_whir_codeword", (1, 1 
 # search; 15 bits against it; 5 bits against it and the host loop; 20 bits
 # with the witness checked by the host transcript's check_witness and shown
 # the least by a search of [0, w) that finds nothing (the plain search
-# takes 19-26 s a case there)
+# takes 13 s a case there); the logup grind's 18 bits from every cursor
+# against the plain search on [0, w] (its least hit is the whole search's)
 BN_CURSORS = [(a, k) for a in (0, 1) for k in range(8)]
 BN_GRIND_CASES = (
     [("query_grind", 0, 4, 20, "plain")]
     + [(f"cursor_{a}_{k}", a, k, 15, "plain") for a, k in BN_CURSORS]
     + [(f"cursor_{a}_{k}", a, k, 5, "host") for a, k in BN_CURSORS]
     + [(f"cursor_{a}_{k}", a, k, 20, "witness") for a, k in BN_CURSORS]
+    + [(f"logup_{a}_{k}", a, k, 18, "below") for a, k in BN_CURSORS]
 )
+
+
+def bn_grind_inputs():
+    """[(case, lanes, felts)] of ``BN_GRIND_CASES``: the sponge's three
+    lanes and the pending felts, from a numpy generator seeded SEED + 3."""
+    import numpy as np
+
+    from swirl_torch.fields import bn254 as fb
+    from swirl_torch.fields.babybear import P
+
+    rng = np.random.default_rng(SEED + 3)
+    out = []
+    for case in BN_GRIND_CASES:
+        lanes = [int.from_bytes(rng.bytes(32), "little") % fb.P for _ in range(3)]
+        out.append((case, lanes, [int(v) for v in rng.integers(0, P, case[2])]))
+    return out
 
 
 def check_bn254_kernels(device, perm_floor) -> dict:
@@ -602,7 +681,6 @@ def check_bn254_kernels(device, perm_floor) -> dict:
     is ``isa.bn254_perm_floor``'s SM-clocks a lane's permutation of each
     width); without it they fail. The first case of each kernel is the one
     the ``kernels`` line reports."""
-    import numpy as np
     import torch
 
     from swirl_torch import kernels as K
@@ -716,14 +794,14 @@ def check_bn254_kernels(device, perm_floor) -> dict:
         del x
         torch.cuda.empty_cache()
 
-    # J: from every cursor; the witness equals the plain search's (and, at
-    # 5 bits, the host loop's)
-    rng = np.random.default_rng(SEED + 3)
-    for label, cur, k, bits, check in BN_GRIND_CASES:
-        lanes = [int.from_bytes(rng.bytes(32), "little") % fb.P for _ in range(3)]
-        felts = [int(v) for v in rng.integers(0, P, k)]
-        state = fb.from_ints([*lanes, pack_felts(felts)[0] if k else 0], device)
-        w = bp.grind(state, cur, 31 * k, bits)
+    # J: from every cursor, its operands by value as the outer transcript
+    # passes them; the witness equals the plain search's (at 18 bits the
+    # plain search on [0, w], whose least hit is the whole search's; at 5
+    # bits also the host loop's)
+    for (label, cur, k, bits, check), lanes, felts in bn_grind_inputs():
+        pending = pack_felts(felts)[0] if k else 0
+        state = fb.from_ints([*lanes, pending], device)
+        w = bp.grind_ints(lanes, pending, cur, 31 * k, bits, device=device)
         t = MultiFieldTranscript()
         t._sponge.state, t._sponge.absorb_idx, t._sponge.sample_idx = list(lanes), cur, 2
         t._obs_buf = list(felts)
@@ -731,24 +809,25 @@ def check_bn254_kernels(device, perm_floor) -> dict:
         if check == "witness":
             if w < 0 or not t.check_witness(bits, w):
                 raise AssertionError(f"{what} fails the host's check_witness")
-            below = bp.grind(state, cur, 31 * k, bits, end=w)
+            below = bp.grind_ints(lanes, pending, cur, 31 * k, bits, end=w, device=device)
             if below != -1:
                 raise AssertionError(f"{what}, but a search of [0, {w}) finds {below}")
             _say(f"kernel bn254_grind [{label}] cursor ({cur}, {k} felts) bits={bits} witness={w}, "
                  f"accepted by the host's check_witness; a search of [0, {w}) finds none")
             continue
-        want, plain_ms = _timed_ms(lambda: bp.grind_plain(state, cur, 31 * k, bits))
+        end = w + 1 if check == "below" else None
+        want, plain_ms = _timed_ms(lambda: bp.grind_plain(state, cur, 31 * k, bits, end))
         if w != want or w < 0:
             raise AssertionError(f"{what} against the plain search's {want}")
-        host = ""
+        how = " (plain on [0, w])" if end else ""
         if check == "host":
             host_w = t.grind(bits)
             if host_w != w:
                 raise AssertionError(f"{what} against the host loop's {host_w}")
-            host = f", host loop {host_w}"
-        ms = _cuda_time_ms(lambda: bp.grind(state, cur, 31 * k, bits), reps=10)
-        work = (4 * 32 + 8, times(plus(BN_PERM[3], times(BN_MONT, 2)), w + 1))
-        record(K.BN254_GRIND, f"{label}, cursor ({cur}, {k} felts), {bits} bits, witness {w}{host}", (4, 8),
+            how = f", host loop {host_w}"
+        ms = _cuda_time_ms(lambda: bp.grind_ints(lanes, pending, cur, 31 * k, bits, device=device), reps=10)
+        work = (8, times(plus(BN_PERM[3], times(BN_MONT, 2)), w + 1))
+        record(K.BN254_GRIND, f"{label}, cursor ({cur}, {k} felts), {bits} bits, witness {w}{how}", (4, 8),
                0, ms, plain_ms, work, " (ms by events, the witness's read included; bound: the candidates "
                "up to the witness)", (3, w + 1))
     return results
@@ -1217,7 +1296,7 @@ def prove_on_card(eng, dpk, ctx, want_sha256: str) -> dict:
     K.reset_launch_counts()
     t0 = time.perf_counter()
     with metrics.run_with_metric_collection() as collector, HostReads() as host, \
-            peaks_by_span() as peaks:
+            peaks_by_span() as peaks, duplex_absorbs() as absorbs:
         proof = eng.prove(dpk, ctx, transcript)
     prove_s = time.perf_counter() - t0
     launches = K.launch_counts()
@@ -1237,7 +1316,61 @@ def prove_on_card(eng, dpk, ctx, want_sha256: str) -> dict:
         "proof_sha256": sha,
         "host_reads": dict(host.reads),
         "host_writes": dict(host.writes),
+        "longest_absorb": max(absorbs, default=0),
     }
+
+
+@contextmanager
+def duplex_absorbs():
+    """[felts absorbed] of every kernel E launch inside the block."""
+    from swirl_torch.hash import poseidon2 as p2
+
+    absorbs, plain = [], p2.duplex
+
+    def counted(state, absorb, host, *args, **kwargs):
+        absorbs.append((0 if absorb is None else absorb.numel()) + len(host))
+        return plain(state, absorb, host, *args, **kwargs)
+
+    p2.duplex = counted
+    try:
+        yield absorbs
+    finally:
+        p2.duplex = plain
+
+
+@contextmanager
+def timed_bn254_grinds():
+    """[(bits, ms)] of every kernel J search inside the block, by CUDA events
+    around each call of ``grind_ints`` (the outer transcript's entry), which
+    reads its witness, so nothing waits more."""
+    import torch
+
+    from swirl_torch.hash import bn254_poseidon2 as bp
+
+    plain, calls = bp.grind_ints, []
+
+    def timed(lanes, pending, a, shift, bits, *args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        w = plain(lanes, pending, a, shift, bits, *args, **kwargs)
+        end.record()
+        end.synchronize()
+        calls.append((bits, start.elapsed_time(end)))
+        return w
+
+    bp.grind_ints = timed
+    try:
+        yield calls
+    finally:
+        bp.grind_ints = plain
+
+
+def grinds_summary(calls) -> str:
+    """``n searches, total ms: b bits ms (n), ...`` of :func:`timed_bn254_grinds`' list."""
+    bits = sorted({b for b, _ in calls}, reverse=True)
+    by_bits = ", ".join(f"{b} bits {sum(ms for x, ms in calls if x == b):.3f} ms ({sum(x == b for x, _ in calls)})"
+                        for b in bits)
+    return f"{len(calls)} searches, {sum(ms for _, ms in calls):.3f} ms: {by_bits}"
 
 
 def prove_with_config(run: dict, config) -> dict:
@@ -1310,15 +1443,17 @@ def prove_outer_root(device) -> dict:
 
     plain, scheme.build_host_tree = scheme.build_host_tree, refuse
     try:
-        run = prove_synthetic(device, root_params_with_100_bits_security(OUTER_LOG_STACKED), 4,
-                              hash_scheme="bn254-outer")
+        with timed_bn254_grinds() as grinds:
+            run = prove_synthetic(device, root_params_with_100_bits_security(OUTER_LOG_STACKED), 4,
+                                  hash_scheme="bn254-outer")
     finally:
         scheme.build_host_tree = plain
     largest = max(run["host_copies"], default=0)
     if largest >= OUTER_HOST_COPY_LIMIT:
         raise AssertionError(f"outer root: a host copy of {largest} values (limit {OUTER_HOST_COPY_LIMIT})")
     run["extra"] = [f"host copies {len(run['host_copies'])}, the largest {largest} values "
-                    f"(limit {OUTER_HOST_COPY_LIMIT}); build_host_tree not reached"]
+                    f"(limit {OUTER_HOST_COPY_LIMIT}); build_host_tree not reached",
+                    f"kernel J by events around each call (the witness's read included): {grinds_summary(grinds)}"]
     return run
 
 
@@ -2308,7 +2443,8 @@ def report(tag: str, run: dict, required) -> None:
          f"{card['peak_bytes']} B, proof sha256 {card['proof_sha256'][:16]} (the host-transcript proof's)")
     for name, ms in sorted(card["spans_ms"].items()):
         _say(f"{tag}, device transcript: span {name} {ms:.1f}")
-    _say(f"{tag}, device transcript: kernel launches {card['launches']}")
+    _say(f"{tag}, device transcript: kernel launches {card['launches']}; kernel E's longest absorb "
+         f"{card['longest_absorb']} felts (the longest of DUPLEX_CASES: {max(c[3] + c[4] for c in DUPLEX_CASES)})")
     for name in sorted(card["host_reads"].keys() | card["host_writes"].keys()):
         _say(f"{tag}, device transcript: span {name} host reads {card['host_reads'].get(name, 0)}, "
              f"host writes {card['host_writes'].get(name, 0)}")
@@ -2377,10 +2513,14 @@ def main() -> int:
         _say(f"build: {line}")
     _say(f"native host library loaded: {native.available()}")
     cycles, ghz = isa.latency_bench()
-    clocks = isa.quad_perm_clocks(cycles)
+    clocks = isa.perm_clocks(isa.QUAD_PERM_CHAIN, cycles)
     perm_floor_ms = clocks / BOOST_HZ * 1e3
+    row_clocks = isa.perm_clocks(isa.ROW_PERM_CHAIN, cycles)
+    row_floor_ms = row_clocks / BOOST_HZ * 1e3
     _say(f"latency: SM clocks a dependent operation {cycles} (at {ghz:.3f} GHz); one quad permutation's "
-         f"chain {isa.QUAD_PERM_CHAIN}: {clocks:.0f} clocks, floor {perm_floor_ms:.6f} ms at the boost clock")
+         f"chain {isa.QUAD_PERM_CHAIN}: {clocks:.0f} clocks, floor {perm_floor_ms:.6f} ms at the boost clock; "
+         f"one row permutation's (kernel E) {isa.ROW_PERM_CHAIN}: {row_clocks:.0f} clocks, floor "
+         f"{row_floor_ms:.6f} ms")
 
     bn_perm_floor = None
     try:
@@ -2398,7 +2538,7 @@ def main() -> int:
          f"width 2 {BN_PERM[2]} (multiplies, others)")
 
     results = check_kernels(device, perm_floor_ms)
-    results.update(check_transcript_kernels(device, perm_floor_ms))
+    results.update(check_transcript_kernels(device, perm_floor_ms, row_floor_ms))
     t0 = time.perf_counter()
     results.update(check_bn254_kernels(device, bn_perm_floor))
     torch.cuda.empty_cache()

@@ -20,7 +20,7 @@
 //                at most 8 felts), then one width-3 permutation.
 // J  grind       swirl/hash/multi_field.py grind :210 (a host loop there):
 //                one thread a candidate in grid-stride sweeps, the least
-//                hit by atomicMin, as kernel F.
+//                hit by atomicMin, as kernel F; its operands by value.
 //
 // What bounds them on the H100: the arithmetic of the BN254 products. A
 // width-3 permutation has 80 S-boxes (240 products, 160 of them squares), a
@@ -86,7 +86,9 @@ __device__ __forceinline__ Fe pack8(const uint32_t f[FELTS]) {
 
 enum Op { ADD = 0, SUB = 1, MONT_MUL = 2, FROM_CANONICAL = 3, TO_CANONICAL = 4, DBL = 5 };
 
-__global__ void __launch_bounds__(128) op_kernel(int op, const uint32_t* __restrict__ a,
+// At most 40 registers (12 blocks an SM): the operation moves its 96 bytes
+// an element at the memory's rate only with enough loads in flight.
+__global__ void __launch_bounds__(128, 12) op_kernel(int op, const uint32_t* __restrict__ a,
                                                  const uint32_t* __restrict__ b,
                                                  uint32_t* __restrict__ out, long long n) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -163,41 +165,71 @@ __global__ void __launch_bounds__(128) hash_rows_kernel(const int64_t* __restric
 }
 
 // Kernel J: the smallest w in [0, end) whose observe + sample_bits gives 0
-// under `mask`: st holds the sponge's three lanes and the pending felts'
-// packed scalar (below 2^shift), all canonical. Lane a takes that scalar
-// plus w << shift, one permutation, and the sample is lane 1 mod BB_P.
-// Threads take the candidates of a sweep of gridDim * blockDim in index
-// order and keep the least hit with atomicMin; a thread leaves once the
-// least hit so far lies below its sweep, so every candidate below the
-// final minimum was tried. `found` starts above BB_P (the wrapper fills
-// its bytes with 0x7f); end <= BB_P.
-__global__ void __launch_bounds__(128) grind_kernel(const uint32_t* __restrict__ st, int a, int shift,
-                                                    uint32_t mask, unsigned long long end,
-                                                    unsigned long long* found) {
-  F5 s0[3];
+// under `mask`: lane a of the sponge takes the pending felts' packed scalar
+// plus w << shift, one width-3 permutation, and the sample is lane 1 mod
+// BB_P. Its operands come by value (the card serves kernel parameters from
+// its constant bank, so none holds a register across the loop): the lanes,
+// and the candidate's lane in R' form as base + w step with step = 2^shift
+// R' (mod P). A thread starts at w = its index by one product (mont(w,
+// step R') = w step) and moves to w + n (n the threads of the launch) by one
+// add of n step (one more product, once) and one conditional subtract: no
+// product and no word placement a candidate. Threads take the candidates
+// of a sweep of n in index order and keep the least hit with atomicMin; a
+// thread leaves once the least hit so far lies below its next candidate,
+// so every candidate below the final minimum was tried. `found` starts
+// above BB_P (the wrapper fills its bytes with 0x7f); end <= BB_P.
+struct GrindArgs {
+  F5 lanes[3];  // R' form (v 2^260 mod P, canonical limbs); lane a's unused
+  F5 base;      // the pending scalar, R' form
+  F5 step;      // 2^shift 2^520 mod P: mont(w, step) = w 2^shift in R' form
+  unsigned long long end;
+  uint32_t mask;
+  int a;
+};
+
+// 2^(26 j) mod BB_P, j = 0 .. 9: the weights of a canonical value's 26-bit
+// limb halves
+#define BB_HALF_WEIGHTS \
+  0x1u, 0x4000000u, 0xfdddddeu, 0xf789abdu, 0x337bfad8u, 0x2648aad7u, 0x3ab94fa4u, 0x160ae3bfu, 0x3b43e758u, 0x26064517u
+
+// x mod BB_P for an R'-form lane (limbs below 2^57): its canonical limbs
+// (below 2^52) as 10 halves below 2^26, each times its weight (below 2^31):
+// 10 independent products below 2^57, summed below 2^61, one remainder.
+__device__ __forceinline__ uint32_t sample(const F5& x) {
+  const uint32_t weight[2 * NL] = {BB_HALF_WEIGHTS};
+  const F5 c = canon(redc_only(x));
+  uint64_t acc = 0;
 #pragma unroll
-  for (int k = 0; k < 3; ++k) s0[k] = to_mont(load_fe(st + 8 * k));
-  const Fe prefix = load_fe(st + 24);
-  const int q = shift >> 5, rbit = shift & 31;
-  const unsigned long long sweep = (unsigned long long)gridDim.x * blockDim.x;
-  for (unsigned long long base = 0; base < end; base += sweep) {
-    if (*(volatile unsigned long long*)found < base) return;
-    const unsigned long long w = base + (unsigned long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (w >= end) return;
-    Fe v = prefix;
-#pragma unroll
-    for (int i = 0; i < L; ++i) {
-      if (i == q) v.w[i] |= (uint32_t)(w << rbit);
-      if (i == q + 1 && rbit != 0) v.w[i] |= (uint32_t)(w >> (32 - rbit));
-    }
-    const F5 vm = to_mont(v);
-    F5 s[3] = {a == 0 ? vm : s0[0], a == 1 ? vm : s0[1], s0[2]};
+  for (int k = 0; k < NL; ++k) {
+    acc += (uint64_t)(uint32_t)(c.l[k] & ((1u << 26) - 1)) * weight[2 * k];
+    acc += (uint64_t)(uint32_t)(c.l[k] >> 26) * weight[2 * k + 1];
+  }
+  return (uint32_t)(acc % BB_P);
+}
+
+// a + b for canonical limbs: below 2P, then below P
+__device__ __forceinline__ F5 add_mod(const F5& a, const F5& b) { return canon(norm(add5(a, b))); }
+
+// k step (k below 2^31) in R' form: k step / 2^260 < 2^31 P / 2^260 + P,
+// below 2P, canonical after canon
+__device__ __forceinline__ F5 times_step(unsigned long long k, const F5& step) {
+  return canon(mul(D5{{(double)k, 0.0, 0.0, 0.0, 0.0}}, to_d5(step)));
+}
+
+// Two blocks an SM (swirl_bn254_grind sweeps at most the blocks the card
+// holds; more resident warps only slow each sweep), so a thread may take
+// every register its permutation's schedule wants.
+__global__ void __launch_bounds__(128, 2) grind_kernel(const GrindArgs g, unsigned long long* found) {
+  const unsigned long long n = (unsigned long long)gridDim.x * blockDim.x;
+  unsigned long long w = (unsigned long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const F5 stride = times_step(n, g.step);
+  F5 v = add_mod(g.base, times_step(w, g.step));
+  for (; w < g.end; w += n) {
+    if (*(volatile unsigned long long*)found < w) return;
+    F5 s[3] = {g.a == 0 ? v : g.lanes[0], g.a == 1 ? v : g.lanes[1], g.lanes[2]};
     permute<3>(s);
-    const Fe x = to_canonical(s[1]);
-    unsigned long long r = 0;
-#pragma unroll
-    for (int i = L - 1; i >= 0; --i) r = ((r << 32) | x.w[i]) % BB_P;
-    if ((r & mask) == 0) atomicMin(found, w);
+    if ((sample(s[1]) & g.mask) == 0) atomicMin(found, w);
+    v = add_mod(v, stride);
   }
 }
 
@@ -246,24 +278,24 @@ extern "C" int swirl_bn254_hash_rows(const int64_t* in, uint32_t* out, int w, lo
   return (int)cudaGetLastError();
 }
 
-// The search sweeps twice the expected 2^bits candidates at once, at most
-// as many blocks as the card holds, over [0, end) (end <= BB_P). witness:
-// one int64, left above BB_P if no candidate there passes.
-extern "C" int swirl_bn254_grind(const uint32_t* st, int a, int shift, int bits, long long end,
-                                 int64_t* witness, void* stream) {
-  if (a < 0 || a > 1 || shift < 0 || shift > FELT_BITS * (FELTS - 1) || shift % FELT_BITS || bits < 1 ||
-      bits > 30 || end < 0 || end > (long long)BB_P)
+// The search sweeps four expected counts of candidates at once (one block
+// at least), at most as many blocks as the card holds. args: one GrindArgs
+// (host memory). witness: one int64, left above BB_P if no candidate in
+// [0, end) passes.
+extern "C" int swirl_bn254_grind(const void* args, int64_t* witness, void* stream) {
+  const GrindArgs g = *static_cast<const GrindArgs*>(args);
+  if (g.a < 0 || g.a > 1 || g.end > BB_P || g.mask == 0 || (g.mask & (g.mask + 1)) || g.mask >= BB_P)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, grind_kernel, 128, 0);
-  const long long want = ((2LL << bits) + 127) / 128;
+  const long long want = (4LL * ((long long)g.mask + 1) + 127) / 128;
   const long long most = (long long)sms * (per_sm > 0 ? per_sm : 1);
   const unsigned blocks = (unsigned)(want < most ? want : most);
   unsigned long long* found = reinterpret_cast<unsigned long long*>(witness);
   cudaMemsetAsync(found, 0x7f, sizeof(*found), s);
-  grind_kernel<<<blocks, 128, 0, s>>>(st, a, shift, (1u << bits) - 1u, (unsigned long long)end, found);
+  grind_kernel<<<blocks, 128, 0, s>>>(g, found);
   return (int)cudaGetLastError();
 }

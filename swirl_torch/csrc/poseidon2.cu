@@ -14,7 +14,8 @@
 // E  duplex       the transcript's sponge on the card (no Pallas kernel: the
 //                 JAX package runs its device transcript,
 //                 swirl/prover/device_transcript.py, as jitted permutations):
-//                 a run of absorbs and squeezes in one launch.
+//                 a run of absorbs and squeezes in one launch, one state word
+//                 a lane (`permute_row`, below).
 // F  grind        the transcript's proof-of-work search and its state
 //                 advance, on the card (device_transcript.py grind :290).
 //
@@ -81,6 +82,10 @@ __constant__ uint32_t c_ext_init[HALF_FULL][WIDTH];
 __constant__ uint32_t c_internal[PARTIAL];
 __constant__ uint32_t c_ext_final[HALF_FULL][WIDTH];
 __constant__ uint32_t c_diag[WIDTH];  // the internal diagonal, for kernel D only
+// kernel E's constants that differ from lane to lane, in global memory: one
+// coalesced load a row (a __constant__ read at 16 addresses would serialize)
+constexpr int ROW_RC_ROWS = 2 * HALF_FULL + 1;  // ext_init, ext_final, the diagonal
+__device__ uint32_t g_row_rc[ROW_RC_ROWS][WIDTH];
 
 using bb::fast::add;
 using bb::fast::mont;
@@ -381,67 +386,146 @@ __global__ void __launch_bounds__(2 * TOWER_BLOCK) tower_kernel(const int64_t* i
   }
 }
 
+// Kernel E's permutation, one state word a lane (lane l < 16 of its
+// half-warp holds word l; the two halves run the same permutation). The
+// quad of kernel D issues 4 S-boxes a full round and 4 diagonal products a
+// partial round on every lane, so a lone warp waits on its multiply pipe;
+// here a lane issues one S-box a full round and, in a partial round, the
+// S-box of word 0 (every lane the same), its own diagonal product and one
+// constant product. The external layer M_E y = M4(x_g) + sum_h M4(x_h) =
+// M4(x_g + S) (S the column sums over the 4 groups) takes two shuffle
+// stages: the column sums from lanes l ^ 4, l ^ 8, l ^ 12, then M4's row
+// (2, 3, 1, 1) rotated from the group's other three lanes, with the next
+// round's constant added in the same add tree. A partial round keeps word
+// 0 (x0) and the sum of words 1..15 (part) in every lane:
+//     y = (x0 + c)^7, full = part + y, x_i <- d_i x_i + full (i >= 1),
+//     x0 <- part - y (d_0 = -2), part <- sum_{i>=1} d_i x_i + 15 full,
+// so the lane sum of d_i x_i (a butterfly of 4 shuffles) runs beside the
+// next S-box instead of before it. The state is in Montgomery form.
+constexpr int ROW = 16;
+constexpr uint32_t MONT15 = 0x77ffffe1u;  // 15 * 2^32 mod P
+
+__device__ __forceinline__ uint32_t row_xor(uint32_t v, int mask) {
+  return __shfl_xor_sync(0xffffffffu, v, mask, ROW);
+}
+
+// a lane's constants and the lanes its M4 row reads
+struct RowRc {
+  uint32_t init[HALF_FULL], fin[HALF_FULL], diag;
+  int n1, n2, n3;  // the lanes of words 4g + (i + k) % 4, k = 1, 2, 3
+};
+
+__device__ __forceinline__ RowRc row_rc(int l) {
+  RowRc c;
+#pragma unroll
+  for (int r = 0; r < HALF_FULL; ++r) {
+    c.init[r] = __ldg(&g_row_rc[r][l]);
+    c.fin[r] = __ldg(&g_row_rc[HALF_FULL + r][l]);
+  }
+  c.diag = __ldg(&g_row_rc[2 * HALF_FULL][l]);
+  c.n1 = (l & ~3) | ((l + 1) & 3);
+  c.n2 = (l & ~3) | ((l + 2) & 3);
+  c.n3 = (l & ~3) | ((l + 3) & 3);
+  return c;
+}
+
+// M_E on word l, then + rc (the next round's constant of this lane)
+__device__ __forceinline__ uint32_t row_external(uint32_t x, const RowRc& c, uint32_t rc) {
+  const uint32_t a = row_xor(x, 4), b = row_xor(x, 8), d = row_xor(x, 12);
+  const uint32_t z = add(add(add(x, x), d), add(a, b));  // x_g + S
+  const uint32_t z1 = __shfl_sync(0xffffffffu, z, c.n1, ROW);
+  const uint32_t z2 = __shfl_sync(0xffffffffu, z, c.n2, ROW);
+  const uint32_t z3 = __shfl_sync(0xffffffffu, z, c.n3, ROW);
+  // 2 z + 3 z1 + z2 + z3 + rc
+  return add(add(add(z, z1), add(z2, z3)), add(add(z, rc), add(z1, z1)));
+}
+
+__device__ __forceinline__ uint32_t row_sum(uint32_t v) {
+#pragma unroll
+  for (int m = 1; m < ROW; m <<= 1) v = add(v, row_xor(v, m));
+  return v;
+}
+
+// all 32 lanes in step (the shuffles name the whole warp); l = lane & 15
+__device__ __forceinline__ uint32_t permute_row(uint32_t x, const RowRc& c, int l) {
+  x = row_external(x, c, c.init[0]);
+#pragma unroll
+  for (int r = 0; r < HALF_FULL; ++r) x = row_external(sbox(x), c, r + 1 < HALF_FULL ? c.init[r + 1] : 0u);
+  uint32_t x0 = __shfl_sync(0xffffffffu, x, 0, ROW);
+  uint32_t part = row_sum(l == 0 ? 0u : x);
+  uint32_t y = sbox(add(x0, c_internal[0]));
+#pragma unroll
+  for (int r = 0; r < PARTIAL; ++r) {
+    const uint32_t q = mont(x, c.diag);
+    const uint32_t full = add(part, y);
+    x = add(q, full);
+    if (r + 1 == PARTIAL) {
+      x0 = sub(part, y);
+      break;
+    }
+    // word 0 of the next round, its constant added beside the S-box's input
+    const uint32_t x0c = sub(add(part, c_internal[r + 1]), y);
+    part = add(row_sum(l == 0 ? 0u : q), mont(full, MONT15));
+    y = sbox(x0c);
+  }
+  x = add(l == 0 ? x0 : x, c.fin[0]);
+#pragma unroll
+  for (int r = 0; r < HALF_FULL; ++r) x = row_external(sbox(x), c, r + 1 < HALF_FULL ? c.fin[r + 1] : 0u);
+  return x;
+}
+
 // Kernel E (duplex): one run of the transcript's duplex-sponge events from
 // cursors the host knows (the event schedule is static): absorb the k felts
 // of `absorb` and then the n_host felts of `host` (overwrite mode: word a
 // takes the felt, a full rate permutes and resets the squeeze cursor),
 // then squeeze n_squeeze values (permute when an absorb is pending or the
-// rate is drained; take word --s), each masked with `mask`. One warp; every
-// quad runs the same permutation (`permute_quad`, the lanes that hold a
-// word do the loads and stores of quad 0), so a chain of p dependent
-// permutations takes p times one quad permutation: the launch is latency-
-// bound, and a GKR sub-round or a WHIR fold's absorb is one launch.
+// rate is drained; take word --s), each masked with `mask`. One warp, word
+// l on lanes l and l + 16 (`permute_row`); a chain of p dependent
+// permutations takes p times one row permutation: the launch is latency-
+// bound, and a GKR sub-round or a WHIR fold's absorb is one launch. The
+// felt a lane takes in the next rate block is loaded before the current
+// block's permutation, so the load waits beside it.
 constexpr int HOST_MAX = 32;  // host felts a launch takes by value
 struct HostFelts {
   uint32_t v[HOST_MAX];
 };
 
-__device__ __forceinline__ uint32_t word(const uint32_t* x, int i) {
-  return i == 0 ? x[0] : i == 1 ? x[1] : i == 2 ? x[2] : x[3];
+__device__ __forceinline__ uint32_t duplex_felt(const int64_t* absorb, long long k, const HostFelts& host,
+                                                long long j, long long total) {
+  return j < 0 || j >= total ? 0u : j < k ? (uint32_t)absorb[j] : host.v[j - k];
 }
 
 __global__ void __launch_bounds__(32) duplex_kernel(int64_t* state, const int64_t* absorb, long long k,
                                                     const HostFelts host, int n_host, int a, int s,
                                                     int n_squeeze, uint32_t mask, int64_t* out) {
-  const int q = threadIdx.x & (QUAD - 1);
-  const QuadRc c = quad_rc(q);
-  uint32_t x[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) x[i] = to_mont((uint32_t)state[4 * q + i]);
+  const int l = threadIdx.x & (ROW - 1);
+  const RowRc c = row_rc(l);
+  uint32_t x = to_mont((uint32_t)state[l]);
   const long long total = k + n_host;
+  // the block from cursor a takes felts off .. off + len - 1 into words a ..
+  uint32_t v = duplex_felt(absorb, k, host, l - a, total);
   for (long long off = 0; off < total;) {
     const long long len = min((long long)(RATE - a), total - off);
-    if (q < RATE / 4) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int p = 4 * q + i;
-        if (p >= a && p < a + len) {
-          const long long j = off + p - a;
-          x[i] = to_mont(j < k ? (uint32_t)absorb[j] : host.v[j - k]);
-        }
-      }
-    }
-    a += (int)len;
+    if (l >= a && l < a + len) x = to_mont(v);
     off += len;
+    a += (int)len;
     if (a == RATE) {
-      permute_quad(x, c, q);
+      v = duplex_felt(absorb, k, host, off + l, total);  // word l of the next block
+      x = permute_row(x, c, l);
       a = 0;
       s = RATE;
     }
   }
   for (int t = 0; t < n_squeeze; ++t) {
     if (a != 0 || s == 0) {
-      permute_quad(x, c, q);
+      x = permute_row(x, c, l);
       a = 0;
       s = RATE;
     }
     --s;
-    if ((int)threadIdx.x == s >> 2) out[t] = from_mont(word(x, s & 3)) & mask;
+    if ((int)threadIdx.x == s) out[t] = from_mont(x) & mask;
   }
-  if (threadIdx.x < QUAD) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) state[4 * q + i] = from_mont(x[i]);
-  }
+  if (threadIdx.x < ROW) state[l] = from_mont(x);
 }
 
 // Kernel F (grind), the search: the smallest w in [0, P) such that
@@ -509,6 +593,9 @@ extern "C" int swirl_p2_set_constants(const uint32_t* ext_init, const uint32_t* 
   cudaMemcpyToSymbol(c_internal, internal, sizeof(c_internal));
   cudaMemcpyToSymbol(c_ext_final, ext_final, sizeof(c_ext_final));
   cudaMemcpyToSymbol(c_diag, diag, sizeof(c_diag));
+  cudaMemcpyToSymbol(g_row_rc, ext_init, sizeof(c_ext_init));
+  cudaMemcpyToSymbol(g_row_rc, ext_final, sizeof(c_ext_final), sizeof(c_ext_init));
+  cudaMemcpyToSymbol(g_row_rc, diag, sizeof(c_diag), sizeof(c_ext_init) + sizeof(c_ext_final));
   return (int)cudaGetLastError();
 }
 

@@ -340,16 +340,21 @@ def merkle_layers_dev(leaf_digests) -> list:
     return layers
 
 
-def _grind_operand(state, a: int, shift: int, bits: int, end: int) -> int:
-    """Validate J's operands; returns the search's end (None: BabyBear's order)."""
+def _grind_args(a: int, shift: int, bits: int, end: int) -> int:
+    """Validate J's scalar operands; returns the search's end (None: BabyBear's order)."""
     from ..fields.babybear import P as P_BB
 
-    if state.shape != (4, fb.L) or state.dtype != fb.DTYPE:
-        raise ValueError(f"grind: a (4, 8) int32 operand, got {state.dtype} {tuple(state.shape)}")
     end = P_BB if end is None else end
     if a not in (0, 1) or shift not in range(0, 31 * 8, 31) or not 1 <= bits <= 30 or not 0 <= end <= P_BB:
         raise ValueError(f"grind: absorb cursor {a}, shift {shift}, {bits} bits, end {end}")
     return end
+
+
+def _grind_operand(state, a: int, shift: int, bits: int, end: int) -> int:
+    """Validate J's operands; returns the search's end (None: BabyBear's order)."""
+    if state.shape != (4, fb.L) or state.dtype != fb.DTYPE:
+        raise ValueError(f"grind: a (4, 8) int32 operand, got {state.dtype} {tuple(state.shape)}")
+    return _grind_args(a, shift, bits, end)
 
 
 def grind_plain(state, a: int, shift: int, bits: int, end: int = None) -> int:
@@ -386,18 +391,106 @@ def grind_plain(state, a: int, shift: int, bits: int, end: int = None) -> int:
     return -1
 
 
-def grind(state, a: int, shift: int, bits: int, end: int = None) -> int:
-    """Kernel J: :func:`grind_plain`'s witness, the smallest by atomicMin
-    over grid-stride sweeps of [0, ``end``); read to the host (-1 if none)."""
-    if not state.is_cuda:
-        return grind_plain(state, a, shift, bits, end)
-    end = _grind_operand(state, a, shift, bits, end)
-    fb.require_words(state, 2, "grind")
-    found = torch.empty(1, dtype=torch.int64, device=state.device)
-    K.LIB.launch(K.BN254_GRIND, "swirl_bn254_grind", state, state.data_ptr(), a, shift, bits, end,
-                 found.data_ptr())
+# Kernel J's launch: blocks of GRIND_THREADS threads, each taking every n-th
+# candidate (n the launch's threads): a sweep is n candidates, and the search
+# stops in the sweep after its witness's. csrc/bn254.cu swirl_bn254_grind
+# sizes a sweep to four expected counts (one block at least), at most the
+# blocks the card holds.
+GRIND_THREADS = 128
+_F64_R = fb.F64_R % P_BN254
+
+
+def grind_sweeps(threads: int, end: int):
+    """Kernel J's candidate order: sweep k holds (thread, w = k n + thread)
+    for the threads with w < end."""
+    for base in range(0, end, threads):
+        yield [(t, base + t) for t in range(min(threads, end - base))]
+
+
+def _grind_struct(lanes, pending: int, a: int, shift: int, mask: int, end: int) -> np.ndarray:
+    """csrc/bn254.cu GrindArgs as 27 uint64: the lanes, the pending scalar
+    and step in R' form (canonical limbs), end, then mask and a."""
+    r, p = _F64_R, P_BN254
+    rows = [v * r % p for v in lanes] + [pending * r % p, (r << shift) * r % p]
+    words = [(v >> s) & fb.F64_MASK for v in rows for s in range(0, fb.F64_LIMBS * fb.F64_RADIX, fb.F64_RADIX)]
+    return np.array(words + [end, mask | (a << 32)], dtype=np.uint64)
+
+
+def grind_ints(lanes, pending: int, a: int, shift: int, bits: int, end: int = None, device="cuda") -> int:
+    """Kernel J from the host's sponge: ``lanes`` (3 canonical ints) and the
+    ``pending`` felts' packed scalar (below 2^shift) go by value (no copy to
+    the card); :func:`grind_plain`'s witness, read to the host (-1 if none
+    below ``end``). On a CPU ``device`` the plain version."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return grind_plain(fb.from_ints([*lanes, pending], device), a, shift, bits, end)
+    end = _grind_args(a, shift, bits, end)
+    if len(lanes) != 3 or pending < 0 or pending >> shift or not all(0 <= v < P_BN254 for v in lanes):
+        raise ValueError(f"grind: lanes {lanes}, pending {pending} (below 2^{shift})")
+    found = torch.empty(1, dtype=torch.int64, device=device)
+    args = _grind_struct(lanes, pending, a, shift, (1 << bits) - 1, end)
+    K.LIB.launch(K.BN254_GRIND, "swirl_bn254_grind", found, args.ctypes.data, found.data_ptr())
     w = int(found.item())
     return w if w < end else -1
+
+
+def grind(state, a: int, shift: int, bits: int, end: int = None) -> int:
+    """Kernel J on a (4, 8) state tensor (rows 0-2 the lanes, row 3 the
+    pending scalar, canonical): :func:`grind_ints` after one read of the
+    state to the host; the plain version on a CPU tensor."""
+    if not state.is_cuda:
+        return grind_plain(state, a, shift, bits, end)
+    _grind_operand(state, a, shift, bits, end)
+    fb.require_words(state, 2, "grind")
+    v = fb.to_ints(state)
+    return grind_ints(v[:3], v[3], a, shift, bits, end, state.device)
+
+
+def grind_model(lanes, pending: int, a: int, shift: int, bits: int, end: int = None,
+                threads: int = GRIND_THREADS) -> int:
+    """Kernel J by the model, its ``threads`` in :func:`grind_sweeps`' order: a
+    thread's lane starts at base + mont(w, step) and moves by the stride
+    mont(threads, step) a sweep (limb adds and one conditional subtract,
+    :mod:`fields.bn254`'s f64 model, each asserted equal to (pending + w
+    2^shift) 2^260 mod P); the permutation on the lanes' values (the host's;
+    kernels H and I hold the card's to it); the sample from the canonical
+    lane's 26-bit limb halves, each times 2^(26 j) mod p, the sum asserted
+    below 2^64. A thread leaves once the least hit lies below its
+    candidate; after a sweep with a hit every thread has. -1 if none."""
+    from ..fields.babybear import P as P_BB
+
+    end = _grind_args(a, shift, bits, end)
+    g = _grind_struct(lanes, pending, a, shift, (1 << bits) - 1, end).tolist()
+    limbs = lambda i: g[5 * i : 5 * i + 5]  # noqa: E731
+    base, step = limbs(3), limbs(4)
+    times_step = lambda k: fb.f64_limbs(fb.f64_canon(fb.f64_mont(fb.f64_limbs(k), step)))  # noqa: E731
+    stride = times_step(threads)
+    add_mod = lambda x, y: fb.f64_canon(fb.f64_norm(fb.f64_add(x, y)))  # noqa: E731
+    weights = [pow(2, 26 * j, P_BB) for j in range(2 * fb.F64_LIMBS)]
+    r = fb.F64_R % P_BN254
+    v, found, gone = {}, None, set()
+    for sweep in grind_sweeps(threads, end):
+        for t, w in sweep:
+            if t in gone or (found is not None and found < w):
+                gone.add(t)
+                continue
+            if t not in v:
+                v[t] = add_mod(base, times_step(t))
+            else:
+                v[t] = add_mod(fb.f64_limbs(v[t]), stride)
+            assert v[t] == (pending + (w << shift)) * r % P_BN254
+            state = list(lanes)
+            state[a] = pending + (w << shift)
+            c = fb.f64_limbs(permute(state, 3)[1])
+            halves = [x for limb in c for x in (limb & ((1 << 26) - 1), limb >> 26)]
+            assert max(halves) < 1 << 26 and max(weights) < 1 << 31
+            acc = sum(h * wt for h, wt in zip(halves, weights))
+            assert acc < 1 << 64
+            if (acc % P_BB) & ((1 << bits) - 1) == 0:
+                found = w if found is None else min(found, w)
+        if found is not None:  # every later candidate lies above it
+            break
+    return -1 if found is None else found
 
 
 # -- the kernels' arithmetic, modelled step by step ----------------------------

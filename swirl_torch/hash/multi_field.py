@@ -19,7 +19,7 @@ Digests are a single BN254 scalar (vs ``[BabyBear; 8]`` in the inner
 scheme), which is what makes the outer proof cheap to verify in a BN254
 SNARK circuit. The sponge is host-side Python ints (a few permutations a
 round); the proof-of-work search of a transcript made with a ``device``
-runs there (kernel J on the card, ``bn254_poseidon2.grind``), and the host
+runs there (kernel J on the card, ``bn254_poseidon2.grind_ints``, its operands by value), and the host
 applies the witness it returns.
 """
 
@@ -233,12 +233,11 @@ class MultiFieldTranscript:
         """The host loop's witness, searched on the transcript's device from
         its sponge state and pending felts, then observed and checked here
         (so the record and a validator see the host loop's events)."""
-        from ..fields import bn254 as fb
-        from .bn254_poseidon2 import grind as grind_dev
+        from .bn254_poseidon2 import grind_ints
 
         pending = pack_felts(self._obs_buf)[0] if self._obs_buf else 0
-        state = fb.from_ints([*self._sponge.state, pending], self._device)
-        w = grind_dev(state, self._sponge.absorb_idx, FELT_BITS * len(self._obs_buf), bits)
+        w = grind_ints(self._sponge.state, pending, self._sponge.absorb_idx, FELT_BITS * len(self._obs_buf), bits,
+                       device=self._device)
         if w < 0 or not self.check_witness(bits, w):
             raise RuntimeError(f"failed to find PoW witness ({bits} bits): the search returned {w}")
         return w

@@ -840,3 +840,98 @@ def merkle_tower(digests) -> list:
     if cur.shape[1] > 1:
         layers.extend(compress_tower(cur))
     return layers
+
+
+# ---------------------------------------------------------------------------
+# Kernel E (csrc/poseidon2.cu duplex_kernel): its permutation with one state
+# word a lane (``permute_row``) and its absorb loop, step for step on the CPU.
+# ---------------------------------------------------------------------------
+
+ROW = 16  # lanes of one of kernel E's permutations: lane l holds word l
+_L = torch.arange(ROW)
+_MONT15 = 15 * (1 << 32) % P  # 15 in Montgomery form
+
+
+def _row(x, src):
+    """__shfl_sync(x, src) within the 16 lanes: x (..., ROW), src a lane map."""
+    return x[..., src]
+
+
+def _row_external_m(x, rc):
+    """M_E then + rc on words x (..., ROW): the column sums from lanes l ^ 4,
+    l ^ 8, l ^ 12 (z = x_g + S), then M4's rotated row (2, 3, 1, 1) from the
+    group's lanes 4g + (i + k) % 4, with the constant in the same add tree."""
+    a, b, d = (_row(x, _L ^ m) for m in (4, 8, 12))
+    z = _add_m(_add_m(_add_m(x, x), d), _add_m(a, b))
+    z1, z2, z3 = (_row(z, (_L & ~3) | ((_L + k) & 3)) for k in (1, 2, 3))
+    return _add_m(_add_m(_add_m(z, z1), _add_m(z2, z3)), _add_m(_add_m(z, rc), _add_m(z1, z1)))
+
+
+def _row_sum_m(v):
+    """The butterfly of four xor shuffles: every lane gets the lanes' sum."""
+    for m in (1, 2, 4, 8):
+        v = _add_m(v, _row(v, _L ^ m))
+    return v
+
+
+def permute_row_model(state):
+    """Poseidon2 of (..., 16) canonical int64 tensors by kernel E's
+    ``permute_row``: Montgomery words one a lane (the last axis), shuffles as
+    lane maps; the partial rounds keep word 0 and the sum of words 1..15 in
+    every lane and take the next sum as sum_{i>=1} d_i x_i + 15 full."""
+    ext_init, internal, ext_final, diag = (
+        torch.tensor([int(v) * (1 << 32) % P for v in np.asarray(c).ravel()]) for c in constants()
+    )
+    init, fin = ext_init.reshape(-1, ROW), ext_final.reshape(-1, ROW)
+    zero = torch.zeros(ROW, dtype=torch.int64)
+    lane0 = _L == 0
+    x = _row_external_m(_mont_m(state, torch.full_like(state, _R2)), init[0])
+    for r in range(4):
+        x = _row_external_m(_sbox_m(x), init[r + 1] if r < 3 else zero)
+    x0 = _row(x, torch.zeros_like(_L))
+    part = _row_sum_m(torch.where(lane0, 0, x))
+    y = _sbox_m(_add_m(x0, internal[0]))
+    for r in range(PARTIAL_ROUNDS):
+        q = _mont_m(x, diag.expand_as(x))
+        full = _add_m(part, y)
+        x = _add_m(q, full)
+        if r + 1 == PARTIAL_ROUNDS:
+            x0 = _sub_m(part, y)
+            break
+        x0c = _sub_m(_add_m(part, internal[r + 1]), y)
+        part = _add_m(_row_sum_m(torch.where(lane0, 0, q)), _mont_m(full, torch.full_like(full, _MONT15)))
+        y = _sbox_m(x0c)
+    x = _add_m(torch.where(lane0, x0, x), fin[0])
+    for r in range(4):
+        x = _row_external_m(_sbox_m(x), fin[r + 1] if r < 3 else zero)
+    return _from_mont_m(x)
+
+
+def duplex_model(state, absorb, host, a: int, s: int, n_squeeze: int, bits: int = -1):
+    """Kernel E's launch by the model: lane l's loads (word l of each rate
+    block, the next block's felt fetched before the current block's
+    permutation), :func:`permute_row_model`, the squeezes; returns (new
+    state, squeezed values) as :func:`duplex_plain` does."""
+    _check_duplex(state, a, s, len(host), n_squeeze, bits)
+    flat = [] if absorb is None else [int(v) for v in absorb.reshape(-1)]
+    felts = flat + [int(v) for v in host]
+    total = len(felts)
+    felt = lambda j: felts[j] if 0 <= j < total else 0  # noqa: E731  (duplex_felt)
+    x = state.clone()
+    v = [felt(l - a) for l in range(ROW)]
+    off = 0
+    while off < total:
+        n = min(RATE - a, total - off)
+        for l in range(a, a + n):
+            x[l] = v[l]
+        off, a = off + n, a + n
+        if a == RATE:
+            v = [felt(off + l) for l in range(ROW)]
+            x, a, s = permute_row_model(x), 0, RATE
+    out = []
+    for _ in range(n_squeeze):
+        if a != 0 or s == 0:
+            x, a, s = permute_row_model(x), 0, RATE
+        s -= 1
+        out.append(int(x[s]) & (~0 if bits < 0 else (1 << bits) - 1))
+    return x, torch.tensor(out, dtype=F.DTYPE)

@@ -209,7 +209,7 @@ class _Library:
                     "swirl_bn254_permute": [vp, vp, i64, i32, vp],
                     "swirl_bn254_compress": [vp, vp, i64, i32, vp],
                     "swirl_bn254_hash_rows": [vp, vp, i32, i64, i32, vp],
-                    "swirl_bn254_grind": [vp, i32, i32, i32, i64, vp, vp],
+                    "swirl_bn254_grind": [vp, vp, vp],
                 }
                 for name, args in sigs.items():
                     fn = getattr(lib, name)

@@ -21,10 +21,11 @@ read against what was issued.
 
 The latency bench times one field operation of ``csrc/field.cuh`` (and a
 quad's shuffle) in one dependent chain a lane on one warp, in SM clocks.
-The longest dependent chain of kernel D's and E's quad permutation
-(:data:`QUAD_PERM_CHAIN`) at those latencies is the least time one
-permutation can take on one quad: the floor of a launch that runs a chain
-of dependent permutations.
+The longest dependent chain of kernel D's quad permutation
+(:data:`QUAD_PERM_CHAIN`) and of kernel E's row permutation
+(:data:`ROW_PERM_CHAIN`) at those latencies is the least time one
+permutation can take: the floor of a launch that runs a chain of
+dependent permutations.
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ ALU_PIPE = ("IADD3", "ISETP", "SEL", "VIMNMX", "IMNMX", "LOP3", "SHF", "LEA", "M
 CLASSES = ("IMAD.WIDE", "IMAD.HI", "IMAD.MOV", "IMAD.IADD", "IMAD.SHL", "IMAD")
 # the kernels the census lists, by source file (the tag in a mangled name)
 KERNEL_NAMES = {
-    "poseidon2_cu": ("hash_cols_kernel", "compress_kernel", "tower_kernel"),
+    "poseidon2_cu": ("hash_cols_kernel", "compress_kernel", "tower_kernel", "duplex_kernel", "grind_kernel"),
     "bn254_cu": ("op_kernel", "permute_kernel", "compress_kernel", "hash_rows_kernel", "grind_kernel"),
 }
 
@@ -106,7 +107,8 @@ def census(insns) -> tuple:
     ranges = []
     for addr, op, args in insns:
         m = _TARGET.search(args)
-        if op.split(".")[0] == "BRA" and m and int(m.group(1), 16) <= addr:
+        # a branch to itself closes the function (the trap after EXIT), no loop
+        if op.split(".")[0] == "BRA" and m and int(m.group(1), 16) < addr:
             ranges.append((int(m.group(1), 16), addr))
     outside = collections.Counter()
     inside = [collections.Counter() for _ in ranges]
@@ -194,9 +196,9 @@ def bn254_perm_floor(found: dict) -> dict:
         label = f"bn254.permute_kernel<{t}>"
         if label not in found:
             raise ValueError(f"census floor: not read ({label} not in the census)")
-        loops = sorted((body for _, body in found[label][1] if sum(body.values()) > 1), key=lambda b: sum(b.values()))
+        loops = sorted((body for _, body in found[label][1]), key=lambda b: sum(b.values()))
         if len(loops) != 3:
-            raise ValueError(f"census floor: not read ({label}: {len(loops)} loops, not 3)")
+            raise ValueError(f"census floor: not read ({len(loops)} loops in {label}, not 3)")
         total = collections.Counter()
         for body, n in zip(loops, (partial, half, half)):
             for c, k in body.items():
@@ -409,6 +411,19 @@ def pipe_bench(iters: int = 2048) -> None:
 # product (taken beside the shuffle): 3 adds, 3 products, 1 shuffle. The
 # permutation: M_E, 8 full rounds, 13 partial rounds.
 QUAD_PERM_CHAIN = {"add": 7 + 8 * 8 + 13 * 3, "mont": 8 * 3 + 13 * 3, "shfl": 2 + 8 * 2 + 13}
+# The same for kernel E's ``permute_row`` (a word a lane). M_E
+# (``row_external``): a shuffle (l ^ 4, 8, 12), 2 adds to z, a shuffle (the
+# M4 row's lanes), 3 adds (the next constant in the tree): 5 adds, 2
+# shuffles. A full round: the S-box's 3 products, then M_E. Into the partial
+# rounds: the sum of words 1..15 by 4 shuffles and 4 adds (longer than word
+# 0's broadcast, its constant and S-box), its next constant and the
+# subtract of y: 4 shuffles, 6 adds, 3 products to the second S-box; each
+# later partial round the subtract and the S-box (the lane sum of d_i x_i
+# runs beside it): 1 add, 3 products, 11 times; out of them full, the
+# diagonal's add and the final constant: 3 adds. The permutation: M_E, 4
+# full rounds, the partial rounds, 4 full rounds.
+ROW_PERM_CHAIN = {"add": 5 + 4 * 5 + 6 + 11 + 3 + 4 * 5, "mont": 4 * 3 + 3 + 11 * 3 + 4 * 3,
+                  "shfl": 2 + 4 * 2 + 4 + 4 * 2}
 LATENCY_OPS = ("add", "mont", "shfl", "bn254")
 LATENCY_STEPS = 16  # dependent operations a loop trip
 LATENCY_ITERS = 4096  # loop trips: 65,536 dependent operations, 0.7-2 M clocks
@@ -487,9 +502,10 @@ def latency_bench() -> tuple:
     return cycles, sorted(ghz)[len(ghz) // 2]
 
 
-def quad_perm_clocks(cycles: dict) -> float:
-    """SM clocks of :data:`QUAD_PERM_CHAIN` at the latencies ``cycles``."""
-    return sum(n * cycles[op] for op, n in QUAD_PERM_CHAIN.items())
+def perm_clocks(chain: dict, cycles: dict) -> float:
+    """SM clocks of a permutation's chain (:data:`QUAD_PERM_CHAIN`,
+    :data:`ROW_PERM_CHAIN`) at the latencies ``cycles``."""
+    return sum(n * cycles[op] for op, n in chain.items())
 
 
 def main() -> int:
@@ -497,9 +513,10 @@ def main() -> int:
     pipe_bench()
     cycles, ghz = latency_bench()
     lat = " ".join(f"{op} {c:.2f}" for op, c in cycles.items())
-    clocks = quad_perm_clocks(cycles)
-    print(f"latency (SM clocks a dependent operation, at {ghz:.3f} GHz): {lat}; one quad permutation's "
-          f"chain {QUAD_PERM_CHAIN}: {clocks:.0f} clocks, {clocks / ghz / 1e3:.3f} us")
+    print(f"latency (SM clocks a dependent operation, at {ghz:.3f} GHz): {lat}")
+    for name, chain in (("quad (kernel D)", QUAD_PERM_CHAIN), ("row (kernel E)", ROW_PERM_CHAIN)):
+        clocks = perm_clocks(chain, cycles)
+        print(f"latency: one {name} permutation's chain {chain}: {clocks:.0f} clocks, {clocks / ghz / 1e3:.3f} us")
     return 0
 
 

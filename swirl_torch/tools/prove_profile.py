@@ -27,7 +27,10 @@ synchronize calls; the host's ms in the native proof-of-work grind
 device-to-host and host-to-device copies the host issued inside it. The
 host's remaining time (wall minus blocked) is Python dispatch and host
 work. Each span prints a row per transcript, one under the other, so the
-two are read from one run. It fails if the profiler recorded no device
+two are read from one run. Each prove also prints every hand-written
+kernel's launches and device ms (by its device events, under its CUDA
+name: ``duplex_kernel`` is E, ``grind_kernel`` and ``grind_advance_kernel``
+F on the device transcript). It fails if the profiler recorded no device
 activity, or if the two transcripts' proofs differ.
 """
 
@@ -147,6 +150,25 @@ def span_table(prof) -> list:
     return rows
 
 
+def kernel_table(prof) -> dict:
+    """{kernel: (launches, device ms)} of the port's hand-written kernels
+    (csrc/*.cu: ``..._kernel`` in an anonymous namespace) in a finished
+    profile, by their device events."""
+    import re
+
+    from torch.autograd import DeviceType
+
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CPU:
+            continue
+        m = re.search(r"anonymous namespace\)::(\w+_kernel)\b", e.name())
+        if m:
+            n, ms = out.get(m.group(1), (0, 0.0))
+            out[m.group(1)] = (n + 1, ms + (e.end_ns() - e.start_ns()) / 1e6)
+    return out
+
+
 def app_workload():
     import numpy as np
 
@@ -207,6 +229,8 @@ def profile_prove(tag: str, eng, dpk, ctx, transcript) -> tuple:
     t0 = time.perf_counter()
     rows = span_table(prof)
     print(f"{tag}: profiled prove {prove_s:.3f} s; trace read in {time.perf_counter() - t0:.1f} s", flush=True)
+    for name, (n, ms) in sorted(kernel_table(prof).items(), key=lambda kv: -kv[1][1]):
+        print(f"{tag}: kernel {name} | {n} launches | {ms:.3f} device ms a prove", flush=True)
     torch.cuda.empty_cache()
     return rows, encode_proof(proof)
 

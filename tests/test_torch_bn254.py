@@ -17,7 +17,9 @@ the port's host BN254 modules, on inputs made from seeds with numpy.
   ``tests/test_torch_outer.py`` holds to the JAX package's);
 - the plain grind returns the host loop's witness from every sponge cursor
   the prover reaches, and a transcript made with a device logs the host
-  loop's events;
+  loop's events; kernel J's model (its candidate lanes, sweeps and
+  sample) equals the plain search and the JAX package's host loop, its
+  sweeps cover every candidate below the witness, and its plan sizes them;
 - the outer scheme's memory terms.
 
 The JAX ``permute_dev``, ``compress2_dev`` and ``hash_rows_dev`` take about
@@ -290,6 +292,89 @@ def test_device_grind_transcript_logs_the_host_loops_events():
         v.grind(step % 4 + 1)
         v.sample()
     v.finish()
+
+
+def test_grind_source_constants():
+    """Kernel J's sample weights 2^(26 j) mod p in bn254.cu, its operand
+    struct's size, and the threads a block the sweep plan counts."""
+    src = open(os.path.join(CSRC, "bn254.cu")).read()
+    body = re.search(r"#define BB_HALF_WEIGHTS \\\s*\n([^\n]*)", src).group(1)
+    assert [int(w, 16) for w in re.findall(r"0x([0-9a-f]+)u", body)] == [pow(2, 26 * j, P_BB) for j in range(10)]
+    assert "grind_kernel<<<blocks, 128, 0, s>>>" in src and bp.GRIND_THREADS == 128
+    assert bp._grind_struct([1, 2, 3], 4, 0, 31, 1, 5).nbytes == 216  # 5 x 5 limbs, end, mask and a
+
+
+# (absorb cursor, pending felts) of every cursor the prover reaches
+GRIND_CURSORS = [(a, k) for a in (0, 1) for k in range(8)]
+
+
+@pytest.mark.parametrize("bits", [5, 8])
+@pytest.mark.parametrize("a,k", GRIND_CURSORS)
+def test_grind_model_matches_plain_and_jax_host_loop(a, k, bits):
+    """Kernel J's candidate and sample arithmetic by the model (the lane
+    from one product, then an add a sweep; the sample from limb halves,
+    every bound asserted), over 16 threads so that the search crosses
+    sweeps, equals the plain search and the JAX package's host loop."""
+    import swirl.hash.multi_field as jmf
+
+    rng = np.random.default_rng(100 + 16 * bits + 8 * a + k)
+    lanes = _ints(rng, 3)
+    felts = [int(v) for v in rng.integers(0, P_BB, k)]
+    pending = mf.pack_felts(felts)[0] if k else 0
+    w = bp.grind_model(lanes, pending, a, 31 * k, bits, threads=16)
+    assert w == bp.grind_plain(fb.from_ints([*lanes, pending], "cpu"), a, 31 * k, bits)
+    assert w == bp.grind_ints(lanes, pending, a, 31 * k, bits, device="cpu")
+    host = jmf.MultiFieldTranscript()
+    host._sponge.state, host._sponge.absorb_idx, host._sponge.sample_idx = list(lanes), a, 2
+    host._obs_buf = list(felts)
+    assert host.grind(bits) == w
+
+
+@pytest.mark.parametrize("threads", [1, 3, 8, 128])
+def test_grind_sweeps_cover_every_candidate_below_the_witness(threads):
+    """Kernel J's order on index arrays: the sweeps of a launch hold every
+    index below the end once, in thread order; with the threads of a sweep
+    running in any order and each leaving once the least hit so far lies
+    below its next candidate, every index below the final least hit was
+    tried, whatever the hits: a witness of 0, on a sweep's first and last
+    index, or past the end."""
+    rng = np.random.default_rng(threads)
+    end = 5 * threads + 3
+    sweeps = list(bp.grind_sweeps(threads, end))
+    flat = [w for sweep in sweeps for _, w in sweep]
+    assert flat == list(range(end))
+    assert all(w % threads == t for sweep in sweeps for t, w in sweep)
+    witnesses = {0, threads - 1, threads, 2 * threads, 3 * threads - 1, end - 1}
+    for first in sorted(witnesses) + [end]:
+        hits = {first} | {w for w in range(first + 1, end) if rng.random() < 0.3}
+        for _ in range(5):
+            found, gone, tried = None, set(), set()
+            for sweep in sweeps:
+                for t, w in (sweep[i] for i in rng.permutation(len(sweep))):
+                    if t in gone or (found is not None and found < w):
+                        gone.add(t)
+                        continue
+                    tried.add(w)
+                    if w in hits:
+                        found = w if found is None else min(found, w)
+            assert found == (first if first < end else None)
+            assert set(range(first if first < end else end)) <= tried
+
+
+@pytest.mark.parametrize("threads", [128, 3 * 128, 2 * 132 * 128])
+def test_grind_model_at_the_card_sweep_sizes(threads):
+    """Kernel J's lanes by the model at the sweeps csrc/bn254.cu plans on
+    an H100 (one block for 5 bits, 264 blocks from 15 bits) and between:
+    each thread's first lane and its stride mont(threads, step) give
+    (pending + w 2^shift) 2^260 mod P at every candidate tried, and the
+    witness is the plain search's, from a cursor with pending felts."""
+    rng = np.random.default_rng(threads)
+    lanes = _ints(rng, 3)
+    felts = [int(v) for v in rng.integers(0, P_BB, 3)]
+    pending = mf.pack_felts(felts)[0]
+    for bits in (1, 6):
+        w = bp.grind_model(lanes, pending, 1, 93, bits, threads=threads)
+        assert w == bp.grind_plain(fb.from_ints([*lanes, pending], "cpu"), 1, 93, bits)
 
 
 def test_grind_refuses_bad_operands():

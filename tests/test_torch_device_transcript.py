@@ -13,6 +13,9 @@ on the CPU, where kernels E and F run their plain PyTorch versions.
 - Its host reads (``swirl_torch.testing.host_reads``): GKR at most two
   whatever its layer count, WHIR's the same for two shapes of different
   query counts and tree depths.
+- Kernel E's layout, a state word a lane, by its step model: the
+  permutation against the plain one (and, ``slow``, the JAX package's
+  jitted permutation), its launch loop against ``duplex_plain``.
 
 Tolerance: exact equality (finite field, bytes).
 """
@@ -260,6 +263,53 @@ def test_duplex_absorb_sample_ext_matches_jax():
     j_state, j_r = jax_absorb(jnp.asarray(_mont(state), jnp.uint32), jnp.asarray(_mont(flat), jnp.uint32))
     assert torch.equal(st_t, F.from_jax(np.asarray(j_state)))
     assert torch.equal(r, F.from_jax(np.asarray(j_r)))
+
+
+def _row_states():
+    """Random states, all 0 and all P - 1."""
+    rng = np.random.default_rng(21)
+    edges = np.stack([np.zeros(16, U64), np.full(16, P - 1, U64)])
+    return F.const_arr(np.concatenate([_rand(rng, (30, 16)), edges]))
+
+
+def test_row_permutation_model_matches_plain():
+    """Kernel E's permutation, a word a lane (``permute_row``), by the model
+    with every bound asserted, equals the plain permutation."""
+    st = _row_states()
+    assert torch.equal(p2.permute_row_model(st), p2.permute_plain(st))
+
+
+# kernel E's launches by the model: (absorb cursor, sample cursor, device
+# felts, host felts, squeezes, bits): a GKR sub-round, absorbs of 8m - 1, 8m
+# and 8m + 1 felts from the first word and from the middle of a block, host
+# felts after device felts, a run of masked squeezes
+_DUPLEX_MODEL_CASES = [(5, 5, 12, 0, 4, -1), (0, 4, 95, 0, 4, -1), (0, 4, 96, 0, 0, -1), (0, 4, 97, 0, 4, -1),
+                       (3, 8, 93, 0, 1, -1), (3, 8, 88, 5, 4, -1), (7, 2, 0, 1, 3, -1), (0, 7, 0, 0, 20, 19)]
+
+
+@pytest.mark.parametrize("case", _DUPLEX_MODEL_CASES)
+def test_duplex_model_matches_plain(case):
+    """Kernel E's loop by the model (each lane's word of a block, the next
+    block's felt fetched before the permutation) equals ``duplex_plain``."""
+    a, s, k, n_host, n_squeeze, bits = case
+    rng = np.random.default_rng(k + n_host)
+    st = F.const_arr(_rand(rng, (16,)))
+    absorb = F.const_arr(_rand(rng, (k,))) if k else None
+    host = [int(v) for v in _rand(rng, (n_host,))]
+    got = p2.duplex_model(st, absorb, host, a, s, n_squeeze, bits)
+    want = p2.duplex_plain(st, absorb, host, a, s, n_squeeze, bits)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.slow
+def test_row_permutation_model_matches_jax_permute():
+    """The row model equals the JAX package's jitted permutation (the device
+    transcript's), on Montgomery words."""
+    from swirl.hash import jposeidon2 as jp2
+
+    st = _row_states()
+    want = np.asarray(jax.jit(jp2.permute)(jnp.asarray(_mont(F.to_host(st)), jnp.uint32)))
+    assert torch.equal(p2.permute_row_model(st), F.from_jax(want.reshape(-1)).reshape(st.shape))
 
 
 def test_handoff_round_trip():

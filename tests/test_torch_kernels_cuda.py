@@ -8,7 +8,8 @@ tower's ticket counter across calls, streams and a CUDA graph), the
 monomial engine against the CPU and the interpreter, the stacked commit's
 captured graph against the eager commit, and the
 device transcript's kernels E (duplex) and F (grind) at ``chip_smoke.py``'s
-cases, F at every absorb cursor, both refusing bad cursors and bit counts,
+cases, E under CUDA graph capture, F at every absorb cursor, both refusing
+bad cursors and bit counts,
 the transcript on the card against the CPU and a golden proof on it, the
 BN254 outer golden case and round 0 in segments on the card, the fused
 prover's captured proves (golden bytes in segmented and jit mode, a replay
@@ -20,7 +21,7 @@ kernels G-J against their plain versions (the field's operations on
 random and edge operands, the permutations, compress layers at every kind
 of stride, leaf hashes of every absorb shape and of extension-field
 codewords, the device tree against the host tree, the grind from every
-sponge cursor; all-zero and all-(P - 1) digest layers and codewords, and
+sponge cursor at 5, 15 and 18 bits; all-zero and all-(P - 1) digest layers and codewords, and
 the product on every pair of edge values, for the FP64 core). Skips
 without a card. This file imports no jax, so on a machine without jax run it with
 
@@ -384,6 +385,33 @@ def test_duplex_kernel_matches_plain(rand, case):
     assert torch.equal(out, want) and torch.equal(st, new)
 
 
+GRAPH_DUPLEX_CASES = ("gkr_subround_from_5", "final_poly_absorb", "query_indices", "host_felts",
+                      "absorb_4088_and_5_host_from_3")
+
+
+@pytest.mark.parametrize("label", GRAPH_DUPLEX_CASES)
+def test_duplex_kernel_in_a_cuda_graph(rand, label):
+    """Kernel E captured in a CUDA graph (as the fused prover captures it)
+    and replayed twice: each replay advances the state once, bit-equal to
+    the plain version applied as often; its launch configuration takes no
+    host read."""
+    _, a, s, k, n_host, n_squeeze, bits = next(c for c in chip_smoke.DUPLEX_CASES if c[0] == label)
+    st0, absorb = rand(16), rand(k) if k else None
+    host = [int(v) for v in rand(n_host).cpu()]
+    st = st0.clone()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = p2.duplex(st, absorb, host, a, s, n_squeeze, bits)
+    want_st = st0
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        want_st, want = p2.duplex_plain(want_st, absorb, host, a, s, n_squeeze, bits)
+        assert torch.equal(out, want) and torch.equal(st, want_st)
+
+
 @pytest.mark.parametrize("case", chip_smoke.GRIND_CASES, ids=[c[0] for c in chip_smoke.GRIND_CASES])
 def test_grind_kernel_matches_plain(rand, case):
     """Kernel F at chip_smoke.py's cases: the smallest witness and the
@@ -633,6 +661,29 @@ def test_bn254_grind_kernel_witness_is_the_least_at_20_bits(bn_gen, a, k):
     t._obs_buf = list(felts)
     assert w >= 0 and t.check_witness(20, w)
     assert bp.grind(state, a, 31 * k, 20, end=w) == -1
+    # the by-value entry the outer transcript calls
+    pending = pack_felts(felts)[0] if k else 0
+    assert bp.grind_ints(lanes, pending, a, 31 * k, 20, device="cuda") == w
+    assert bp.grind_ints(lanes, pending, a, 31 * k, 20, end=w, device="cuda") == -1
+
+
+@pytest.mark.parametrize("a,k,bits", [(a, k, b) for a in (0, 1) for k in range(8) for b in (5, 15, 18)])
+def test_bn254_grind_kernel_at_every_cursor(bn_gen, a, k, bits):
+    """Kernel J by value from every cursor at the folding, mu and logup
+    grinds' bits: the plain search's witness (at 18 bits the plain search on
+    [0, w], whose least hit is the whole search's), one launch a call."""
+    from swirl_torch.fields import bn254 as fb
+    from swirl_torch.hash import bn254_poseidon2 as bp
+    from swirl_torch.hash.multi_field import pack_felts
+
+    lanes = fb.to_ints(fb.to_canonical(_bn_rand(bn_gen, 3)))
+    felts = torch.randint(0, P, (k,), generator=bn_gen, device="cuda").tolist()
+    pending = pack_felts(felts)[0] if k else 0
+    before = K.BN254_GRIND.launches
+    w = bp.grind_ints(lanes, pending, a, 31 * k, bits, device="cuda")
+    assert K.BN254_GRIND.launches == before + 1
+    state = fb.from_ints([*lanes, pending], "cuda")
+    assert w >= 0 and bp.grind_plain(state, a, 31 * k, bits, end=w + 1 if bits == 18 else None) == w
 
 
 # Edge operands of the redesigned core (csrc/bn254.cuh: 2^52 limbs, products
