@@ -73,7 +73,11 @@ Phases, each printing its result on lines of its own:
    2^10-coefficient final polynomial and one felt either side of it,
    reth segment 13's 38,952-felt column openings (against the host
    transcript's sponge there), the query indices of a WHIR round;
-   the folding, mu and query-phase grinds), and, in the app and Keccak
+   F at each width a prove grinds at: the query phase's 20 bits, the logup
+   grind's 18, mu's 15 and folding's 5, over 16 seeded states each at
+   absorb cursor i mod 8, every witness and state bit for bit, with each
+   width's mean ms, mean witness, ns a candidate and summed bound and
+   floor), and, in the app and Keccak
    phases, a second prove on ``DeviceTranscript()``: its proof's sha256
    must equal the host-transcript proof's, E and F must have launched, and
    the longest absorb of E's launches is printed (the longest case of
@@ -458,15 +462,28 @@ DUPLEX_CASES = (
        ("longest_absorb", 0, 4, LONGEST_ABSORB, 0, 4, -1)]
 )
 HOST_CHECKED = ("longest_absorb",)
-# Kernel F's cases: (label, absorb cursor, bits): the query-phase grind
-# (after observe_ext(y0)), the mu grind, the folding grind (after an absorb
-# of 8)
-GRIND_CASES = (("query_grind", 4, 20), ("mu_grind", 0, 15), ("folding_grind", 0, 5))
+# Kernel F's widths: (label, bits) of the grinds of a prove: the query
+# phase's, the logup grind's, mu's and the folding rounds'. Each runs over
+# GRIND_STATES states (``grind_states``), at absorb cursor i mod 8.
+GRIND_CASES = (("query_grind", 20), ("logup_grind", 18), ("mu_grind", 15), ("folding_grind", 5))
+GRIND_STATES = 16
+
+
+def grind_states(bits: int, device, n: int = GRIND_STATES):
+    """(n, 16) canonical states from numpy's generator seeded 1000 + bits,
+    and their absorb cursors i mod 8."""
+    import numpy as np
+    import torch
+
+    from swirl_torch.fields.babybear import P
+
+    rng = np.random.default_rng(1000 + bits)
+    return torch.tensor(rng.integers(0, P, (n, 16)).astype(np.int64), device=device), [i % 8 for i in range(n)]
 
 
 def transcript_inputs(device):
-    """E's then F's inputs, in case order, from one generator seeded SEED + 1:
-    ("duplex", case, state, absorb, host) and ("grind", case, state)."""
+    """E's inputs, in case order, from one generator seeded SEED + 1:
+    (case, state, absorb, host)."""
     import torch
 
     from swirl_torch.fields.babybear import P
@@ -480,9 +497,7 @@ def transcript_inputs(device):
     for case in DUPLEX_CASES:
         k, n_host = case[3], case[4]
         st, absorb = rand(16), rand(k) if k else None
-        yield "duplex", case, st, absorb, [int(v) for v in rand(n_host).cpu()]
-    for case in GRIND_CASES:
-        yield "grind", case, rand(16)
+        yield case, st, absorb, [int(v) for v in rand(n_host).cpu()]
 
 
 def duplex_host(state, absorb, host, a: int, s: int, n_squeeze: int, bits: int):
@@ -519,88 +534,129 @@ def duplex_perms(a, s, k, n_squeeze) -> int:
 
 
 def check_transcript_kernels(device, perm_floor_ms: float, row_floor_ms: float) -> dict:
-    """Kernels E and F against their plain versions on seeded random states
-    and felts, bit for bit (the new state, the squeezed values, the
-    witness). Both timed by CUDA graph replay (they run faster than Python
-    enqueues them). E's ms beside the bound and its floors: the chain of its
+    """Kernel E against its plain version on seeded random states and
+    felts, bit for bit (the new state, the squeezed values), timed by CUDA
+    graph replay (it runs faster than Python enqueues it). Its ms beside the
+    bound and its floors: the chain of its
     launch's dependent permutations times ``perm_floor_ms`` (one quad
     permutation's latency floor, ``floor_ms``) and times ``row_floor_ms``
     (E's own layout, a word a lane: ``row_floor_ms``), and its ms per
     permutation; its plain version timed once, by the call that is compared
-    (``HOST_CHECKED`` rows: the host transcript's sponge, ``host_ms``).
-    F's with its input state restored before every call, the bound counted
-    from the witness found (w + 1 candidates and the advance), the floor
-    from the sweeps up to the witness's and the advance, each one
-    permutation's latency floor."""
+    (``HOST_CHECKED`` rows: the host transcript's sponge, ``host_ms``)."""
     import torch
 
     from swirl_torch import kernels as K
     from swirl_torch.hash import poseidon2 as p2
 
     results = {}
-    for kind, case, st0, *rest in transcript_inputs(device):
-        if kind == "duplex":
-            label, a, s, k, n_host, n_squeeze, bits = case
-            absorb, host = rest
-            st = st0.clone()
-            got = torch.cat([p2.duplex(st, absorb, host, a, s, n_squeeze, bits), st])
-            ref, what = (duplex_host, "host_ms") if label in HOST_CHECKED else (p2.duplex_plain, "plain_ms")
-            (new, out), plain_ms = _timed_ms(lambda: ref(st0, absorb, host, a, s, n_squeeze, bits))
-            err = _max_abs_err(got, torch.cat([out, new]))
-            if err:
-                raise AssertionError(f"kernel duplex [{label}]: max_abs_err {err}")
-            ms = _graph_time_ms(lambda: p2.duplex(st, absorb, host, a, s, n_squeeze, bits), reps=10)
-            perms = duplex_perms(a, s, k + n_host, n_squeeze)
-            work = ((16 + k) * 8 + (16 + n_squeeze) * 8, times(PERM, perms))
-            bound_ms, bound_by = bound(work)
-            floor_ms, row_ms = perms * perm_floor_ms, perms * row_floor_ms
-            per = f" ({1e3 * ms / perms:.2f} us a permutation)" if perms else ""
-            _say(
-                f"kernel duplex [{label}] cursors=({a}, {s}) absorb={k}+{n_host} squeeze={n_squeeze} bits={bits} "
-                f"equal=True max_abs_err={err} ms={ms:.4f} (by CUDA graph replay){per} {what}={plain_ms:.4f} "
-                f"bound_ms={bound_ms:.6f} ({bound_by}) floor_ms={floor_ms:.4f} ({perms} x the quad permutation's "
-                f"floor) row_floor_ms={row_ms:.4f} ({perms} x the row permutation's floor)"
-            )
-            results.setdefault(K.DUPLEX.name, {
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": None, "floor_ms": floor_ms, "row_floor_ms": row_ms,
-            })
-            continue
-        label, a, bits = case
+    for case, st0, absorb, host in transcript_inputs(device):
+        label, a, s, k, n_host, n_squeeze, bits = case
         st = st0.clone()
-        w = p2.grind(st, a, bits)
-        new, want_w = p2.grind_plain(st0, a, bits)
-        err = max(_max_abs_err(st, new), _max_abs_err(w, want_w))
+        got = torch.cat([p2.duplex(st, absorb, host, a, s, n_squeeze, bits), st])
+        ref, what = (duplex_host, "host_ms") if label in HOST_CHECKED else (p2.duplex_plain, "plain_ms")
+        (new, out), plain_ms = _timed_ms(lambda: ref(st0, absorb, host, a, s, n_squeeze, bits))
+        err = _max_abs_err(got, torch.cat([out, new]))
         if err:
-            raise AssertionError(f"kernel grind [{label}]: max_abs_err {err}")
-        witness = int(w.item())
-
-        def fk():
-            st.copy_(st0)
-            p2.grind(st, a, bits)
-
-        plain_ms = _cuda_time_ms(lambda: p2.grind_plain(st0, a, bits), reps=2)
-        ms = _graph_time_ms(fk, reps=10)
-        work = (2 * 16 * 8 + 8, times(PERM, witness + 2))
+            raise AssertionError(f"kernel duplex [{label}]: max_abs_err {err}")
+        ms = _graph_time_ms(lambda: p2.duplex(st, absorb, host, a, s, n_squeeze, bits), reps=10)
+        perms = duplex_perms(a, s, k + n_host, n_squeeze)
+        work = ((16 + k) * 8 + (16 + n_squeeze) * 8, times(PERM, perms))
         bound_ms, bound_by = bound(work)
-        # the latency floor: the sweeps up to the witness's, each one
-        # permutation's dependent chain, then the advance's; a sweep holds at
-        # most twice the expected candidates and the card's resident threads
-        sweep = min(-(-(2 << bits) // 128) * 128, SMS * THREADS_PER_SM)
-        floor_ms = (-(-(witness + 1) // sweep) + 1) * perm_floor_ms
+        floor_ms, row_ms = perms * perm_floor_ms, perms * row_floor_ms
+        per = f" ({1e3 * ms / perms:.2f} us a permutation)" if perms else ""
         _say(
-            f"kernel grind [{label}] cursor={a} bits={bits} witness={witness} (expected 2^{bits} = "
-            f"{1 << bits} candidates) equal=True max_abs_err={err} ms={ms:.4f} (by CUDA graph replay, "
-            f"the state's restore included) plain_ms={plain_ms:.4f} "
-            f"bound_ms={bound_ms:.6f} ({bound_by}; {witness + 1} candidates and the advance) "
-            f"floor_ms={floor_ms:.4f} (sweeps of at most {sweep} candidates and the advance, each "
-            f"one permutation's floor)"
+            f"kernel duplex [{label}] cursors=({a}, {s}) absorb={k}+{n_host} squeeze={n_squeeze} bits={bits} "
+            f"equal=True max_abs_err={err} ms={ms:.4f} (by CUDA graph replay){per} {what}={plain_ms:.4f} "
+            f"bound_ms={bound_ms:.6f} ({bound_by}) floor_ms={floor_ms:.4f} ({perms} x the quad permutation's "
+            f"floor) row_floor_ms={row_ms:.4f} ({perms} x the row permutation's floor)"
         )
-        results.setdefault(K.GRIND.name, {
+        results.setdefault(K.DUPLEX.name, {
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None, "floor_ms": floor_ms,
+            "bound_by": bound_by, "library_ms": None, "floor_ms": floor_ms, "row_floor_ms": row_ms,
         })
     return results
+
+
+def time_grind(st0, a: int, bits: int, label: str) -> tuple:
+    """Kernel F from one state: one launch, its witness and advanced state
+    bit for bit against ``grind_plain``'s (whose time is the plain one),
+    then its ms by CUDA graph replay with the state restored before every
+    call; (ms, witness, plain_ms)."""
+    from swirl_torch import kernels as K
+    from swirl_torch.hash import poseidon2 as p2
+
+    st = st0.clone()
+    before = K.GRIND.launches
+    w = p2.grind(st, a, bits)
+    if K.GRIND.launches != before + 1:
+        raise AssertionError(f"kernel grind [{label}]: {K.GRIND.launches - before} launches a grind")
+    (new, want_w), plain_ms = _timed_ms(lambda: p2.grind_plain(st0, a, bits))
+    err = max(_max_abs_err(st, new), _max_abs_err(w, want_w))
+    if err:
+        raise AssertionError(f"kernel grind [{label}] cursor={a}: max_abs_err {err}")
+    witness = int(w.item())
+
+    def fk():
+        st.copy_(st0)
+        p2.grind(st, a, bits)
+
+    with p2.private_tickets(st0.device):  # the timing's side stream keeps no (found word, ticket) pair
+        ms = _graph_time_ms(fk, reps=10)
+    return ms, witness, plain_ms
+
+
+def check_grind_widths(device, row_floor_ms: float, scalar_floor_ms: float) -> dict:
+    """Kernel F at each width of ``GRIND_CASES`` over its ``grind_states``,
+    each state by :func:`time_grind`. A state's bound: its w + 1
+    candidates (``roofline.GRIND_CANDIDATE`` each) and the advance (a
+    permutation); its floor: the sweeps of ``p2.grind_plan`` up to the
+    witness's, each one permutation's chain (the scalar one on the sweep
+    route, the row one on the rows route), then the advance's row chain.
+    Prints each width's mean ms, mean witness, ns a candidate (the summed
+    ms over the summed w + 1) and the summed bound and floor; returns the
+    20-bit width's figures (each the mean of a grind) with every width's
+    under "widths"."""
+    import torch
+
+    from swirl_torch.hash import poseidon2 as p2
+    from swirl_torch.roofline import GRIND_CANDIDATE
+
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    widths = []
+    for label, bits in GRIND_CASES:
+        plan = p2.grind_plan(bits, sms)
+        chain_ms = scalar_floor_ms if plan["route"] == "sweep" else row_floor_ms
+        states, cursors = grind_states(bits, device)
+        ms, plain_ms, witnesses, bound_ms, floor_ms = [], [], [], 0.0, 0.0
+        for st0, a in zip(states, cursors):
+            t, witness, t_plain = time_grind(st0, a, bits, label)
+            ms.append(t)
+            plain_ms.append(t_plain)
+            witnesses.append(witness)
+            bound_ms += bound((2 * 16 * 8 + 8, plus(times(GRIND_CANDIDATE, witness + 1), PERM)))[0]
+            floor_ms += (witness // plan["per_sweep"] + 1) * chain_ms + row_floor_ms
+        cands = sum(witnesses) + len(witnesses)
+        row = {
+            "bits": bits, "states": len(ms), "route": plan["route"], "blocks": plan["blocks"],
+            "per_sweep": plan["per_sweep"], "ms": sum(ms) / len(ms), "mean_witness": cands / len(ms) - 1,
+            "ns_per_candidate": 1e6 * sum(ms) / cands, "plain_ms": sum(plain_ms) / len(ms),
+            "bound_ms": bound_ms / len(ms), "floor_ms": floor_ms / len(ms), "max_abs_err": 0,
+        }
+        widths.append(row)
+        _say(
+            f"kernel grind [{label}] bits={bits} over {len(ms)} states (cursor i mod 8): equal=True max_abs_err=0 "
+            f"route={plan['route']} ({plan['blocks']} blocks, sweeps of {plan['per_sweep']}) mean ms={row['ms']:.4f} "
+            f"(by CUDA graph replay, the state's restore included) mean witness={row['mean_witness']:.1f} "
+            f"({row['ns_per_candidate']:.4f} ns a candidate) plain_ms={row['plain_ms']:.4f} summed bound_ms="
+            f"{bound_ms:.6f} (operations; the w + 1 candidates and the advance) summed floor_ms={floor_ms:.4f} "
+            f"(the plan's sweeps up to each witness and the advance, each one permutation's chain); ms "
+            f"{' '.join(f'{t:.4f}' for t in ms)}"
+        )
+    top = widths[0]
+    return {
+        "max_abs_err": 0, "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+        "bound_by": "operations", "library_ms": None, "floor_ms": top["floor_ms"], "widths": widths,
+    }
 
 
 def _bn_rand(gen, n: int, device):
@@ -2517,10 +2573,12 @@ def main() -> int:
     perm_floor_ms = clocks / BOOST_HZ * 1e3
     row_clocks = isa.perm_clocks(isa.ROW_PERM_CHAIN, cycles)
     row_floor_ms = row_clocks / BOOST_HZ * 1e3
+    scalar_floor_ms = isa.perm_clocks(isa.SCALAR_PERM_CHAIN, cycles) / BOOST_HZ * 1e3
     _say(f"latency: SM clocks a dependent operation {cycles} (at {ghz:.3f} GHz); one quad permutation's "
          f"chain {isa.QUAD_PERM_CHAIN}: {clocks:.0f} clocks, floor {perm_floor_ms:.6f} ms at the boost clock; "
          f"one row permutation's (kernel E) {isa.ROW_PERM_CHAIN}: {row_clocks:.0f} clocks, floor "
-         f"{row_floor_ms:.6f} ms")
+         f"{row_floor_ms:.6f} ms; one scalar permutation's (B, C, F's sweep route) {isa.SCALAR_PERM_CHAIN}: floor "
+         f"{scalar_floor_ms:.6f} ms")
 
     bn_perm_floor = None
     try:
@@ -2539,6 +2597,7 @@ def main() -> int:
 
     results = check_kernels(device, perm_floor_ms)
     results.update(check_transcript_kernels(device, perm_floor_ms, row_floor_ms))
+    results[K.GRIND.name] = check_grind_widths(device, row_floor_ms, scalar_floor_ms)
     t0 = time.perf_counter()
     results.update(check_bn254_kernels(device, bn_perm_floor))
     torch.cuda.empty_cache()

@@ -61,6 +61,8 @@
 // of digest k at word r * 68 + k: a warp's pair reads (16 digests, rows r
 // and r + 4) fall on 32 distinct banks, and its stores (8 digests, rows r
 // and r + 4) on 16.
+#include <utility>
+
 #include "field.cuh"
 
 namespace {
@@ -528,58 +530,215 @@ __global__ void __launch_bounds__(32) duplex_kernel(int64_t* state, const int64_
   if (threadIdx.x < ROW) state[l] = from_mont(x);
 }
 
-// Kernel F (grind), the search: the smallest w in [0, P) such that
-// observe(w) at absorb cursor a, then sample_bits, gives 0 under `mask`.
-// Whatever the cursors, that is one permutation of the state with word a
-// set to w (a full rate permutes at the observe, else the sample does),
-// and the sample is word RATE - 1. Threads take the candidates of a sweep
-// of gridDim * blockDim in index order and keep the least hit with
-// atomicMin; a thread leaves once the least hit so far lies below its
-// sweep, so every candidate below the final minimum was tried and the
-// minimum is the host scan's witness. `found` starts above P (the wrapper
-// fills its bytes with 0x7f). Bound: the multiply pipe, one permutation a
-// candidate (the scalar `permute` of B and C).
-__global__ void __launch_bounds__(128) grind_kernel(const int64_t* __restrict__ state, int a,
-                                                    uint32_t mask, unsigned long long* found) {
-  uint32_t s0[WIDTH];
+// Kernel F (grind): the smallest w in [0, P) such that observe(w) at absorb
+// cursor a, then sample_bits, gives 0 under `mask`, and the state advance
+// of check_witness. Whatever the cursors, that is one permutation of the
+// state with word a set to w (a full rate permutes at the observe, else
+// the sample does), and the sample is word RATE - 1. A launch is the whole
+// grind: the search, then the advance, in one graph node.
+//
+// A sweep is gridDim x (candidates a block) candidates in index order; a
+// thread takes one candidate a sweep, keeps the least hit with atomicMin
+// on the found word and leaves once the least hit it last read lies below
+// its next candidate (the read is issued a trip ahead, beside the
+// permutation: a stale read only costs overshoot), so every candidate
+// below the final minimum was tried and the minimum is the host scan's
+// witness. Each block then takes a ticket; the block that draws the last
+// one reads the minimum, applies it to the state with one row permutation
+// (one warp), writes the witness (-1 with none in [0, P), the state then
+// left as it is: the prover refuses it when it fetches the proof) and
+// re-arms the found word (all ones) and the ticket (0) for the next launch.
+// The found word and the ticket are one int64 pair the wrapper keeps per
+// device and stream (a capture takes its own).
+//
+// Two routes, by the sweep that the plan in swirl_p2_grind sizes to
+// GRIND_EXPECTED expected counts (2^bits each):
+// - sweep (grind_sweep_kernel<a>): one candidate a thread, the scalar
+//   permutation of B and C. M_E is linear and only word a differs between
+//   candidates, so the first S-box inputs are c_i + k_i w̄: c = M_E(state
+//   with word a set to 0) + the first round's constants, once a launch; k
+//   = column a of M_E (entries 1, 2, 3, 4, 6; a is a template argument, so
+//   k_i picks one of w̄, 2w̄, 3w̄, 4w̄, 6w̄ at compile time); w̄ = mont(w)
+//   moves by one add of mont(sweep) a trip. Only word RATE - 1 leaves the
+//   last round, so the compiler keeps of the last M_E what it needs (28 of
+//   its 72 adds; a candidate's work: roofline.py GRIND_CANDIDATE). At most
+//   SMs x GRIND_MIN_BLOCKS blocks (__launch_bounds__ leaves that residency).
+//   Measured on the H100, 2 blocks an SM (2 warps a sub-partition) cost the
+//   least a candidate at 15, 18 and 20 bits: 3 or 4 cost 17% more at 20
+//   bits, and a sweep of 33,792 keeps the overshoot past the witness (half
+//   a sweep on average) short. Rolled round loops are no faster there.
+// - rows (grind_rows_kernel): a sweep of at most GRIND_ROWS_MAX_CANDIDATES
+//   (10 bits: 512 blocks, 4 warps a sub-partition of the card) runs in
+//   kernel E's row layout, a state word a lane, 2 candidates a warp: a
+//   short search costs about one row permutation's latency (2.09 us) where
+//   a lone warp of scalar permutations takes about 9.7 us; measured, the
+//   rows route is the faster up to 10 bits.
+constexpr int GRIND_THREADS = 128;
+constexpr int GRIND_MIN_BLOCKS = 2;   // blocks an SM of the sweep route: the measured knee
+constexpr int GRIND_EXPECTED = 4;     // a sweep: expected counts of candidates
+constexpr int GRIND_ROW_CANDIDATES = GRIND_THREADS / ROW;  // a block of the rows route
+constexpr int GRIND_ROWS_MAX_CANDIDATES = 4096;            // the rows route's largest sweep: measured
+enum GrindRoute { GRIND_SWEEP = 0, GRIND_ROWS = 1 };
+
+// M_E's entry (i, j): M4[i % 4][j % 4] (2 on the diagonal, 3 one to its
+// right, cyclically, else 1), doubled within a group
+__host__ __device__ constexpr int me_entry(int i, int j) {
+  return ((j & 3) == (i & 3) ? 2 : (j & 3) == ((i + 1) & 3) ? 3 : 1) * (i / 4 == j / 4 ? 2 : 1);
+}
+
+// k w̄ for k in {1, 2, 3, 4, 6}, picked at compile time
+template <int K>
+__device__ __forceinline__ uint32_t times_k(uint32_t w1, uint32_t w2, uint32_t w3, uint32_t w4, uint32_t w6) {
+  static_assert(K == 1 || K == 2 || K == 3 || K == 4 || K == 6, "M_E's entries are 1, 2, 3, 4, 6");
+  return K == 1 ? w1 : K == 2 ? w2 : K == 3 ? w3 : K == 4 ? w4 : w6;
+}
+
+template <int A, int... I>
+__device__ __forceinline__ void first_inputs(uint32_t* s, const uint32_t* c, uint32_t w1, uint32_t w2,
+                                             uint32_t w3, uint32_t w4, uint32_t w6,
+                                             std::integer_sequence<int, I...>) {
+  ((s[I] = add(c[I], times_k<me_entry(I, A)>(w1, w2, w3, w4, w6))), ...);
+}
+
+// the permutation from its first S-box layer's inputs (M_E and the first
+// round's constants already applied)
+__device__ __forceinline__ void permute_from_sbox_inputs(uint32_t* s) {
 #pragma unroll
-  for (int i = 0; i < WIDTH; ++i) s0[i] = to_mont((uint32_t)state[i]);
-  const unsigned long long sweep = (unsigned long long)gridDim.x * blockDim.x;
-  for (unsigned long long base = 0; base < P; base += sweep) {
-    if (*(volatile unsigned long long*)found < base) return;
-    const unsigned long long w = base + (unsigned long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (w >= P) return;
-    const uint32_t wm = to_mont((uint32_t)w);
-    uint32_t s[WIDTH];
+  for (int i = 0; i < WIDTH; ++i) s[i] = sbox(s[i]);
+  external_layer(s);
 #pragma unroll
-    for (int i = 0; i < WIDTH; ++i) s[i] = i == a ? wm : s0[i];
-    permute(s);
-    if ((from_mont(s[RATE - 1]) & mask) == 0) atomicMin(found, w);
+  for (int r = 1; r < HALF_FULL; ++r) full_round(s, c_ext_init[r]);
+#pragma unroll
+  for (int r = 0; r < PARTIAL; ++r) partial_round(s, c_internal[r]);
+#pragma unroll
+  for (int r = 0; r < HALF_FULL; ++r) full_round(s, c_ext_final[r]);
+}
+
+__device__ __forceinline__ unsigned long long read_found(const unsigned long long* found) {
+  return *(const volatile unsigned long long*)found;
+}
+
+// The end of every block of a grind: the ticket, and in the block that
+// draws the last one, the advance by its first warp (row layout: lane l
+// holds word l, both half-warps run the same permutation, with c, lane l's
+// constants). s0: lane l's state word in Montgomery form. hit: this
+// thread's atomicMin, fenced before the block's ticket.
+__device__ __forceinline__ void grind_finish(int64_t* state, int a, uint32_t s0, const RowRc& c, bool hit,
+                                             unsigned long long* scratch, int64_t* witness) {
+  __shared__ bool last;
+  unsigned* ticket = reinterpret_cast<unsigned*>(scratch + 1);
+  if (hit) __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last || threadIdx.x >= 32) return;
+  __threadfence();
+  const unsigned long long f = __shfl_sync(0xffffffffu, read_found(scratch), 0);
+  const int l = threadIdx.x & (ROW - 1);
+  if (f < P) {
+    const uint32_t x = permute_row(l == a ? to_mont((uint32_t)f) : s0, c, l);
+    if (threadIdx.x < ROW) state[l] = from_mont(x);
+  }
+  if (threadIdx.x == 0) {
+    *witness = f < P ? (int64_t)f : -1;
+    scratch[0] = ~0ull;
+    *ticket = 0;
   }
 }
 
-// Kernel F, the state advance of check_witness: observe the witness, sample
-// once (one permutation, as above). With no witness in [0, P) the state is
-// left as it is and the witness reads -1, which the prover refuses when it
-// fetches the proof.
-__global__ void __launch_bounds__(32) grind_advance_kernel(int64_t* state, int a,
-                                                           unsigned long long* found) {
-  const unsigned long long w = *(volatile unsigned long long*)found;
-  __syncwarp();
-  if (w >= P) {
-    if (threadIdx.x == 0) *found = ~0ull;
-    return;
-  }
-  const int q = threadIdx.x & (QUAD - 1);
-  const QuadRc c = quad_rc(q);
-  uint32_t x[4];
+template <int A>
+__global__ void __launch_bounds__(GRIND_THREADS, GRIND_MIN_BLOCKS)
+    grind_sweep_kernel(int64_t* state, uint32_t mask, unsigned long long* scratch, int64_t* witness) {
+  uint32_t c[WIDTH];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) x[i] = 4 * q + i == a ? to_mont((uint32_t)w) : to_mont((uint32_t)state[4 * q + i]);
-  permute_quad(x, c, q);
-  if (threadIdx.x < QUAD) {
+  for (int i = 0; i < WIDTH; ++i) c[i] = i == A ? 0u : to_mont((uint32_t)state[i]);
+  external_layer(c);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) state[4 * q + i] = from_mont(x[i]);
+  for (int i = 0; i < WIDTH; ++i) c[i] = add(c[i], c_ext_init[0][i]);
+  const uint32_t n = gridDim.x * GRIND_THREADS;
+  const uint32_t step = to_mont(n);
+  uint32_t w = blockIdx.x * GRIND_THREADS + threadIdx.x;
+  uint32_t wbar = to_mont(w);
+  unsigned long long seen = ~0ull;  // the found word is armed at launch: the first trip runs
+  bool hit = false;
+  while (w < P && seen >= w) {
+    seen = read_found(scratch);  // the next trip's test
+    const uint32_t w2 = add(wbar, wbar), w3 = add(w2, wbar), w4 = add(w2, w2), w6 = add(w3, w3);
+    uint32_t s[WIDTH];
+    first_inputs<A>(s, c, wbar, w2, w3, w4, w6, std::make_integer_sequence<int, WIDTH>{});
+    permute_from_sbox_inputs(s);
+    if ((from_mont(s[RATE - 1]) & mask) == 0) {
+      atomicMin(scratch, (unsigned long long)w);
+      hit = true;
+    }
+    w += n;
+    wbar = add(wbar, step);
   }
+  const int l = threadIdx.x & (ROW - 1);
+  RowRc rc = {};
+  uint32_t s0 = 0;
+  if (threadIdx.x < 32) {  // the advance's operands, should this block draw the last ticket
+    rc = row_rc(l);
+    s0 = to_mont((uint32_t)state[l]);
+  }
+  grind_finish(state, A, s0, rc, hit, scratch, witness);
+}
+
+// The rows route: half-warp h of warp v of block b takes candidate
+// GRIND_ROW_CANDIDATES b + 2 v + h of each sweep; the warp runs while the
+// least hit lane 0 read lies at or above its first candidate (the shuffles
+// need the whole warp).
+__global__ void __launch_bounds__(GRIND_THREADS)
+    grind_rows_kernel(int64_t* state, int a, uint32_t mask, unsigned long long* scratch, int64_t* witness) {
+  const int l = threadIdx.x & (ROW - 1);
+  const RowRc c = row_rc(l);
+  const uint32_t s0 = to_mont((uint32_t)state[l]);
+  const uint32_t n = gridDim.x * GRIND_ROW_CANDIDATES;
+  uint32_t lead = blockIdx.x * GRIND_ROW_CANDIDATES + (threadIdx.x >> 5) * 2;
+  uint32_t w = lead + ((threadIdx.x >> 4) & 1);
+  unsigned long long seen = ~0ull;  // the found word is armed at launch: the first trip runs
+  bool hit = false;
+  while (lead < P && seen >= lead) {
+    seen = __shfl_sync(0xffffffffu, read_found(scratch), 0);
+    const uint32_t x = permute_row(l == a ? to_mont(w) : s0, c, l);
+    if (l == RATE - 1 && w < P && (from_mont(x) & mask) == 0) {
+      atomicMin(scratch, (unsigned long long)w);
+      hit = true;
+    }
+    lead += n;
+    w += n;
+  }
+  grind_finish(state, a, s0, c, hit, scratch, witness);
+}
+
+template <int A>
+void launch_sweep(unsigned blocks, int64_t* state, uint32_t mask, unsigned long long* scratch, int64_t* witness,
+                  cudaStream_t st) {
+  grind_sweep_kernel<A><<<blocks, GRIND_THREADS, 0, st>>>(state, mask, scratch, witness);
+}
+
+// one grind on `blocks` blocks of the route (the plan is swirl_p2_grind's)
+int grind_launch(int route, unsigned blocks, int64_t* state, int a, int bits, int64_t* scratch, int64_t* witness,
+                 cudaStream_t st) {
+  if (a < 0 || a >= RATE || bits < 1 || bits > 30 || blocks < 1 || (route != GRIND_SWEEP && route != GRIND_ROWS))
+    return (int)cudaErrorInvalidValue;
+  const uint32_t mask = (1u << bits) - 1u;
+  unsigned long long* g = reinterpret_cast<unsigned long long*>(scratch);
+  if (route == GRIND_ROWS) {
+    grind_rows_kernel<<<blocks, GRIND_THREADS, 0, st>>>(state, a, mask, g, witness);
+  } else {
+    switch (a) {
+      case 0: launch_sweep<0>(blocks, state, mask, g, witness, st); break;
+      case 1: launch_sweep<1>(blocks, state, mask, g, witness, st); break;
+      case 2: launch_sweep<2>(blocks, state, mask, g, witness, st); break;
+      case 3: launch_sweep<3>(blocks, state, mask, g, witness, st); break;
+      case 4: launch_sweep<4>(blocks, state, mask, g, witness, st); break;
+      case 5: launch_sweep<5>(blocks, state, mask, g, witness, st); break;
+      case 6: launch_sweep<6>(blocks, state, mask, g, witness, st); break;
+      default: launch_sweep<7>(blocks, state, mask, g, witness, st); break;
+    }
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -642,21 +801,22 @@ extern "C" int swirl_p2_duplex(int64_t* state, const int64_t* absorb, long long 
   return (int)cudaGetLastError();
 }
 
-// The search sweeps twice the expected 2^bits candidates at once, at most
-// as many blocks as the card holds; then the advance. witness: one int64.
-extern "C" int swirl_p2_grind(int64_t* state, int a, int bits, int64_t* witness, void* stream) {
-  if (a < 0 || a >= RATE || bits < 1 || bits > 30) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  int dev = 0, sms = 0, per_sm = 0;
+// The plan: a sweep of GRIND_EXPECTED expected counts (2^bits each); up to
+// GRIND_ROWS_MAX_CANDIDATES on the rows route, blocks of 8 candidates;
+// above, the sweep route, at most the SMs x GRIND_MIN_BLOCKS blocks
+// that stay resident. scratch: the (found word, ticket) int64 pair, all
+// ones and 0 between launches; witness: one int64.
+extern "C" int swirl_p2_grind(int64_t* state, int a, int bits, int64_t* scratch, int64_t* witness, void* stream) {
+  if (bits < 1 || bits > 30) return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, grind_kernel, 128, 0);
-  const long long want = ((2LL << bits) + 127) / 128;
-  const long long most = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  const unsigned blocks = (unsigned)(want < most ? want : most);
-  unsigned long long* found = reinterpret_cast<unsigned long long*>(witness);
-  cudaMemsetAsync(found, 0x7f, sizeof(*found), st);
-  grind_kernel<<<blocks, 128, 0, st>>>(state, a, (1u << bits) - 1u, found);
-  grind_advance_kernel<<<1, 32, 0, st>>>(state, a, found);
-  return (int)cudaGetLastError();
+  const long long want = (long long)GRIND_EXPECTED << bits;
+  if (want <= GRIND_ROWS_MAX_CANDIDATES)
+    return grind_launch(GRIND_ROWS, (unsigned)((want + GRIND_ROW_CANDIDATES - 1) / GRIND_ROW_CANDIDATES), state, a,
+                        bits, scratch, witness, (cudaStream_t)stream);
+  const long long blocks = (want + GRIND_THREADS - 1) / GRIND_THREADS;
+  const long long most = (long long)(sms > 0 ? sms : 1) * GRIND_MIN_BLOCKS;
+  return grind_launch(GRIND_SWEEP, (unsigned)(blocks < most ? blocks : most), state, a, bits, scratch, witness,
+                      (cudaStream_t)stream);
 }

@@ -19,6 +19,7 @@ from __future__ import annotations
 import threading
 from contextlib import contextmanager
 from functools import lru_cache
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -261,7 +262,10 @@ _R2 = (1 << 64) % P
 
 def _below(x, bound, what):
     x = torch.as_tensor(x)
-    if not bool(((x >= 0) & (x < bound)).all()):
+    if x.numel() == 0:
+        return x
+    lo, hi = torch.aminmax(x)
+    if lo < 0 or hi >= bound:
         raise AssertionError(f"poseidon2 model: {what} leaves [0, {bound})")
     return x
 
@@ -479,39 +483,55 @@ def compress_layer(layer, stride: int):
     return _compress_launch(layer, out, n // 2, n, stride.bit_length() - 1, stride)
 
 
-# the tower's ticket counters, one a (device index, stream): zero between
-# launches. torch hands out pooled streams round robin, so a stream's handle
-# recurs; a capture takes a counter of its own (private_tickets) instead.
+# the counters of each (device index, stream): the tower's ticket and the
+# grind's (found word, ticket) pair as :class:`Tickets`, zero (the found
+# word all ones) between launches, views of one allocation
+# (:func:`_counters`). torch hands out pooled streams round robin, so a
+# stream's handle recurs; a capture takes its own (private_tickets) instead.
 _TICKETS = {}
 _PRIVATE = threading.local()
 
 
+class Tickets(NamedTuple):
+    """One stream's or capture's counters: kernel D's ticket (int32) and
+    kernel F's (found word, ticket) pair (int64)."""
+
+    tower: torch.Tensor
+    grind: torch.Tensor
+
+
+def _counters(device) -> Tickets:
+    """One int64 triple (F's found word, all ones; F's ticket; D's ticket, the
+    int32 low half of the third word), as its two views."""
+    t = torch.tensor([-1, 0, 0], dtype=torch.int64, device=device)
+    return Tickets(t[2:].view(torch.int32)[:1], t[:2])
+
+
 @contextmanager
 def private_tickets(device):
-    """Kernel D's launches on ``device`` from this thread inside it use one
-    new counter, made here (zero) and yielded for the caller to keep: the
-    graphs captured inside it read that counter at every replay, and no
-    other launch shares it."""
-    tickets = torch.zeros(1, dtype=torch.int32, device=device)
-    prev = getattr(_PRIVATE, "tickets", None)
-    _PRIVATE.tickets = tickets
+    """Kernel D's and F's launches on ``device`` from this thread inside it
+    use counters made here (armed) and yielded, as :class:`Tickets`, for the
+    caller to keep: the graphs captured inside it read them at every replay,
+    and no other launch shares them."""
+    own = _counters(device)
+    prev = getattr(_PRIVATE, "own", None)
+    _PRIVATE.own = own
     try:
-        yield tickets
+        yield own
     finally:
-        _PRIVATE.tickets = prev
+        _PRIVATE.own = prev
 
 
-def _tower_tickets(device):
-    own = getattr(_PRIVATE, "tickets", None)
-    if own is not None and own.device == device:
+def _tickets(device) -> Tickets:
+    own = getattr(_PRIVATE, "own", None)
+    if own is not None and own.tower.device == device:
         return own
     key = (device.index, torch.cuda.current_stream(device).cuda_stream)
-    tickets = _TICKETS.get(key)
-    if tickets is None:
-        if torch.cuda.is_current_stream_capturing():  # a captured zero fill runs only at replay
-            raise K.KernelError("compress_tower: call it once on this stream before capturing it")
-        tickets = _TICKETS.setdefault(key, torch.zeros(1, dtype=torch.int32, device=device))
-    return tickets
+    if key not in _TICKETS:
+        if torch.cuda.is_current_stream_capturing():  # a captured fill runs only at replay
+            raise K.KernelError("compress_tower, grind: call one on this stream before capturing it")
+        _TICKETS[key] = _counters(device)
+    return _TICKETS[key]
 
 
 def _tower_layers(flat, n: int) -> list:
@@ -536,7 +556,7 @@ def compress_tower(digests) -> list:
     if digests.shape[0] != DIGEST or not 2 <= n <= TOWER_MAX or n & (n - 1):
         raise K.KernelError(f"compress_tower: unsupported shape {tuple(digests.shape)}")
     flat = torch.empty(DIGEST * (n - 1), dtype=F.DTYPE, device=digests.device)
-    tickets = _tower_tickets(digests.device)
+    tickets = _tickets(digests.device).tower
     K.LIB.launch(K.TOWER, "swirl_p2_tower", digests, digests.data_ptr(), flat.data_ptr(), n, tickets.data_ptr())
     return _tower_layers(flat, n)
 
@@ -640,17 +660,18 @@ def grind_plain(state, a: int, bits: int):
 
 
 def grind(state, a: int, bits: int):
-    """Kernel F: :func:`grind_plain` on the card, the (16,) state advanced in
-    place (the squeeze cursor is then RATE - 1, the absorb cursor 0);
-    returns the witness as a 0-d tensor, -1 if there is none."""
+    """Kernel F: :func:`grind_plain` on the card in one launch, the (16,)
+    state advanced in place (the squeeze cursor is then RATE - 1, the absorb
+    cursor 0); returns the witness as a 0-d tensor, -1 if there is none."""
     _check_grind(state, a, bits)
     if not state.is_cuda:
         new, w = grind_plain(state, a, bits)
         state.copy_(new)
         return w
     K.require(state, 1, "grind")
+    scratch = _tickets(state.device).grind
     w = torch.empty((), dtype=F.DTYPE, device=state.device)
-    K.LIB.launch(K.GRIND, "swirl_p2_grind", state, state.data_ptr(), a, bits, w.data_ptr())
+    K.LIB.launch(K.GRIND, "swirl_p2_grind", state, state.data_ptr(), a, bits, scratch.data_ptr(), w.data_ptr())
     return w
 
 
@@ -935,3 +956,153 @@ def duplex_model(state, absorb, host, a: int, s: int, n_squeeze: int, bits: int 
         s -= 1
         out.append(int(x[s]) & (~0 if bits < 0 else (1 << bits) - 1))
     return x, torch.tensor(out, dtype=F.DTYPE)
+
+
+# ---------------------------------------------------------------------------
+# Kernel F (csrc/poseidon2.cu grind_sweep_kernel, grind_rows_kernel): the
+# plan of swirl_p2_grind and the launch, step for step on the CPU.
+# ---------------------------------------------------------------------------
+
+GRIND_THREADS = 128  # threads a block, both routes
+GRIND_MIN_BLOCKS = 2  # the sweep route's blocks an SM (its __launch_bounds__): the measured knee
+GRIND_EXPECTED = 4  # a sweep: expected counts (2^bits each) of candidates
+GRIND_ROW_CANDIDATES = GRIND_THREADS // ROW  # a block of the rows route: 2 a warp
+GRIND_ROWS_MAX_CANDIDATES = 4096  # the rows route's largest sweep (10 bits), measured
+H100_SMS = 132
+
+
+def me_entry(i: int, j: int) -> int:
+    """M_E's entry (i, j): M4[i % 4][j % 4] (2 on the diagonal, 3 one to its
+    right, cyclically, else 1), doubled within a group."""
+    m4 = 2 if j % 4 == i % 4 else 3 if j % 4 == (i + 1) % 4 else 1
+    return m4 * (2 if i // 4 == j // 4 else 1)
+
+
+def grind_plan(bits: int, sms: int = H100_SMS) -> dict:
+    """swirl_p2_grind's launch: a sweep of GRIND_EXPECTED expected counts; up
+    to GRIND_ROWS_MAX_CANDIDATES on the rows route (blocks of 8 candidates,
+    2 a warp), above on the sweep route (a candidate a thread), at most
+    ``sms`` x GRIND_MIN_BLOCKS blocks. Returns {"route", "blocks",
+    "per_sweep"} (candidates a sweep)."""
+    if not 1 <= bits <= 30:
+        raise ValueError(f"grind: {bits} bits")
+    want = GRIND_EXPECTED << bits
+    if want <= GRIND_ROWS_MAX_CANDIDATES:
+        blocks = -(-want // GRIND_ROW_CANDIDATES)
+        return {"route": "rows", "blocks": blocks, "per_sweep": blocks * GRIND_ROW_CANDIDATES}
+    blocks = min(-(-want // GRIND_THREADS), max(sms, 1) * GRIND_MIN_BLOCKS)
+    return {"route": "sweep", "blocks": blocks, "per_sweep": blocks * GRIND_THREADS}
+
+
+def grind_offsets(plan: dict) -> torch.Tensor:
+    """The candidate of each thread in the first sweep (thread t of block b
+    at index b * GRIND_THREADS + t; a later sweep adds its multiple of
+    ``per_sweep``): the sweep route's w = b * 128 + t; the rows route's
+    half-warp h of warp v of block b, b * 8 + 2 v + h (lanes of a half-warp
+    share it)."""
+    t = torch.arange(plan["blocks"] * GRIND_THREADS)
+    if plan["route"] == "sweep":
+        return t
+    b, tid = t // GRIND_THREADS, t % GRIND_THREADS
+    return b * GRIND_ROW_CANDIDATES + (tid // _WARP) * 2 + (tid // ROW) % 2
+
+
+def _grind_first_inputs_m(c, wbar, a: int):
+    """c_i + k_i w-bar, k = column a of M_E, from w-bar, 2w-bar, 3w-bar, 4w-bar,
+    6w-bar (adds, each asserted in range)."""
+    w2 = _add_m(wbar, wbar)
+    w3 = _add_m(w2, wbar)
+    w4 = _add_m(w2, w2)
+    mult = {1: wbar, 2: w2, 3: w3, 4: w4, 6: _add_m(w3, w3)}
+    return [_add_m(c[i], mult[me_entry(i, a)]) for i in range(WIDTH)]
+
+
+def _grind_sweep_word_m(first, ext_init, internal, ext_final):
+    """Word RATE - 1 after the permutation from its first S-box layer's
+    inputs, by the kernels' steps (permute_from_sbox_inputs)."""
+    s = _external_m([_sbox_m(x) for x in first])
+    for r in range(1, 4):
+        s = _external_m([_sbox_m(_add_m(s[i], ext_init[16 * r + i])) for i in range(WIDTH)])
+    for rc in internal:
+        s = _partial_m(s, rc)
+    for r in range(4):
+        s = _external_m([_sbox_m(_add_m(s[i], ext_final[16 * r + i])) for i in range(WIDTH)])
+    return _from_mont_m(s[RATE - 1])
+
+
+def grind_search(plan: dict, probe) -> int:
+    """The trips of a launch of ``plan`` over its threads' candidates
+    (:func:`grind_offsets`): a thread leaves once the least hit it read
+    lies below its candidate (the rows route: its warp's first), and the
+    read is a trip ahead, so at trip k it knows the hits of trips up to k -
+    2. ``probe(trip, w, alive)`` gets the candidates that run in the trip
+    (in [0, P], P only as a rows warp's last) and which of the launch's
+    candidates they are (a mask over them, in offset order), and returns
+    their hits as a bool tensor. Returns the least hit, P if none."""
+    n = plan["per_sweep"]
+    cand = torch.unique(grind_offsets(plan))  # a rows half-warp's lanes share one
+    lead = cand - cand % 2 if plan["route"] == "rows" else cand
+    alive = torch.ones_like(cand, dtype=torch.bool)
+    least, found = P, []  # the least hit after each trip
+    for trip in range(-(-P // n)):
+        seen = found[trip - 2] if trip >= 2 else P
+        alive &= (trip * n + lead < P) & (trip * n + lead <= seen)
+        if not bool(alive.any()):
+            break
+        w = trip * n + cand[alive]
+        hits = w[probe(trip, w, alive) & (w < P)]
+        if hits.numel():
+            least = min(least, int(hits.min()))
+        found.append(least)
+    return least
+
+
+def grind_model(state, a: int, bits: int, sms: int = H100_SMS):
+    """Kernel F's launch by the model: :func:`grind_plan` at ``sms`` SMs,
+    every thread of a sweep at once (:func:`grind_offsets`). The sweep
+    route: c = M_E(state with word a set to 0) + the first round's
+    constants, k = column a of M_E, w-bar = mont(w) moving by the add of
+    mont(per_sweep) a trip (asserted equal to mont(w)), then the scalar
+    permutation's steps to word RATE - 1 (:func:`permute_model`'s). The rows
+    route: :func:`permute_row_model` of the state with word a set to w. A
+    thread leaves once the least hit it read lies below its candidate; the
+    read is a trip ahead, so at trip k it knows the hits of trips up to k -
+    2 (the rows route: a warp, by its first candidate). Every add's operands
+    are asserted below P. Then the last block's advance
+    (:func:`permute_row_model` with word a = the least hit). Returns (new
+    state, witness) as :func:`grind_plain` does."""
+    _check_grind(state, a, bits)
+    plan = grind_plan(bits, sms)
+    n, mask = plan["per_sweep"], (1 << bits) - 1
+    ext_init, internal, ext_final, _ = (
+        [int(v) * (1 << 32) % P for v in np.asarray(c).ravel()] for c in constants()
+    )
+    s0 = state.to(torch.int64).cpu()
+    r2 = torch.tensor(_R2)
+    if plan["route"] == "sweep":
+        m = [_mont_m(x, r2) for x in s0.unbind(-1)]
+        m[a] = torch.tensor(0)
+        c = [_add_m(x, ext_init[i]) for i, x in enumerate(_external_m(m))]
+        step = _mont_m(torch.tensor(n), r2)
+        cand = torch.unique(grind_offsets(plan))
+        wbar = {"trip": 0, "v": _mont_m(cand, r2.expand_as(cand))}
+
+    def probe(trip, w, alive):
+        if plan["route"] == "rows":
+            states = s0.expand(w.shape[0], WIDTH).clone()
+            states[:, a] = torch.where(w < P, w, 0)
+            return (permute_row_model(states)[:, RATE - 1] & mask) == 0
+        while wbar["trip"] < trip:  # one add a trip
+            wbar["v"], wbar["trip"] = _add_m(wbar["v"], step), wbar["trip"] + 1
+        v = wbar["v"][alive]
+        if not torch.equal(v, _mont_m(w, r2.expand_as(w))):
+            raise AssertionError("grind model: w-bar left mont(w)")
+        word = _grind_sweep_word_m(_grind_first_inputs_m(c, v, a), ext_init, internal, ext_final)
+        return (word & mask) == 0
+
+    least = grind_search(plan, probe)
+    if least >= P:
+        return state.clone(), torch.tensor(-1, dtype=F.DTYPE)
+    x = s0.clone()
+    x[a] = least
+    return permute_row_model(x), torch.tensor(least, dtype=F.DTYPE)

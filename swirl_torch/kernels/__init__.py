@@ -203,7 +203,7 @@ class _Library:
                     "swirl_p2_compress": [vp, vp, i64, i64, i32, i64, vp],
                     "swirl_p2_tower": [vp, vp, i32, vp, vp],
                     "swirl_p2_duplex": [vp, vp, i64, vp, i32, i32, i32, i32, i32, vp, vp],
-                    "swirl_p2_grind": [vp, i32, i32, vp, vp],
+                    "swirl_p2_grind": [vp, i32, i32, vp, vp, vp],
                     "swirl_bn254_set_constants": [vp, vp],
                     "swirl_bn254_op": [i32, vp, vp, vp, i64, vp],
                     "swirl_bn254_permute": [vp, vp, i64, i32, vp],

@@ -77,14 +77,14 @@ def _capture(l_skip: int, log_blowup: int, k_whir: int, stacked) -> CommitGraph:
     static = torch.empty_like(stacked)
     static.copy_(stacked)
     stream.wait_stream(current)
-    with p2.private_tickets(device) as tickets:
+    with p2.private_tickets(device) as own:
         with torch.cuda.stream(stream):
             commit_eager(l_skip, log_blowup, k_whir, static)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, stream=stream):
             code, layers = commit_eager(l_skip, log_blowup, k_whir, static)
     current.wait_stream(stream)
-    return CommitGraph(graph, static, code, layers, tickets)
+    return CommitGraph(graph, static, code, layers, own.tower)
 
 
 def commit_graph(l_skip: int, log_blowup: int, k_whir: int, stacked) -> CommitGraph:

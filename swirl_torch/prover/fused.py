@@ -45,8 +45,8 @@ that the caller may free. The first call runs one eager prove on the
 capture stream before it captures: the NTT tables, the kernels' constants
 and the DAG schedules' index tensors are made there, since none can be
 made while the stream captures (what ``commit_kernel.py`` learned); kernel
-D's launches in both use a ticket counter that the entry owns
-(``p2.private_tickets``). A capture that fails raises: the card has no
+D's launches in both use a ticket counter that the entry owns, and kernel
+F's a (found word, ticket) pair of its own (``p2.private_tickets``). A capture that fails raises: the card has no
 eager fallback. On the CPU every mode runs the five bodies eagerly through
 the plain kernels and captures nothing.
 
@@ -258,10 +258,11 @@ def static_cached(cached):
 class FusedGraphs:
     """One cache entry: the graphs of one (mode, context key), each group
     with its span, the static inputs (common traces, cached mains) and
-    output, the first call's seconds and counts, and kernel D's ticket
-    counter of the graphs (``p2.private_tickets``): torch's pooled streams
-    recur, so a counter keyed by the capture stream's handle could be
-    shared with an eager launch while a replay runs."""
+    output, the first call's seconds and counts, kernel D's ticket counter
+    and kernel F's (found word, ticket) pair of the graphs
+    (``p2.private_tickets``): torch's pooled streams recur, so a counter
+    keyed by the capture stream's handle could be shared with an eager
+    launch while a replay runs."""
 
     groups: List[Tuple[str, List[torch.cuda.CUDAGraph]]]
     static: List[torch.Tensor]
@@ -272,6 +273,7 @@ class FusedGraphs:
     sync_each: bool
     stats: Dict[str, object] = field(default_factory=dict)
     tickets: torch.Tensor = None
+    grind_scratch: torch.Tensor = None
 
     def refresh(self, ctx: ProvingContext) -> None:
         """Copy the sorted ``ctx``'s common traces and cached mains into the
@@ -368,7 +370,7 @@ def _capture(backend, mpk, ctx, mode: str) -> FusedGraphs:
     cached = static_cached([tc.cached_mains for _, tc in ctx.per_trace])
     stream = torch.cuda.Stream(device)
     stream.wait_stream(current)
-    with p2.private_tickets(device) as tickets:
+    with p2.private_tickets(device) as own:
         t0 = time.perf_counter()
         _warm_up(backend, mpk, ctx, static, cached, stream)
         stream.synchronize()
@@ -384,7 +386,8 @@ def _capture(backend, mpk, ctx, mode: str) -> FusedGraphs:
         sync_each=mode == "segmented",
         stats={"warm_up_s": warm_s, "capture_s": capture_s, "instantiate_s": instantiate_s,
                "graphs": sum(len(g) for _, g in groups)},
-        tickets=tickets,
+        tickets=own.tower,
+        grind_scratch=own.grind,
     )
 
 

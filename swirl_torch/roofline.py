@@ -75,6 +75,16 @@ def plus(*ops):
     return tuple(sum(x) for x in zip(*ops))
 
 
+# one candidate of kernel F's sweep route: a permutation less its first
+# M_E (72 adds) and first round constants (16), which the launch applies once
+# to the words that do not depend on the candidate, plus the 20 adds of the
+# first S-box inputs c_i + k_i w (16, and 2w, 3w = 2w + w, 4w, 6w), less the
+# 44 adds of the last M_E that the sampled word 7 does not need (it takes
+# each group's row 3 of M4, 6 adds a group, column 3's sum, 3, and its own
+# add: 28 of 72)
+GRIND_CANDIDATE = plus(PERM, times(ADD, 20 - 72 - 16 - (72 - 28)))
+
+
 def bound(work) -> Tuple[float, str]:
     """(bound_ms, bound_by) of (bytes, (multiplies, others)): "bytes" or
     "operations", whichever takes longer."""

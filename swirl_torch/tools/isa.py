@@ -47,7 +47,8 @@ ALU_PIPE = ("IADD3", "ISETP", "SEL", "VIMNMX", "IMNMX", "LOP3", "SHF", "LEA", "M
 CLASSES = ("IMAD.WIDE", "IMAD.HI", "IMAD.MOV", "IMAD.IADD", "IMAD.SHL", "IMAD")
 # the kernels the census lists, by source file (the tag in a mangled name)
 KERNEL_NAMES = {
-    "poseidon2_cu": ("hash_cols_kernel", "compress_kernel", "tower_kernel", "duplex_kernel", "grind_kernel"),
+    "poseidon2_cu": ("hash_cols_kernel", "compress_kernel", "tower_kernel", "duplex_kernel", "grind_sweep_kernel",
+                     "grind_rows_kernel"),
     "bn254_cu": ("op_kernel", "permute_kernel", "compress_kernel", "hash_rows_kernel", "grind_kernel"),
 }
 
@@ -145,6 +146,28 @@ def kernel_label(name: str):
         tmpl = re.search(r"ILi(\d+)E", name)
         return f"{src[:-3]}.{short}" + (f"<{tmpl.group(1)}>" if tmpl else "")
     return None
+
+
+def grind_census(found: dict) -> list:
+    """Kernel F's loops against one permutation: for each Poseidon2 grind
+    kernel of ``report_census("poseidon2")`` (``grind_sweep_kernel<a>``, one
+    candidate a trip; ``grind_rows_kernel``), lines of its largest loop's
+    trip by pipe (wide, FMA, ALU, FP64, other), beside roofline.PERM's
+    (multiplies, others) of one permutation and ``compress_kernel``'s whole
+    count (one permutation, its loads, conversions and stores; no loop),
+    and what lies outside the loop."""
+    from ..roofline import PERM
+
+    lines = []
+    one = found.get("poseidon2.compress_kernel")
+    ref = f"compress_kernel {_by_pipe(one[0])}" if one else "compress_kernel not in the census"
+    for label, (outside, loops) in found.items():
+        if "grind" not in label or not loops:
+            continue
+        (a, b), body = max(loops, key=lambda lp: sum(lp[1].values()))
+        lines.append(f"grind census {label}: a trip (loop {a:#x}-{b:#x}) {_by_pipe(body)}; roofline.PERM "
+                     f"{PERM} (multiplies, others); {ref}; outside the loop {_by_pipe(outside)}")
+    return lines
 
 
 def pipe_counts(counter) -> tuple:
@@ -424,6 +447,13 @@ QUAD_PERM_CHAIN = {"add": 7 + 8 * 8 + 13 * 3, "mont": 8 * 3 + 13 * 3, "shfl": 2 
 # full rounds, the partial rounds, 4 full rounds.
 ROW_PERM_CHAIN = {"add": 5 + 4 * 5 + 6 + 11 + 3 + 4 * 5, "mont": 4 * 3 + 3 + 11 * 3 + 4 * 3,
                   "shfl": 2 + 4 * 2 + 4 + 4 * 2}
+# The same for the scalar permutation of B, C and kernel F's sweep route
+# (``permute``, a state a thread): the quad's chain without its shuffles.
+# M_E: 7 dependent adds; a full round: the constant's add, 3 products, M_E;
+# a partial round, through word 0: the subtract into word 0 and the next
+# constant's add, then the S-box's 3 products (the sum of words 1..15 and
+# the diagonal run beside it).
+SCALAR_PERM_CHAIN = {"add": 7 + 8 * 8 + 13 * 2, "mont": 8 * 3 + 13 * 3, "shfl": 0}
 LATENCY_OPS = ("add", "mont", "shfl", "bn254")
 LATENCY_STEPS = 16  # dependent operations a loop trip
 LATENCY_ITERS = 4096  # loop trips: 65,536 dependent operations, 0.7-2 M clocks
@@ -509,12 +539,15 @@ def perm_clocks(chain: dict, cycles: dict) -> float:
 
 
 def main() -> int:
-    report_census()
+    found = report_census()
+    for line in grind_census(found):
+        print(line)
     pipe_bench()
     cycles, ghz = latency_bench()
     lat = " ".join(f"{op} {c:.2f}" for op, c in cycles.items())
     print(f"latency (SM clocks a dependent operation, at {ghz:.3f} GHz): {lat}")
-    for name, chain in (("quad (kernel D)", QUAD_PERM_CHAIN), ("row (kernel E)", ROW_PERM_CHAIN)):
+    for name, chain in (("quad (kernel D)", QUAD_PERM_CHAIN), ("row (kernel E)", ROW_PERM_CHAIN),
+                        ("scalar (kernels B, C, F)", SCALAR_PERM_CHAIN)):
         clocks = perm_clocks(chain, cycles)
         print(f"latency: one {name} permutation's chain {chain}: {clocks:.0f} clocks, {clocks / ghz / 1e3:.3f} us")
     return 0

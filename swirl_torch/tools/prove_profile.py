@@ -29,15 +29,20 @@ host's remaining time (wall minus blocked) is Python dispatch and host
 work. Each span prints a row per transcript, one under the other, so the
 two are read from one run. Each prove also prints every hand-written
 kernel's launches and device ms (by its device events, under its CUDA
-name: ``duplex_kernel`` is E, ``grind_kernel`` and ``grind_advance_kernel``
-F on the device transcript). It fails if the profiler recorded no device
-activity, or if the two transcripts' proofs differ.
+name: ``duplex_kernel`` is E, ``grind_sweep_kernel`` and
+``grind_rows_kernel`` F on the device transcript), and F's device ms by
+bit width: each call of ``DeviceTranscript.grind`` is marked with its bits,
+and the grind kernels' device events, in launch order, are dealt to the
+calls in order (one search launch a grind; the kernels before, a search
+and an advance). It fails if the profiler recorded no device activity, or
+if the two transcripts' proofs differ.
 """
 
 from __future__ import annotations
 
 import bisect
 import contextlib
+import re
 import time
 
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
@@ -49,12 +54,15 @@ HOST_GRIND = "native.grind"
 @contextlib.contextmanager
 def annotated_spans():
     """Marks every ``metrics.span``, and every call of the native grind, in
-    the profiler's trace while active."""
+    the profiler's trace while active; yields the bits of each call of
+    ``DeviceTranscript.grind`` made meanwhile, in order."""
     from torch.profiler import record_function
 
     from .. import metrics, native
+    from ..prover.device_transcript import DeviceTranscript
 
-    plain, grind = metrics.span, native.grind
+    plain, grind, device_grind = metrics.span, native.grind, DeviceTranscript.grind
+    device_bits = []
 
     @contextlib.contextmanager
     def span(name):
@@ -65,11 +73,15 @@ def annotated_spans():
         with record_function(HOST_GRIND):
             return grind(*args)
 
-    metrics.span, native.grind = span, marked_grind
+    def marked_device_grind(self, bits):
+        device_bits.append(bits)
+        return device_grind(self, bits)
+
+    metrics.span, native.grind, DeviceTranscript.grind = span, marked_grind, marked_device_grind
     try:
-        yield
+        yield device_bits
     finally:
-        metrics.span, native.grind = plain, grind
+        metrics.span, native.grind, DeviceTranscript.grind = plain, grind, device_grind
 
 
 class _Union:
@@ -169,6 +181,27 @@ def kernel_table(prof) -> dict:
     return out
 
 
+GRIND_KERNEL = re.compile(r"anonymous namespace\)::(grind\w*_kernel)\b")
+
+
+def grind_widths(prof, bits: list) -> dict:
+    """{bits: (searches, device ms)} of kernel F in a finished profile: its
+    kernels' device events (``grind..._kernel``, BabyBear's: the device
+    transcript's) in start order, one a grind in ``bits`` order. Raises
+    when their count is not the grinds'."""
+    from torch.autograd import DeviceType
+
+    events = sorted((e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+                    if e.device_type() != DeviceType.CPU and GRIND_KERNEL.search(e.name()))
+    if len(events) != len(bits):
+        raise SystemExit(f"prove_profile: {len(events)} grind kernel events for {len(bits)} grinds")
+    out = {}
+    for b, (s, e) in zip(bits, events):
+        n, ms = out.get(b, (0, 0.0))
+        out[b] = (n + 1, ms + (e - s) / 1e6)
+    return out
+
+
 def app_workload():
     import numpy as np
 
@@ -221,7 +254,7 @@ def profile_prove(tag: str, eng, dpk, ctx, transcript) -> tuple:
     print(f"{tag}: warm-up prove {time.perf_counter() - t0:.3f} s (not profiled)", flush=True)
     torch.cuda.empty_cache()
     fresh = transcript()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, annotated_spans():
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, annotated_spans() as bits:
         t0 = time.perf_counter()
         proof = eng.prove(dpk, ctx, fresh)
         torch.cuda.synchronize()
@@ -231,6 +264,8 @@ def profile_prove(tag: str, eng, dpk, ctx, transcript) -> tuple:
     print(f"{tag}: profiled prove {prove_s:.3f} s; trace read in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, (n, ms) in sorted(kernel_table(prof).items(), key=lambda kv: -kv[1][1]):
         print(f"{tag}: kernel {name} | {n} launches | {ms:.3f} device ms a prove", flush=True)
+    for b, (n, ms) in sorted(grind_widths(prof, bits).items(), reverse=True):
+        print(f"{tag}: kernel F at {b} bits | {n} searches | {ms:.3f} device ms a prove", flush=True)
     torch.cuda.empty_cache()
     return rows, encode_proof(proof)
 

@@ -8,8 +8,10 @@ tower's ticket counter across calls, streams and a CUDA graph), the
 monomial engine against the CPU and the interpreter, the stacked commit's
 captured graph against the eager commit, and the
 device transcript's kernels E (duplex) and F (grind) at ``chip_smoke.py``'s
-cases, E under CUDA graph capture, F at every absorb cursor, both refusing
-bad cursors and bit counts,
+cases, E under CUDA graph capture, F at every absorb cursor on both of its
+routes and at 18 bits, replayed in a CUDA graph, with its (found word,
+ticket) pair owned by each capture and prove, and with no witness (-1),
+both refusing bad cursors and bit counts,
 the transcript on the card against the CPU and a golden proof on it, the
 BN254 outer golden case and round 0 in segments on the card, the fused
 prover's captured proves (golden bytes in segmented and jit mode, a replay
@@ -414,26 +416,104 @@ def test_duplex_kernel_in_a_cuda_graph(rand, label):
 
 @pytest.mark.parametrize("case", chip_smoke.GRIND_CASES, ids=[c[0] for c in chip_smoke.GRIND_CASES])
 def test_grind_kernel_matches_plain(rand, case):
-    """Kernel F at chip_smoke.py's cases: the smallest witness and the
-    advanced state, one launch a call."""
-    _, a, bits = case
+    """Kernel F at chip_smoke.py's widths, from cursor 4: the smallest
+    witness and the advanced state, one launch a call."""
+    _, bits = case
     st0 = rand(16)
     st = st0.clone()
     before = K.GRIND.launches
-    w = p2.grind(st, a, bits)
+    w = p2.grind(st, 4, bits)
     assert K.GRIND.launches == before + 1
-    new, want = p2.grind_plain(st0, a, bits)
+    new, want = p2.grind_plain(st0, 4, bits)
     assert torch.equal(w, want) and torch.equal(st, new)
 
 
 @pytest.mark.parametrize("a", range(8))
-@pytest.mark.parametrize("bits", [1, 8, 13])
+@pytest.mark.parametrize("bits", [1, 8, 10, 11, 13, 18])
 def test_grind_kernel_at_every_absorb_cursor(rand, a, bits):
+    """Both routes (rows up to 10 bits, the sweep above: ``p2.grind_plan``)
+    and the logup grind's 18 bits, from every cursor."""
     st0 = rand(16)
     st = st0.clone()
     w = p2.grind(st, a, bits)
     new, want = p2.grind_plain(st0, a, bits)
     assert torch.equal(w, want) and torch.equal(st, new)
+
+
+@pytest.mark.parametrize("bits", [5, 12])
+def test_grind_kernel_in_a_cuda_graph(rand, bits):
+    """Kernel F captured in a CUDA graph (as the fused prover captures it)
+    and replayed twice: each replay searches from the state the last one
+    left, bit-equal to the plain version applied as often; the launch
+    re-arms its (found word, ticket) pair."""
+    st0 = rand(16)
+    st = st0.clone()
+    p2.grind(st0.clone(), 3, bits)  # the library and its constants, before any capture
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with p2.private_tickets(st.device) as own:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            w = p2.grind(st, 3, bits)
+    want_st = st0
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        want_st, want_w = p2.grind_plain(want_st, 3, bits)
+        assert torch.equal(w, want_w) and torch.equal(st, want_st)
+        assert own.grind.tolist() == [-1, 0]
+
+
+def test_captures_own_their_grind_pairs(rand):
+    """Two captured grinds and a captured prove each own their (found word,
+    ticket) pair, none of them a stream's; each is armed after its replays."""
+    from swirl_torch.prover import fused
+
+    pairs = []
+    for bits in (5, 12):
+        st = rand(16)
+        p2.grind(st.clone(), 0, bits)  # the library and its constants, before any capture
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with p2.private_tickets(st.device) as own:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=stream):
+                p2.grind(st, 0, bits)
+        graph.replay()
+        pairs.append(own.grind)
+    eng, dpk, ctx = _fused_case("fib")
+    fused.prove_fused(eng.backend, dpk, ctx, mode="segmented")
+    pairs.append(next(iter(dpk._fused_cache.values())).grind_scratch)
+    fused.prove_fused(eng.backend, dpk, ctx, mode="segmented")
+    torch.cuda.synchronize()
+    shared = {t.grind.data_ptr() for t in p2._TICKETS.values()}
+    assert len({t.data_ptr() for t in pairs}) == 3 and not shared & {t.data_ptr() for t in pairs}
+    assert all(t.dtype == torch.int64 and t.tolist() == [-1, 0] for t in pairs)
+    fused.release_fused(dpk)
+
+
+def test_grind_kernel_without_a_witness():
+    """A 30-bit search finds no witness in [0, P) from about one state in
+    seven: the first seeded state that gives -1 leaves the state as it
+    was, gives -1 again, no candidate of [0, 2^22) passes the plain
+    permutation's test, and the re-armed pair serves the next grind."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(30)
+    for _ in range(64):
+        st0 = torch.tensor(rng.integers(0, P, 16).astype(np.int64), device="cuda")
+        st = st0.clone()
+        if int(p2.grind(st, 2, 30)) == -1:
+            break
+    else:
+        pytest.fail("64 seeded states, each with a 30-bit witness")
+    assert torch.equal(st, st0) and int(p2.grind(st, 2, 30)) == -1 and torch.equal(st, st0)
+    for lo in range(0, 1 << 22, 1 << 20):
+        states = st0.expand(1 << 20, 16).clone()
+        states[:, 2] = torch.arange(lo, lo + (1 << 20), device="cuda")
+        assert not bool(((p2.permute_plain(states)[:, p2.RATE - 1] & ((1 << 30) - 1)) == 0).any())
+    new, want = p2.grind_plain(st0, 2, 5)
+    assert torch.equal(p2.grind(st, 2, 5), want) and torch.equal(st, new)
 
 
 def test_transcript_kernels_refuse_bad_arguments(rand):
@@ -895,7 +975,7 @@ def test_captures_own_their_tower_tickets(rand):
     ck.release_graphs()
     ck.commit_kernel(2, 1, 3, rand(4, 1 << 12))
     owned = [entry.tickets, next(iter(ck._GRAPHS.values())).tickets]
-    shared = {t.data_ptr() for t in p2._TICKETS.values()}
+    shared = {t.tower.data_ptr() for t in p2._TICKETS.values()}
     assert all(t.dtype == torch.int32 and t.numel() == 1 and t.data_ptr() not in shared for t in owned)
     fused.prove_fused(eng.backend, dpk, ctx, mode="segmented")
     ck.commit_kernel(2, 1, 3, rand(4, 1 << 12))
