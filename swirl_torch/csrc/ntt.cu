@@ -437,3 +437,13 @@ extern "C" int swirl_ntt(const int64_t* in, int64_t* out, uint32_t* scratch, lon
 extern "C" const char* swirl_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
+
+// The number of nodes of a CUDA graph, a cudaGraph_t handle (what
+// torch.cuda.CUDAGraph.raw_cuda_graph() gives for a graph kept after its
+// instantiation).
+extern "C" int swirl_graph_nodes(void* graph, unsigned long long* count) {
+  size_t n = 0;
+  cudaError_t e = cudaGraphGetNodes((cudaGraph_t)graph, nullptr, &n);
+  *count = n;
+  return (int)e;
+}

@@ -217,6 +217,8 @@ class _Library:
                     fn.restype = i32
                 lib.swirl_cuda_error_string.argtypes = [i32]
                 lib.swirl_cuda_error_string.restype = ctypes.c_char_p
+                lib.swirl_graph_nodes.argtypes = [vp, ctypes.POINTER(ctypes.c_ulonglong)]
+                lib.swirl_graph_nodes.restype = i32
                 self._lib = lib
         return self._lib
 
@@ -242,6 +244,14 @@ def check(rc: int) -> None:
     if rc != 0:
         msg = LIB.get().swirl_cuda_error_string(rc).decode()
         raise KernelError(f"CUDA error {rc}: {msg}")
+
+
+def graph_nodes(graph: "torch.cuda.CUDAGraph") -> int:
+    """The nodes of a captured ``CUDAGraph`` made with ``keep_graph=True``
+    (``cudaGraphGetNodes``)."""
+    n = ctypes.c_ulonglong()
+    check(LIB.get().swirl_graph_nodes(graph.raw_cuda_graph(), ctypes.byref(n)))
+    return n.value
 
 
 def require(t: torch.Tensor, ndim, what: str, dtype=torch.int64) -> None:

@@ -7,6 +7,16 @@ Span names follow the reference metric-name contract so dashboards carry
 over: ``stark_prove_excluding_trace_time_ms``,
 ``prover.main_trace_commit_time_ms``, ``fractional_sumcheck_time_ms``,
 ``prove_whir_time_ms``, ...
+
+While the autograd profiler is enabled, each span is also a host range
+named ``span:<name>``, so that the program's spans sit among the
+profiler's host events on the device trace's clock. The range is an
+operator's (``_RecordFunctionFast``), not a user annotation's
+(``record_function``): the profiler mirrors a user annotation onto the
+device's timeline from its first kernel to its last, which a reader of the
+device's busy time would count as busy.
+:func:`time_ms` adds a timing the program measured itself (a device time
+between CUDA events) where a span puts its own.
 """
 
 from __future__ import annotations
@@ -16,6 +26,11 @@ import json
 import time
 from collections import defaultdict
 from typing import Dict, List, Optional
+
+import torch
+
+# the prefix of a span's range in a profiler trace
+SPAN_RANGE = "span:"
 
 _ACTIVE: List["MetricsCollector"] = []
 
@@ -47,14 +62,29 @@ class MetricsCollector:
 
 @contextlib.contextmanager
 def span(name: str):
-    """Timing span: accumulates into every active collector."""
+    """Timing span: accumulates into every active collector; while the
+    autograd profiler is enabled, also a ``span:<name>`` range."""
+    if torch.autograd._profiler_enabled():
+        marked = torch._C._profiler._RecordFunctionFast(SPAN_RANGE + name)
+    else:
+        marked = contextlib.nullcontext()
     t0 = time.perf_counter()
     try:
-        yield
+        with marked:
+            yield
     finally:
-        ms = (time.perf_counter() - t0) * 1e3
-        for c in _ACTIVE:
-            c.add_time_ms(name, ms)
+        time_ms(name, (time.perf_counter() - t0) * 1e3)
+
+
+def time_ms(name: str, ms: float):
+    """Add ``ms`` to ``<name>_time_ms`` in every active collector."""
+    for c in _ACTIVE:
+        c.add_time_ms(name, ms)
+
+
+def collecting() -> bool:
+    """Whether a collector is active."""
+    return bool(_ACTIVE)
 
 
 @contextlib.contextmanager

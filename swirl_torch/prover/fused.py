@@ -33,6 +33,16 @@ Modes, on the card:
   a sync (as ``run_stages`` does, :776-800);
 - ``"jit"``: the five bodies captured as one graph.
 
+Segment timings: on the card each segment body runs between a pair of
+timing events (``external``, so that under capture each record is an
+event-record node of the graph and every replay records it again). When a
+metrics collector is active, ``prove_fused`` reads them after the fetch
+and adds ``<segment>.device`` for each segment's device time and
+``segments.gap.device`` for the card's time between segments (the host's
+sync and the next graph's launch), beside the host spans ``fused.refresh``
+(the static inputs' copy), ``fused.launch`` (the graphs' launch calls),
+``proof_fetch`` and ``proof_build``.
+
 Graphs are cached on the proving key per (mode, device, memory policy,
 context key); the key holds every host value a graph bakes in (air ids,
 heights, widths, public values, cached commitments), as ``_ctx_cache_key``
@@ -73,12 +83,13 @@ import contextlib
 import dataclasses
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import kernels as K
 from .. import metrics
 from .. import sanitize
 from .. import tpoly
@@ -122,6 +133,38 @@ SEGMENTS = (
 )
 
 
+# the card's time between segments, from the first segment's start to the
+# last one's end
+GAP = "segments.gap.device"
+
+
+def segment_events(device) -> Optional[Dict[str, Tuple[torch.cuda.Event, torch.cuda.Event]]]:
+    """A (start, end) pair of timing events a segment on a CUDA ``device``,
+    None elsewhere. They are ``external``: recorded under capture, each is an
+    event-record node of the graph."""
+    if device.type != "cuda":
+        return None
+    return {name: (torch.cuda.Event(enable_timing=True, external=True),
+                   torch.cuda.Event(enable_timing=True, external=True)) for name, _ in SEGMENTS}
+
+
+def segment_timings(times: Dict[str, Tuple[float, float]]) -> Dict[str, float]:
+    """{``<segment>.device``: end - start} of each segment and
+    :data:`GAP`: the first start to the last end, less the segments, from
+    each segment's (start, end) in ms on one clock, in segment order."""
+    out = {f"{name}.device": end - start for name, (start, end) in times.items()}
+    spans = list(times.values())
+    out[GAP] = spans[-1][1] - spans[0][0] - sum(out.values())
+    return out
+
+
+def read_events(events) -> Dict[str, Tuple[float, float]]:
+    """Each segment's (start, end) in ms from the first segment's start, read
+    from its recorded, completed events."""
+    first = events[SEGMENTS[0][0]][0]
+    return {name: (first.elapsed_time(start), first.elapsed_time(end)) for name, (start, end) in events.items()}
+
+
 def ctx_cache_key(ctx: ProvingContext) -> tuple:
     """Per trace of the sorted context: (air id, height, width, public
     values, cached commitments), every host value a captured prove bakes
@@ -141,7 +184,8 @@ class _Prove:
     :class:`~.deferred.Deferred`) to ``parts``; ``whir`` ends with the
     packed values in ``flat`` and ``layout`` and the proof's build in
     ``build``. ``cached``, per trace, takes the place of its cached mains
-    when given."""
+    when given. On the card :meth:`segment` runs a body between its pair
+    of ``events``."""
 
     def __init__(self, backend, mpk, ctx: ProvingContext, commons: List[torch.Tensor], cached=None):
         self.backend, self.mpk, self.params = backend, mpk, mpk.params
@@ -153,6 +197,17 @@ class _Prove:
         ])
         self.parts: List[Deferred] = []
         self.sponge = None  # (state, absorb_idx, sample_idx) between segments
+        self.events = segment_events(backend.device)
+
+    def segment(self, name: str) -> None:
+        """The segment body ``name``, between its events on the card."""
+        if self.events is None:
+            getattr(self, name)()
+            return
+        start, end = self.events[name]
+        start.record()
+        getattr(self, name)()
+        end.record()
 
     def _transcript(self) -> DeviceTranscript:
         return DeviceTranscript.restore(*self.sponge)
@@ -258,7 +313,9 @@ def static_cached(cached):
 class FusedGraphs:
     """One cache entry: the graphs of one (mode, context key), each group
     with its span, the static inputs (common traces, cached mains) and
-    output, the first call's seconds and counts, kernel D's ticket counter
+    output, the segments' timing events that every replay records, the
+    first call's seconds and counts (``stats["nodes"]``: each graph's
+    nodes), kernel D's ticket counter
     and kernel F's (found word, ticket) pair of the graphs
     (``p2.private_tickets``): torch's pooled streams recur, so a counter
     keyed by the capture stream's handle could be shared with an eager
@@ -271,6 +328,7 @@ class FusedGraphs:
     layout: list
     build: object
     sync_each: bool
+    events: Optional[Dict[str, Tuple[torch.cuda.Event, torch.cuda.Event]]] = None
     stats: Dict[str, object] = field(default_factory=dict)
     tickets: torch.Tensor = None
     grind_scratch: torch.Tensor = None
@@ -298,11 +356,13 @@ class FusedGraphs:
                 s.copy_(c)
 
     def replay(self, ctx: ProvingContext, device) -> None:
-        self.refresh(ctx)
+        with metrics.span("fused.refresh"):
+            self.refresh(ctx)
         for span, graphs in self.groups:
             with metrics.span(span):
                 for g in graphs:
-                    g.replay()
+                    with metrics.span("fused.launch"):
+                        g.replay()
                 if self.sync_each:
                     torch.cuda.synchronize(device)
 
@@ -317,7 +377,7 @@ def run_segments(backend, mpk, ctx: ProvingContext, commons=None, cached=None, s
     run = _Prove(backend, mpk, ctx, commons, cached)
     for name, span in SEGMENTS:
         with metrics.span(span) if spans else contextlib.nullcontext():
-            getattr(run, name)()
+            run.segment(name)
     return run
 
 
@@ -332,33 +392,34 @@ def _record(backend, mpk, ctx, static, cached, stream, mode: str):
     """Capture the five bodies on ``stream`` into one pool: one graph each
     (``segmented``) or one in all (``jit``). Returns (the groups of graphs
     by span, the finished run, the capture's and the instantiation's
-    seconds)."""
+    seconds, {graph: nodes})."""
     if mode == "segmented":
         plan = [(span, [name]) for name, span in SEGMENTS]
     else:
         plan = [("fused_replay", [name for name, _ in SEGMENTS])]
     pool = torch.cuda.graph_pool_handle()
     run = _Prove(backend, mpk, ctx, static, cached)
-    captured, capture_s, instantiate_s = [], 0.0, 0.0
+    captured, capture_s, instantiate_s, nodes = [], 0.0, 0.0, {}
     for span, names in plan:
         # instantiated apart from the capture, so that its seconds show
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         t0 = time.perf_counter()
         with torch.cuda.graph(graph, pool=pool, stream=stream):
             for name in names:
-                getattr(run, name)()
+                run.segment(name)
         t1 = time.perf_counter()
         graph.instantiate()
         capture_s += t1 - t0
         instantiate_s += time.perf_counter() - t1
         captured.append((span, graph))
+        nodes["+".join(names)] = K.graph_nodes(graph)
     groups: List[Tuple[str, List[torch.cuda.CUDAGraph]]] = []
     for span, graph in captured:
         if groups and groups[-1][0] == span:
             groups[-1][1].append(graph)
         else:
             groups.append((span, [graph]))
-    return groups, run, capture_s, instantiate_s
+    return groups, run, capture_s, instantiate_s, nodes
 
 
 def _capture(backend, mpk, ctx, mode: str) -> FusedGraphs:
@@ -376,16 +437,16 @@ def _capture(backend, mpk, ctx, mode: str) -> FusedGraphs:
         stream.synchronize()
         warm_s = time.perf_counter() - t0
         try:
-            groups, run, capture_s, instantiate_s = _record(backend, mpk, ctx, static, cached, stream, mode)
+            groups, run, capture_s, instantiate_s, nodes = _record(backend, mpk, ctx, static, cached, stream, mode)
         except Exception as err:
             raise ProverError(f"prove_fused(mode={mode!r}): the capture failed ({type(err).__name__}: {err}); "
                               "the card has no eager fallback") from err
     current.wait_stream(stream)
     return FusedGraphs(
         groups=groups, static=static, cached=cached, flat=run.flat, layout=run.layout, build=run.build,
-        sync_each=mode == "segmented",
+        sync_each=mode == "segmented", events=run.events,
         stats={"warm_up_s": warm_s, "capture_s": capture_s, "instantiate_s": instantiate_s,
-               "graphs": sum(len(g) for _, g in groups)},
+               "graphs": sum(len(g) for _, g in groups), "nodes": nodes},
         tickets=own.tower,
         grind_scratch=own.grind,
     )
@@ -470,15 +531,20 @@ def prove_fused(backend, mpk, unsorted_ctx: ProvingContext, mode: str = "jit", m
     with metrics.span("stark_prove_excluding_trace"), annotate.spmd_mesh(mesh):
         if device.type != "cuda" or mode == "eager":
             run = run_segments(backend, mpk, ctx, commons)
-            flat, layout, build = run.flat, run.layout, run.build
+            flat, layout, build, events = run.flat, run.layout, run.build, run.events
         else:
             key = graph_key(backend, ctx, mode, mesh)
             entry = cached_entry(mpk, key, lambda: _capture(backend, mpk, ctx, mode))
             entry.replay(ctx, device)
-            flat, layout, build = entry.flat, entry.layout, entry.build
+            flat, layout, build, events = entry.flat, entry.layout, entry.build, entry.events
         with metrics.span("proof_fetch"):
             host = F.unpack(layout, F.to_host(flat))
-        commit, gkr, batch, stacking, whir = build(host)
+        # the fetch waited for the stream, so every segment's events are done
+        if events is not None and metrics.collecting():
+            for name, ms in segment_timings(read_events(events)).items():
+                metrics.time_ms(name, ms)
+        with metrics.span("proof_build"):
+            commit, gkr, batch, stacking, whir = build(host)
     return Proof(
         common_main_commit=commit,
         trace_vdata=trace_vdata,

@@ -18,8 +18,9 @@ activity):
   ``segment_fit.seeded_traces``, under ``segment_fit.runner_params`` (the
   synthetic runner's parameters).
 
-Each stage span of ``swirl_torch.metrics`` is marked in the trace with
-``record_function``. For each span the tool prints its host wall ms; the
+``swirl_torch.metrics.span`` marks each span in the trace itself while the
+profiler runs (a ``span:<name>`` range); the tool reads those ranges. For
+each span it prints its host wall ms; the
 device-busy ms (the union of the card's kernel, copy and fill intervals
 inside the span's window) and its share; the host's ms blocked in
 synchronize calls; the host's ms in the native proof-of-work grind
@@ -47,27 +48,21 @@ import time
 
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
-SPAN = "span:"
 HOST_GRIND = "native.grind"
 
 
 @contextlib.contextmanager
-def annotated_spans():
-    """Marks every ``metrics.span``, and every call of the native grind, in
-    the profiler's trace while active; yields the bits of each call of
-    ``DeviceTranscript.grind`` made meanwhile, in order."""
+def annotated_grinds():
+    """Marks every call of the native grind in the profiler's trace while
+    active; yields the bits of each call of ``DeviceTranscript.grind`` made
+    meanwhile, in order."""
     from torch.profiler import record_function
 
-    from .. import metrics, native
+    from .. import native
     from ..prover.device_transcript import DeviceTranscript
 
-    plain, grind, device_grind = metrics.span, native.grind, DeviceTranscript.grind
+    grind, device_grind = native.grind, DeviceTranscript.grind
     device_bits = []
-
-    @contextlib.contextmanager
-    def span(name):
-        with record_function(SPAN + name), plain(name):
-            yield
 
     def marked_grind(*args):
         with record_function(HOST_GRIND):
@@ -77,11 +72,11 @@ def annotated_spans():
         device_bits.append(bits)
         return device_grind(self, bits)
 
-    metrics.span, native.grind, DeviceTranscript.grind = span, marked_grind, marked_device_grind
+    native.grind, DeviceTranscript.grind = marked_grind, marked_device_grind
     try:
         yield device_bits
     finally:
-        metrics.span, native.grind, DeviceTranscript.grind = plain, grind, device_grind
+        native.grind, DeviceTranscript.grind = grind, device_grind
 
 
 class _Union:
@@ -121,21 +116,21 @@ def span_table(prof) -> list:
     first start."""
     from torch.autograd import DeviceType
 
+    from ..metrics import SPAN_RANGE
+
     spans = {}
     launches, syncs, d2h, h2d, device = [], [], [], [], []
     blocked, grinds = [], []
     for e in prof.profiler.kineto_results.events():
         name = e.name()
         if e.device_type() != DeviceType.CPU:
-            if name.startswith(SPAN):
-                continue  # a span's own range, mirrored on the device's timeline
             device.append((e.start_ns(), e.end_ns()))
             if "DtoH" in name:
                 d2h.append(e.start_ns())
             elif "HtoD" in name:
                 h2d.append(e.start_ns())
-        elif name.startswith(SPAN):
-            spans.setdefault(name[len(SPAN):], []).append((e.start_ns(), e.end_ns()))
+        elif name.startswith(SPAN_RANGE):
+            spans.setdefault(name[len(SPAN_RANGE):], []).append((e.start_ns(), e.end_ns()))
         elif name in LAUNCH_CALLS:
             launches.append(e.start_ns())
         elif name in SYNC_CALLS:
@@ -254,7 +249,7 @@ def profile_prove(tag: str, eng, dpk, ctx, transcript) -> tuple:
     print(f"{tag}: warm-up prove {time.perf_counter() - t0:.3f} s (not profiled)", flush=True)
     torch.cuda.empty_cache()
     fresh = transcript()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, annotated_spans() as bits:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, annotated_grinds() as bits:
         t0 = time.perf_counter()
         proof = eng.prove(dpk, ctx, fresh)
         torch.cuda.synchronize()

@@ -16,9 +16,10 @@ the transcript on the card against the CPU and a golden proof on it, the
 BN254 outer golden case and round 0 in segments on the card, the fused
 prover's captured proves (golden bytes in segmented and jit mode, a replay
 on another trace, a replay on a fresh context of a cached trace whose
-first context was freed, a failed capture that raises, kernel D's ticket
-counter owned by each captured prove and commit, the golden bytes on a
-world-of-one NCCL mesh), and the BN254
+first context was freed, a failed capture that raises, the segments'
+device timings from events that the graphs record and each graph's node
+count, kernel D's ticket counter owned by each captured prove and commit,
+the golden bytes on a world-of-one NCCL mesh), and the BN254
 kernels G-J against their plain versions (the field's operations on
 random and edge operands, the permutations, compress layers at every kind
 of stride, leaf hashes of every absorb shape and of extension-field
@@ -955,6 +956,50 @@ def test_fused_capture_failure_raises_without_an_eager_fallback(monkeypatch):
     with pytest.raises(ProverError, match="capture failed"):
         fused.prove_fused(eng.backend, dpk, ctx, mode="segmented")
     assert not getattr(dpk, "_fused_cache", {}) and len(eager_runs) == 1
+
+
+@pytest.mark.parametrize("mode", ["segmented", "jit", "eager"])
+def test_fused_segment_timings_on_the_card(monkeypatch, mode):
+    """The segments' events, recorded by graph nodes on a replay (eagerly in
+    ``eager``), give five positive device times whose sum and the gap come
+    to the first start to the last end; the RAP stage's two segments fit in
+    its span, which ends in a sync; each graph's nodes are counted."""
+    from swirl_torch import metrics
+    from swirl_torch.prover import fused
+
+    eng, dpk, ctx = _fused_case("interactions")
+    seen = []
+    timings = fused.segment_timings
+
+    def recorded(times):
+        seen.append(times)
+        return timings(times)
+
+    monkeypatch.setattr(fused, "segment_timings", recorded)
+    fused.prove_fused(eng.backend, dpk, ctx, mode=mode)
+    assert not seen  # no collector, no reading
+    with metrics.run_with_metric_collection() as c:
+        fused.prove_fused(eng.backend, dpk, ctx, mode=mode)
+    snap = c.snapshot()
+    (times,) = seen
+    device = [snap[f"{name}.device_time_ms"] for name, _ in fused.SEGMENTS]
+    assert all(ms > 0 for ms in device)
+    first, last = times["commit"][0], times["whir"][1]
+    assert sum(device) + snap["segments.gap.device_time_ms"] == pytest.approx(last - first, rel=1e-9)
+    assert snap["segments.gap.device_time_ms"] >= -1e-3  # events resolve to about 0.5 us
+    if mode == "eager":
+        assert "fused.launch_time_ms" not in snap and not getattr(dpk, "_fused_cache", {})
+        return
+    entry = next(iter(dpk._fused_cache.values()))
+    assert fused.read_events(entry.events) == times
+    nodes = entry.stats["nodes"]
+    names = [name for name, _ in fused.SEGMENTS]
+    assert list(nodes) == (names if mode == "segmented" else ["+".join(names)])
+    assert all(isinstance(n, int) and n > 2 for n in nodes.values())
+    assert {"fused.launch_time_ms", "fused.refresh_time_ms", "proof_fetch_time_ms", "proof_build_time_ms"} <= set(snap)
+    if mode == "segmented":
+        assert snap["gkr.device_time_ms"] + snap["batch.device_time_ms"] <= snap["prove_rap_constraints_time_ms"]
+    fused.release_fused(dpk)
 
 
 def test_captures_own_their_tower_tickets(rand):
