@@ -26,7 +26,10 @@ Phases, each printing its result on lines of its own:
    ``QUAD_PERM_CHAIN``) at the latencies its latency bench measures on the
    card, at the boost clock (the tower at n = 8192: 13 levels); E's own
    layout, a state word a lane, has its chain too (``ROW_PERM_CHAIN``,
-   ``row_floor_ms``);
+   ``row_floor_ms``). Kernel K, GKR's layer sumcheck a pass a sub-round, at
+   the app's column lengths 2^22, 2^16 and 2^8 (``GKR_CASES``) by graph
+   replay beside its bytes bound and the floor of one launch, and its eq
+   table at 22 variables;
 3. golden: the four golden proofs through the port's ``run_test`` on the
    card (debug check, prove, verify), byte for byte against
    ``tests/golden`` (vk, proof, transcript log), then proved again on a
@@ -56,7 +59,9 @@ Phases, each printing its result on lines of its own:
    after their proves, joined to their spans;
 4. app: keygen, debug check, prove and verify of the 2^20 x 64
    ``SyntheticAir`` cell (degree 3) under
-   ``app_params_with_100_bits_security(22)``;
+   ``app_params_with_100_bits_security(22)``; its proof's sha256, and the
+   leaf's and Keccak's, held to ``PROOF_SHA256`` (``ROADMAP.md`` §D), with
+   the GKR sub-rounds that kernel K evaluated and its launches;
 5. leaf: the same for the 2^20 x 64 degree-4 cell under
    ``leaf_params_with_100_bits_security(25)``: 2 stacked columns of 2^25
    rows, so the RS encode is one (2, 2^27) NTT through A′;
@@ -212,7 +217,8 @@ import sys
 import time
 from contextlib import contextmanager
 
-from swirl_torch.roofline import BOOST_HZ, BUTTERFLY, HBM_BYTES_PER_S, PERM, SMS, THREADS_PER_SM, bound, plus, times
+from swirl_torch.roofline import (ADD, BOOST_HZ, BUTTERFLY, HBM_BYTES_PER_S, MONT_MUL, PERM, SMS, THREADS_PER_SM,
+                                  bound, plus, times)
 
 LOG_ROWS = 20
 WIDTH = 64
@@ -226,6 +232,8 @@ SEED = 0
 KECCAK_LOG_PERMS = 10
 KECCAK_STACKED = 659
 GOLDEN_CASES = ("fib", "interactions", "preprocessed", "cached_preprocessed")
+# the cells' proofs (ROADMAP.md §D): every transcript and mode gives these bytes
+PROOF_SHA256 = {"app": "008305aaf187766a", "leaf": "50130138ca9e76e3", "keccak": "45238a82c84e1d66"}
 
 # The least time of a kernel's work, and the per-operation model it counts
 # in (MONT_MUL, ADD, PERM, BUTTERFLY: multiplies and other 32-bit integer
@@ -694,7 +702,7 @@ BN_LEAF_CASES = (("root_codeword", (32, 1 << 25)), ("root_whir_codeword", (1, 1 
 # Kernel J: (label, absorb cursor, pending felts, bits, check) from every
 # cursor the prover reaches (absorb 0 or 1, 0-7 pending felts): the query
 # phase's 20 bits after observe_ext (4 pending felts) against the plain
-# search; 15 bits against it; 5 bits against it and the host loop; 20 bits
+# search; 15 bits against it (absorb cursor 0); 5 bits against it and the host loop; 20 bits
 # with the witness checked by the host transcript's check_witness and shown
 # the least by a search of [0, w) that finds nothing (the plain search
 # takes 13 s a case there); the logup grind's 18 bits from every cursor
@@ -702,7 +710,7 @@ BN_LEAF_CASES = (("root_codeword", (32, 1 << 25)), ("root_whir_codeword", (1, 1 
 BN_CURSORS = [(a, k) for a in (0, 1) for k in range(8)]
 BN_GRIND_CASES = (
     [("query_grind", 0, 4, 20, "plain")]
-    + [(f"cursor_{a}_{k}", a, k, 15, "plain") for a, k in BN_CURSORS]
+    + [(f"cursor_{a}_{k}", a, k, 15, "plain") for a, k in BN_CURSORS if a == 0]
     + [(f"cursor_{a}_{k}", a, k, 5, "host") for a, k in BN_CURSORS]
     + [(f"cursor_{a}_{k}", a, k, 20, "witness") for a, k in BN_CURSORS]
     + [(f"logup_{a}_{k}", a, k, 18, "below") for a, k in BN_CURSORS]
@@ -886,6 +894,100 @@ def check_bn254_kernels(device, perm_floor) -> dict:
         record(K.BN254_GRIND, f"{label}, cursor ({cur}, {k} felts), {bits} bits, witness {w}{how}", (4, 8),
                0, ms, plain_ms, work, " (ms by events, the witness's read included; bound: the candidates "
                "up to the witness)", (3, w + 1))
+    return results
+
+
+# Kernel K's passes at the app's column lengths m (2^23 interactions pad
+# to 2^24 fractions: 23 layers, the largest of m = 2^23): (label, log m,
+# first pass). A layer's first pass evaluates its m entries where they lie
+# in p and q; its next folds them into m / 2 and evaluates; most of the 276
+# passes fold 2^16 entries or fewer
+GKR_CASES = (("first_2_22", 22, True), ("fold_2_22", 22, False), ("fold_2_16", 16, False),
+             ("fold_2_8", 8, False))
+GKR_EQ_VARS = 22  # the eq table of the app's layer of m = 2^22
+# a pass's work a pair of the next sub-round: the folds of four entries of
+# each of the five columns (10 products by r: 16 Montgomery products and 12
+# adds each, and a subtract and an add of four words each); s(1), s(2),
+# s(3): 5 differences, 10 adds, and at each point 4 products of two values
+# (19 Montgomery products, 12 adds), one by lambda (16, 12) and 12 adds
+GKR_FOLD = plus(times(MONT_MUL, 10 * 16), times(ADD, 10 * (12 + 8)))
+GKR_EVAL = plus(times(MONT_MUL, 3 * (4 * 19 + 16)), times(ADD, 60 + 3 * (4 * 12 + 24)))
+
+
+def gkr_pass_work(m: int, first: bool):
+    """(bytes, (multiplies, others)) of kernel K's pass over the five int64
+    EF4 columns of m entries: a first pass reads them and evaluates m / 2
+    pairs, another also folds them into m / 2 and writes those, then
+    evaluates m / 4 pairs; each entry read once and each output written
+    once."""
+    if first:
+        return 5 * m * 32, times(GKR_EVAL, m // 2)
+    return 5 * (m + m // 2) * 32, times(plus(GKR_FOLD, GKR_EVAL), m // 4)
+
+
+def check_gkr_kernels(device) -> dict:
+    """Kernel K's pass against its plain version at ``GKR_CASES``, bit for
+    bit, timed by CUDA graph replay (the small passes run faster than
+    Python enqueues them) beside its bound (bytes at 3.35 TB/s, or its
+    operations) and the latency floor of one launch (a one-element kernel
+    by graph replay), which bounds a small pass; the plain version's ms
+    (one call). Then the eq table at ``GKR_EQ_VARS`` variables against
+    ``eq_hypercube``."""
+    import torch
+
+    from swirl_torch import kernels as K
+    from swirl_torch.fields.babybear import P
+    from swirl_torch.prover import gkr
+    from swirl_torch.prover.sumcheck import eq_hypercube
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 5)
+
+    def rand(*shape):
+        return torch.randint(0, P, shape, generator=gen, device=device, dtype=torch.int64)
+
+    one = torch.zeros(1, dtype=torch.int64, device=device)
+    floor_ms = _graph_time_ms(lambda: one.add_(1), reps=100)
+    results, cases = {}, {}
+    for label, log_m, first in GKR_CASES:
+        m = 1 << log_m
+        if first:  # eq, and p0, q0, p1, q1 as the stride-2 views of the layer's p and q
+            p, q = rand(2 * m, 4), rand(2 * m, 4)
+            cols, r = [rand(m, 4), p[0::2], q[0::2], p[1::2], q[1::2]], None
+        else:
+            cols, r = list(rand(5, m, 4).unbind(0)), rand(4)
+        lam = rand(4)
+        got = gkr.gkr_round(cols, r, lam)
+        want, plain_ms = _timed_ms(lambda: gkr.gkr_round_plain(cols, r, lam))
+        err = max(_max_abs_err(torch.stack(got[0]), torch.stack(want[0])), _max_abs_err(got[1], want[1]))
+        if err:
+            raise AssertionError(f"kernel gkr_round [{label}]: max_abs_err {err}")
+        del got, want
+        ms = _graph_time_ms(lambda: gkr.gkr_round(cols, r, lam), reps=10)
+        bound_ms, bound_by = bound(gkr_pass_work(m, first))
+        if floor_ms > bound_ms:
+            bound_ms, bound_by = floor_ms, "one launch"
+        what = f"evaluate 2^{log_m}" if first else f"fold 2^{log_m} -> 2^{log_m - 1} and evaluate"
+        pairs = m // 2 if first else m // 4
+        _say(f"kernel gkr_round [{label}] {what}, blocks {gkr.round_blocks(pairs, SMS)}: equal=True "
+             f"max_abs_err={err} ms={ms:.4f} (by CUDA graph replay) plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+             f"({bound_by}) floor_ms={floor_ms:.4f} (one launch) share={bound_ms / ms:.1%}")
+        cases[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+        results.setdefault(K.GKR_ROUND.name, {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "floor_ms": floor_ms,
+        })
+        del cols
+        torch.cuda.empty_cache()
+    results[K.GKR_ROUND.name]["cases"] = cases
+    xi = rand(GKR_EQ_VARS, 4)
+    err = _max_abs_err(gkr.gkr_eq(xi), eq_hypercube(xi, device))
+    if err:
+        raise AssertionError(f"kernel gkr_round [eq table, {GKR_EQ_VARS} variables]: max_abs_err {err}")
+    ms = _graph_time_ms(lambda: gkr.gkr_eq(xi), reps=10)
+    _say(f"kernel gkr_round [eq table] {GKR_EQ_VARS} variables: equal=True ms={ms:.4f} (by CUDA graph replay) "
+         f"bytes bound {(32 << GKR_EQ_VARS) / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    torch.cuda.empty_cache()
     return results
 
 
@@ -2470,6 +2572,12 @@ def report_roofline(tag: str, run: dict, params) -> None:
 
 def report(tag: str, run: dict, required) -> None:
     _say(f"{tag}: {run['size']}, setup {run['setup_s']:.3f} s, prove {run['prove_s']:.3f} s")
+    want = PROOF_SHA256.get(tag)
+    if want is not None:
+        _say(f"{tag}: proof sha256 {run['proof_sha256'][:16]} (ROADMAP.md §D: {want}); GKR sub-rounds by kernel "
+             f"K {run['counters'].get('gkr_kernel_subrounds', 0)}, its launches {run['launches']['gkr_round']}")
+        if not run["proof_sha256"].startswith(want):
+            raise AssertionError(f"{tag}: proof sha256 {run['proof_sha256'][:16]}, not {want}")
     for line in run.get("extra", []):
         _say(f"{tag}: {line}")
     _say(f"{tag}: debug check {run['debug_s']:.3f} s (on the card, before the prove)")
@@ -2598,6 +2706,7 @@ def main() -> int:
     results = check_kernels(device, perm_floor_ms)
     results.update(check_transcript_kernels(device, perm_floor_ms, row_floor_ms))
     results[K.GRIND.name] = check_grind_widths(device, row_floor_ms, scalar_floor_ms)
+    results.update(check_gkr_kernels(device))
     t0 = time.perf_counter()
     results.update(check_bn254_kernels(device, bn_perm_floor))
     torch.cuda.empty_cache()
@@ -2678,11 +2787,14 @@ def main() -> int:
         raise AssertionError(f"the memory model's batch phase is below the zerocheck_round0 span's peak: {below}")
 
     # launches: the leaf path, the one path that runs A-D and A′; E and F
-    # on the app's device-transcript prove; G-J on the outer root prove (G,
+    # on the app's device-transcript prove, K on its host-transcript prove;
+    # G-J on the outer root prove (G,
     # the elementwise field kernel, is phase 2's and the tests': 0 there)
     bn254 = (K.BN254_FIELD, K.BN254_MERKLE, K.BN254_LEAVES, K.BN254_GRIND)
 
     def source_run(k):
+        if k is K.GKR_ROUND:
+            return app
         return app["on_card"] if k in (K.DUPLEX, K.GRIND) else outer if k in bn254 else leaf
 
     launches = {k.name: source_run(k)["launches"][k.name] for k in K.KERNELS}

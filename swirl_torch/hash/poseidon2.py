@@ -483,33 +483,37 @@ def compress_layer(layer, stride: int):
     return _compress_launch(layer, out, n // 2, n, stride.bit_length() - 1, stride)
 
 
-# the counters of each (device index, stream): the tower's ticket and the
-# grind's (found word, ticket) pair as :class:`Tickets`, zero (the found
-# word all ones) between launches, views of one allocation
-# (:func:`_counters`). torch hands out pooled streams round robin, so a
-# stream's handle recurs; a capture takes its own (private_tickets) instead.
+# the counters of each (device index, stream): the tower's ticket, the
+# grind's (found word, ticket) pair and the GKR pass's ticket as
+# :class:`Tickets`, zero (the found word all ones) between launches, views
+# of one allocation (:func:`_counters`). torch hands out pooled streams
+# round robin, so a stream's handle recurs; a capture takes its own
+# (private_tickets) instead.
 _TICKETS = {}
 _PRIVATE = threading.local()
 
 
 class Tickets(NamedTuple):
-    """One stream's or capture's counters: kernel D's ticket (int32) and
-    kernel F's (found word, ticket) pair (int64)."""
+    """One stream's or capture's counters: kernel D's ticket (int32),
+    kernel F's (found word, ticket) pair (int64) and kernel K's ticket
+    (int32, ``prover/gkr.py``)."""
 
     tower: torch.Tensor
     grind: torch.Tensor
+    gkr: torch.Tensor
 
 
 def _counters(device) -> Tickets:
-    """One int64 triple (F's found word, all ones; F's ticket; D's ticket, the
-    int32 low half of the third word), as its two views."""
-    t = torch.tensor([-1, 0, 0], dtype=torch.int64, device=device)
-    return Tickets(t[2:].view(torch.int32)[:1], t[:2])
+    """One int64 quadruple (F's found word, all ones; F's ticket; D's
+    ticket and K's, each the int32 low half of its word), as its three
+    views."""
+    t = torch.tensor([-1, 0, 0, 0], dtype=torch.int64, device=device)
+    return Tickets(t[2:3].view(torch.int32)[:1], t[:2], t[3:].view(torch.int32)[:1])
 
 
 @contextmanager
 def private_tickets(device):
-    """Kernel D's and F's launches on ``device`` from this thread inside it
+    """Kernel D's, F's and K's launches on ``device`` from this thread inside it
     use counters made here (armed) and yielded, as :class:`Tickets`, for the
     caller to keep: the graphs captured inside it read them at every replay,
     and no other launch shares them."""
@@ -522,14 +526,16 @@ def private_tickets(device):
         _PRIVATE.own = prev
 
 
-def _tickets(device) -> Tickets:
+def tickets(device) -> Tickets:
+    """The counters of the capture inside :func:`private_tickets`, else of
+    ``device``'s current stream (made at its first call, outside a capture)."""
     own = getattr(_PRIVATE, "own", None)
     if own is not None and own.tower.device == device:
         return own
     key = (device.index, torch.cuda.current_stream(device).cuda_stream)
     if key not in _TICKETS:
         if torch.cuda.is_current_stream_capturing():  # a captured fill runs only at replay
-            raise K.KernelError("compress_tower, grind: call one on this stream before capturing it")
+            raise K.KernelError("compress_tower, grind, gkr_round: call one on this stream before capturing it")
         _TICKETS[key] = _counters(device)
     return _TICKETS[key]
 
@@ -556,8 +562,8 @@ def compress_tower(digests) -> list:
     if digests.shape[0] != DIGEST or not 2 <= n <= TOWER_MAX or n & (n - 1):
         raise K.KernelError(f"compress_tower: unsupported shape {tuple(digests.shape)}")
     flat = torch.empty(DIGEST * (n - 1), dtype=F.DTYPE, device=digests.device)
-    tickets = _tickets(digests.device).tower
-    K.LIB.launch(K.TOWER, "swirl_p2_tower", digests, digests.data_ptr(), flat.data_ptr(), n, tickets.data_ptr())
+    counter = tickets(digests.device).tower
+    K.LIB.launch(K.TOWER, "swirl_p2_tower", digests, digests.data_ptr(), flat.data_ptr(), n, counter.data_ptr())
     return _tower_layers(flat, n)
 
 
@@ -669,7 +675,7 @@ def grind(state, a: int, bits: int):
         state.copy_(new)
         return w
     K.require(state, 1, "grind")
-    scratch = _tickets(state.device).grind
+    scratch = tickets(state.device).grind
     w = torch.empty((), dtype=F.DTYPE, device=state.device)
     K.LIB.launch(K.GRIND, "swirl_p2_grind", state, state.data_ptr(), a, bits, scratch.data_ptr(), w.data_ptr())
     return w

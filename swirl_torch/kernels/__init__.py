@@ -93,8 +93,13 @@ BN254_GRIND = Kernel(
     "bn254_grind", "swirl_torch/csrc/bn254.cu",
     "none: swirl/hash/multi_field.py:210 (MultiFieldTranscript.grind, a host loop)",
 )
+# the port's own: the JAX package runs a GKR sub-round as XLA ops
+GKR_ROUND = Kernel(
+    "gkr_round", "swirl_torch/csrc/gkr.cu",
+    "none: swirl/prover/gkr.py:58 (_gkr_round_evals) + :82 (_gkr_fold), XLA ops",
+)
 KERNELS = (NTT, NTT_RECURSIVE, HASH_COLS, COMPRESS, TOWER, DUPLEX, GRIND,
-           BN254_FIELD, BN254_MERKLE, BN254_LEAVES, BN254_GRIND)
+           BN254_FIELD, BN254_MERKLE, BN254_LEAVES, BN254_GRIND, GKR_ROUND)
 
 
 def reset_launch_counts() -> None:
@@ -210,6 +215,8 @@ class _Library:
                     "swirl_bn254_compress": [vp, vp, i64, i32, vp],
                     "swirl_bn254_hash_rows": [vp, vp, i32, i64, i32, vp],
                     "swirl_bn254_grind": [vp, vp, vp],
+                    "swirl_gkr_eq": [vp, i32, vp, i32, vp],
+                    "swirl_gkr_round": [vp, vp, vp, vp, vp, i64, i64, vp, vp, vp, vp, vp, vp, i32, vp],
                 }
                 for name, args in sigs.items():
                     fn = getattr(lib, name)

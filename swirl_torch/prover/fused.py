@@ -55,8 +55,9 @@ that the caller may free. The first call runs one eager prove on the
 capture stream before it captures: the NTT tables, the kernels' constants
 and the DAG schedules' index tensors are made there, since none can be
 made while the stream captures (what ``commit_kernel.py`` learned); kernel
-D's launches in both use a ticket counter that the entry owns, and kernel
-F's a (found word, ticket) pair of its own (``p2.private_tickets``). A capture that fails raises: the card has no
+D's launches in both use a ticket counter that the entry owns, kernel
+F's a (found word, ticket) pair and kernel K's (GKR's layer sumcheck) a
+ticket of its own (``p2.private_tickets``). A capture that fails raises: the card has no
 eager fallback. On the CPU every mode runs the five bodies eagerly through
 the plain kernels and captures nothing.
 
@@ -316,7 +317,8 @@ class FusedGraphs:
     output, the segments' timing events that every replay records, the
     first call's seconds and counts (``stats["nodes"]``: each graph's
     nodes), kernel D's ticket counter
-    and kernel F's (found word, ticket) pair of the graphs
+    and kernel F's (found word, ticket) pair of the graphs, which share
+    their allocation with kernel K's ticket
     (``p2.private_tickets``): torch's pooled streams recur, so a counter
     keyed by the capture stream's handle could be shared with an eager
     launch while a replay runs."""

@@ -8,6 +8,14 @@ eq(xi, Y) * (p0*q1 + p1*q0 + lambda*q0*q1) with round evaluations at X in
 MLEs stay in natural index order: the logical pair (2i, 2i+1) is a
 stride-2 split.
 
+On the card a layer's sumcheck is kernel K (``csrc/gkr.cu``): one launch
+for the layer's eq table (:func:`gkr_eq`), then one pass a sub-round
+(:func:`gkr_round`) that folds the five MLEs at the last challenge and
+evaluates the next sub-round in the same read, reading the challenges from
+device memory; on the CPU the plain versions, the same arithmetic op by
+op. The build counts the sub-rounds that K evaluated
+(``gkr_kernel_subrounds``).
+
 Every value stays on the device: the round evaluations, the challenges and
 the layer claims. On a :class:`~.device_transcript.DeviceTranscript` (the
 device path, ``gkr.py:531-680``) a sub-round is one sponge launch between
@@ -26,12 +34,22 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import kernels as K
+from .. import metrics
 from ..fields import ext as hext
 from ..proof import GkrLayerClaims
 from ..fields import field as F
+from ..hash import poseidon2 as p2
 from .deferred import Deferred
 from .device_transcript import device_view
 from .sumcheck import eq_hypercube, fold_mle, interp_mle_at_int
+
+# kernel K's block, its blocks an SM and the most variables of its eq table
+# (csrc/gkr.cu GKR_THREADS, GKR_MIN_BLOCKS, GKR_EQ_MAX)
+THREADS = 256
+MIN_BLOCKS = 2
+EQ_MAX = 30
+EVAL_WORDS = 12  # the (3, 4) evaluations; one block's partial sums, as 32-bit words
 
 
 def _pairs(col):
@@ -49,6 +67,93 @@ def _round_evals(cols, lam):
         val = F.ext_mul(e, F.add(p_prev, F.ext_mul(lam, q_prev)))
         out.append(F.ext_sum(val, axis=0))
     return torch.stack(out)
+
+
+def gkr_round_plain(cols, r=None, lam=None):
+    """:func:`gkr_round`'s plain PyTorch version (its path on CPU tensors):
+    ``fold_mle`` of each column, then :func:`_round_evals`."""
+    if r is None and lam is None:
+        raise ValueError("gkr_round: a pass folds, evaluates or both")
+    if r is not None:
+        cols = [fold_mle(c, r) for c in (cols if lam is not None else cols[1:])]
+    if lam is None:
+        return torch.stack([c[0] for c in cols]), None
+    return list(cols), _round_evals(cols, lam)
+
+
+def round_blocks(work: int, sms: int) -> int:
+    """Kernel K's grid for ``work`` items of a thread each (pairs, or groups
+    of the eq table): one block up to THREADS, above it enough blocks to
+    fill the ``sms`` SMs at MIN_BLOCKS each, each thread taking several."""
+    return max(1, min(-(-work // THREADS), sms * MIN_BLOCKS))
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _operand(t, shape, stride, device, what: str) -> None:
+    if t.device != device or t.dtype != F.DTYPE or tuple(t.shape) != shape or t.stride() != stride:
+        raise K.KernelError(f"gkr_round: {what} must be an int64 {shape} tensor on {device} with strides {stride}, "
+                            f"got {t.dtype} {tuple(t.shape)} on {t.device} with strides {t.stride()}")
+
+
+def gkr_round(cols, r=None, lam=None):
+    """One pass of a GKR layer's sumcheck over its five (n, 4) MLEs ``cols``
+    = [eq, p0, q0, p1, q1]: fold each at ``r``, the last sub-round's
+    challenge (none on the layer's first pass), then evaluate the next
+    sub-round at X = 1, 2, 3 with ``lam``, giving (the five columns, the
+    (3, 4) evaluations); without ``lam`` (the layer's last pass, n = 2),
+    (the folded p0, q0, p1, q1 as the layer's (4, 4) claims, None). Kernel
+    K on CUDA tensors, where p0, q0, p1, q1 may be the stride-2 views of the
+    layer's p and q and r, lam are (4,) device tensors; the plain version on
+    CPU ones."""
+    eq = cols[0]
+    if not eq.is_cuda:
+        return gkr_round_plain(cols, r, lam)
+    n, device = eq.shape[0], eq.device
+    stride = cols[1].stride(0) // 4
+    for c, s, what in zip(cols, (1, stride, stride, stride, stride), ("eq", "p0", "q0", "p1", "q1")):
+        _operand(c, (n, 4), (4 * s, 1), device, what)
+    for x, what in ((r, "r"), (lam, "lam")):
+        if x is not None:
+            _operand(x, (4,), (1,), device, what)
+    fits = n == 2 if lam is None else n >= (2 if r is None else 4)  # the last pass folds 2 entries
+    if n & (n - 1) or stride < 1 or (r is None and lam is None) or not fits:
+        raise K.KernelError(f"gkr_round: no pass over {n} entries with r {'given' if r is not None else 'None'} "
+                            f"and lam {'given' if lam is not None else 'None'}")
+    ptrs = [c.data_ptr() for c in cols]
+    if lam is None:
+        claims = torch.empty((4, 4), dtype=F.DTYPE, device=device)
+        K.LIB.launch(K.GKR_ROUND, "swirl_gkr_round", eq, *ptrs, stride, n, r.data_ptr(), None,
+                     claims.data_ptr(), None, None, None, 1)
+        return claims, None
+    blocks = round_blocks(n // 2 if r is None else n // 4, _sms(device))
+    # the evaluations, then each block's partial sums as 32-bit words
+    words = torch.empty(EVAL_WORDS + EVAL_WORDS // 2 * blocks, dtype=F.DTYPE, device=device)
+    evals = words[:EVAL_WORDS].view(3, 4)
+    out = None if r is None else torch.empty((5, n // 2, 4), dtype=F.DTYPE, device=device)
+    K.LIB.launch(K.GKR_ROUND, "swirl_gkr_round", eq, *ptrs, stride, n, None if r is None else r.data_ptr(),
+                 lam.data_ptr(), None if out is None else out.data_ptr(), evals.data_ptr(),
+                 words.data_ptr() + 8 * EVAL_WORDS, p2.tickets(device).gkr.data_ptr(), blocks)
+    return (list(cols) if out is None else list(out.unbind(0))), evals
+
+
+def gkr_eq(xi):
+    """eq(xi, y) over H_n as a (2^n, 4) tensor for an (n, 4) point xi, n >= 1
+    (bit i of y belongs to xi[i]): kernel K's table on a CUDA tensor, the
+    doubling table (:func:`~.sumcheck.eq_hypercube`) on a CPU one."""
+    if not xi.is_cuda:
+        return eq_hypercube(xi, xi.device)
+    xi = xi.contiguous()
+    K.require(xi, 2, "gkr_eq")
+    n = xi.shape[0]
+    if xi.shape[1] != 4 or not 1 <= n <= EQ_MAX:
+        raise K.KernelError(f"gkr_eq: no table for a point of shape {tuple(xi.shape)}")
+    out = torch.empty((1 << n, 4), dtype=F.DTYPE, device=xi.device)
+    blocks = round_blocks(1 << max(n - 2, 0), _sms(xi.device))
+    K.LIB.launch(K.GKR_ROUND, "swirl_gkr_eq", xi, xi.data_ptr(), n, out.data_ptr(), blocks)
+    return out
 
 
 def _combine_layer(p, q):
@@ -93,13 +198,19 @@ def fractional_sumcheck_deferred(
     at once with ``check_now``, else in the build, after the fetch (the
     fused prover's one copy)."""
     if p_evals is None:
-        return Deferred([], lambda host: FracSumcheckResult((hext.ezero(), hext.eone()), [], [], None)), None
+        def empty(host):
+            metrics.counter("gkr_kernel_subrounds", 0)
+            return FracSumcheckResult((hext.ezero(), hext.eone()), [], [], None)
+
+        return Deferred([], empty), None
     total_rounds = int(p_evals.shape[0]).bit_length() - 1
     assert p_evals.shape[0] == 1 << total_rounds
     device = p_evals.device
+    # the sub-rounds that K evaluates: all of them on the card
+    kernel_subrounds = total_rounds * (total_rounds - 1) // 2 if p_evals.is_cuda else 0
     tr = device_view(transcript, device)
 
-    layers = [(p_evals, q_evals)]  # layers[total] = input ... layers[0] = root
+    layers = [(p_evals.contiguous(), q_evals.contiguous())]  # layers[total] = input ... layers[0] = root
     while layers[-1][0].shape[0] > 1:
         layers.append(_combine_layer(*layers[-1]))
     layers.reverse()
@@ -125,20 +236,21 @@ def fractional_sumcheck_deferred(
         lam = tr.sample_ext()
         p0, p1v = _pairs(layers[rnd + 1][0])
         q0, q1v = _pairs(layers[rnd + 1][1])
-        cols = [eq_hypercube(xi, device), p0, q0, p1v, q1v]
+        cols = [gkr_eq(xi), p0, q0, p1v, q1v]
         del xi  # in the eq table now; not live at the layer's peak
-        rho = []
+        r, rho = None, []
         for _ in range(rnd):
-            polys.append(tr.observe_slice(_round_evals(cols, lam)))
+            cols, evals = gkr_round(cols, r, lam)  # fold at the last r, evaluate this sub-round
+            polys.append(tr.observe_slice(evals))
             r = tr.sample_ext()
             rho.append(r)
-            cols = [fold_mle(c, r) for c in cols]
-        claims.append(tr.observe_slice(torch.stack([c[0] for c in cols[1:]])))
+        claims.append(tr.observe_slice(gkr_round(cols, r)[0]))
         xi = torch.cat([tr.sample_ext()[None], torch.stack(rho)])
 
     n_claims = len(claims)
 
     def build(host):
+        metrics.counter("gkr_kernel_subrounds", kernel_subrounds)
         root_p, root_q, *rest = host
         if assert_zero and np.asarray(root_p).any():
             raise ValueError("LogUp fractional sum is non-zero")

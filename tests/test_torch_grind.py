@@ -163,16 +163,19 @@ def test_grind_candidate_work_counts_the_sweeps_adds():
 
 def test_private_tickets_own_the_grind_pair():
     """Inside ``private_tickets`` the wrappers' counters are the capture's:
-    an armed (found word, ticket) pair and a zero tower counter, neither of
-    any stream's table."""
+    an armed (found word, ticket) pair and zero tower and GKR counters, none
+    of any stream's table."""
     cpu = torch.device("cpu")
     with p2.private_tickets(cpu) as own:
-        assert p2._tickets(cpu) is own
-        assert own.grind.tolist() == [-1, 0] and own.tower.tolist() == [0]
-        assert own.grind.dtype == torch.int64 and own.tower.dtype == torch.int32
-        # one allocation: D's counter is the low half of the word after F's pair
+        assert p2.tickets(cpu) is own
+        assert own.grind.tolist() == [-1, 0] and own.tower.tolist() == [0] and own.gkr.tolist() == [0]
+        assert own.grind.dtype == torch.int64 and own.tower.dtype == own.gkr.dtype == torch.int32
+        # one allocation: D's counter is the low half of the word after F's
+        # pair, K's the low half of the word after D's
         assert own.tower.data_ptr() == own.grind.data_ptr() + 16
+        assert own.gkr.data_ptr() == own.grind.data_ptr() + 24
         assert own.grind.untyped_storage().data_ptr() == own.tower.untyped_storage().data_ptr()
+        assert own.gkr.untyped_storage().data_ptr() == own.tower.untyped_storage().data_ptr()
     assert getattr(p2._PRIVATE, "own", None) is None
 
 

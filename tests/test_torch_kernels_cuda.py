@@ -19,7 +19,10 @@ on another trace, a replay on a fresh context of a cached trace whose
 first context was freed, a failed capture that raises, the segments'
 device timings from events that the graphs record and each graph's node
 count, kernel D's ticket counter owned by each captured prove and commit,
-the golden bytes on a world-of-one NCCL mesh), and the BN254
+the golden bytes on a world-of-one NCCL mesh), kernel K (GKR's layer
+sumcheck: each kind of pass on both sides of the one-block boundary, the
+eq table, a capture replayed on new inputs, captures owning their ticket
+counters, 2^14 fractions against the CPU), and the BN254
 kernels G-J against their plain versions (the field's operations on
 random and edge operands, the permutations, compress layers at every kind
 of stride, leaf hashes of every absorb shape and of extension-field
@@ -1063,3 +1066,179 @@ def test_fused_prove_on_a_world_of_one_mesh():
         fused.prove_fused(eng.backend, dpk, ctx, mode="segmented", mesh=gloo)
     with pytest.raises(ValueError, match="mesh sharding requires"):
         fused.prove_fused(eng.backend, dpk, ctx, mode="eager", mesh=mesh)
+
+
+# -- kernel K: GKR's layer sumcheck, a pass a sub-round ---------------------------
+
+
+def _gkr_pass_case(rand, m: int):
+    """Source columns of 2m entries (the four p/q columns as the stride-2
+    views of a layer's (4m, 4) p and q, as a layer's second pass reads
+    them), and r, lam as device tensors."""
+    p, q = rand(4 * m, 4), rand(4 * m, 4)
+    cols = [rand(2 * m, 4), p[0::2], q[0::2], p[1::2], q[1::2]]
+    return cols, rand(4), rand(4)
+
+
+def _assert_pass_equal(got, want) -> None:
+    (a, ea), (b, eb) = got, want
+    if ea is None:
+        assert eb is None and torch.equal(a, b)
+        return
+    assert torch.equal(ea, eb) and len(a) == len(b) == 5 and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("log_m", [0, 1, 7, 12, 16, 17, 22])
+def test_gkr_round_kernel_matches_plain(rand, log_m):
+    """Each kind of pass at column length m, on both sides of the one-block
+    boundary: the fold from 2m entries (the layer's stride-2 views) with the
+    next evaluation, the first pass's evaluation of m entries, and at m = 1
+    the last pass's claims; r and lam are device tensors."""
+    from swirl_torch.prover import gkr
+
+    m = 1 << log_m
+    cols, r, lam = _gkr_pass_case(rand, m)
+    before = K.GKR_ROUND.launches
+    if m == 1:
+        _assert_pass_equal(gkr.gkr_round(cols, r), gkr.gkr_round_plain(cols, r))
+        assert K.GKR_ROUND.launches == before + 1
+        return
+    _assert_pass_equal(gkr.gkr_round(cols, r, lam), gkr.gkr_round_plain(cols, r, lam))
+    layer, _, _ = _gkr_pass_case(rand, m // 2)  # m entries: a layer's first pass
+    _assert_pass_equal(gkr.gkr_round(layer, None, lam), gkr.gkr_round_plain(layer, None, lam))
+    compact = [c.contiguous() for c in layer]
+    _assert_pass_equal(gkr.gkr_round(compact, None, lam), gkr.gkr_round_plain(compact, None, lam))
+    assert K.GKR_ROUND.launches == before + 3
+    torch.cuda.synchronize()
+    assert p2.tickets(r.device).gkr.tolist() == [0]
+
+
+def test_gkr_round_kernel_on_the_largest_values():
+    """Every entry and challenge P - 1, one block and many."""
+    from swirl_torch.prover import gkr
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for m in (8, 1 << 14):
+        cols = [torch.full((2 * m, 4), P - 1, dtype=torch.int64, device="cuda") for _ in range(5)]
+        r = lam = torch.full((4,), P - 1, dtype=torch.int64, device="cuda")
+        _assert_pass_equal(gkr.gkr_round(cols, r, lam), gkr.gkr_round_plain(cols, r, lam))
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 10, 22])
+def test_gkr_eq_kernel_matches_eq_hypercube(rand, n):
+    from swirl_torch.prover import gkr
+    from swirl_torch.prover.sumcheck import eq_hypercube
+
+    xi = rand(n, 4)
+    assert torch.equal(gkr.gkr_eq(xi), eq_hypercube(xi, xi.device))
+
+
+def test_gkr_round_kernel_replays_in_a_cuda_graph(rand):
+    """A pass captured at m = 2^16 (many blocks, the ticket) and the
+    layer's last pass, replayed on new columns and new r and lam: each
+    replay bit-equal to the plain version on its inputs, the capture's
+    ticket zero after it."""
+    from swirl_torch.prover import gkr
+
+    m = 1 << 16
+    cols, r, lam = _gkr_pass_case(rand, m)
+    tail, tail_r = [rand(2, 4) for _ in range(5)], rand(4)
+    gkr.gkr_round(cols, r, lam)  # the library, before any capture
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with p2.private_tickets(r.device) as own:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            got = gkr.gkr_round(cols, r, lam)
+            claims = gkr.gkr_round(tail, tail_r)
+    for _ in range(2):
+        for t in (*cols, r, lam, *tail, tail_r):
+            t.copy_(rand(*t.shape))
+        graph.replay()
+        torch.cuda.synchronize()
+        _assert_pass_equal(got, gkr.gkr_round_plain(cols, r, lam))
+        _assert_pass_equal(claims, gkr.gkr_round_plain(tail, tail_r))
+        assert own.gkr.tolist() == [0]
+
+
+def test_gkr_round_captures_own_their_tickets(rand):
+    """Two captured passes each take their capture's ticket counter, neither
+    a stream's: replayed in turns, both stay bit-equal and both counters
+    zero."""
+    from swirl_torch.prover import gkr
+
+    cases, owned = [], []
+    for log_m in (15, 17):
+        cols, r, lam = _gkr_pass_case(rand, 1 << log_m)
+        gkr.gkr_round(cols, r, lam)
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with p2.private_tickets(r.device) as own:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=stream):
+                got = gkr.gkr_round(cols, r, lam)
+        cases.append((graph, got, cols, r, lam))
+        owned.append(own.gkr)
+    shared = {t.gkr.data_ptr() for t in p2._TICKETS.values()}
+    assert len({t.data_ptr() for t in owned}) == 2 and not shared & {t.data_ptr() for t in owned}
+    for _ in range(2):
+        for graph, *_ in cases:
+            graph.replay()
+    torch.cuda.synchronize()
+    for _, got, cols, r, lam in cases:
+        _assert_pass_equal(got, gkr.gkr_round_plain(cols, r, lam))
+    assert [t.tolist() for t in owned] == [[0], [0]]
+
+
+def test_fractional_sumcheck_on_the_card_matches_the_cpu():
+    """2^14 fractions on a device transcript on the card and on the CPU:
+    equal claims, round polynomials, point and sponge state; every layer
+    through kernel K (an eq table, a pass a sub-round and the last fold),
+    every sub-round counted."""
+    from swirl_torch import metrics
+    from swirl_torch.fields import field as F
+    from swirl_torch.prover.device_transcript import DeviceTranscript
+    from swirl_torch.prover.gkr import fractional_sumcheck
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(14)
+    t = 14
+    p = np.zeros((1 << t, 4), np.uint64)
+    p[:, 0] = rng.integers(0, P, 1 << t, dtype=np.uint64)
+    q = rng.integers(0, P, (1 << t, 4), dtype=np.uint64)
+    outs = []
+    for device in ("cuda", "cpu"):
+        dt = DeviceTranscript(device)
+        before = K.GKR_ROUND.launches
+        with metrics.run_with_metric_collection() as c:
+            res = fractional_sumcheck(dt, F.const_arr(p, device), F.const_arr(q, device), assert_zero=False)
+        launches = K.GKR_ROUND.launches - before
+        h = dt.to_host()
+        outs.append((res, h.state, launches, c.snapshot()["gkr_kernel_subrounds"]))
+    (a, sa, la, ka), (b, sb, lb, kb) = outs
+    subrounds = t * (t - 1) // 2
+    assert (la, ka, lb, kb) == (subrounds + 2 * (t - 1), subrounds, 0, 0)
+    assert np.array_equal(sa, sb)
+    assert np.array_equal(F.to_host(a.xi), F.to_host(b.xi))
+    assert all(np.array_equal(x, y) for la_, lb_ in zip(a.sumcheck_polys, b.sumcheck_polys) for x, y in zip(la_, lb_))
+    assert len(a.claims_per_layer) == t
+    for x, y in zip(a.claims_per_layer, b.claims_per_layer):
+        assert all(np.array_equal(getattr(x, f), getattr(y, f)) for f in ("p_xi_0", "p_xi_1", "q_xi_0", "q_xi_1"))
+    assert np.array_equal(a.fractional_sum[0], b.fractional_sum[0])
+    assert np.array_equal(a.fractional_sum[1], b.fractional_sum[1])
+
+
+def test_gkr_round_kernel_refuses_bad_operands(rand):
+    from swirl_torch.prover import gkr
+
+    cols, r, lam = _gkr_pass_case(rand, 4)
+    with pytest.raises(K.KernelError):
+        gkr.gkr_round(cols[:1] + [c[::2] for c in cols[1:]], r, lam)  # eq of 8 entries, the others of 4
+    with pytest.raises(K.KernelError):
+        gkr.gkr_round(cols, r)  # the last pass takes 2 entries
+    with pytest.raises(K.KernelError):
+        gkr.gkr_round(cols, r.to(torch.int32), lam)
+    with pytest.raises(K.KernelError):
+        gkr.gkr_eq(rand(31, 4))
