@@ -16,7 +16,10 @@ operator's (``_RecordFunctionFast``), not a user annotation's
 device's timeline from its first kernel to its last, which a reader of the
 device's busy time would count as busy.
 :func:`time_ms` adds a timing the program measured itself (a device time
-between CUDA events) where a span puts its own.
+between CUDA events) where a span puts its own. :func:`device_interval`
+marks a block of the card's work that recurs inside a prove (an RS encode,
+a Merkle build) with a pair of such events of its own, kept in the list
+that the innermost :func:`device_intervals` holds open.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import contextlib
 import json
 import time
 from collections import defaultdict
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -85,6 +88,57 @@ def time_ms(name: str, ms: float):
 def collecting() -> bool:
     """Whether a collector is active."""
     return bool(_ACTIVE)
+
+
+def event_pair() -> Tuple[torch.cuda.Event, torch.cuda.Event]:
+    """A (start, end) pair of timing events. They are ``external``: recorded
+    under capture, each record is an event-record node of the graph, which
+    every replay records again."""
+    return (torch.cuda.Event(enable_timing=True, external=True),
+            torch.cuda.Event(enable_timing=True, external=True))
+
+
+# the lists open for device intervals, innermost last
+_INTERVALS: List[list] = []
+
+
+@contextlib.contextmanager
+def device_intervals(into: Optional[list]):
+    """While open, each :func:`device_interval` appends its (name, start
+    event, end event) to ``into``; with None nothing is recorded."""
+    if into is None:
+        yield
+        return
+    _INTERVALS.append(into)
+    try:
+        yield
+    finally:
+        _INTERVALS.pop()
+
+
+@contextlib.contextmanager
+def device_interval(name: str):
+    """The card's work enqueued inside the block, between two timing events
+    of its own, kept by the innermost open :func:`device_intervals`; nothing
+    when none is open. A graph replays every record node and an event keeps
+    only its last record, so each occurrence has a pair of its own."""
+    if not _INTERVALS:
+        yield
+        return
+    start, end = event_pair()
+    start.record()
+    yield
+    end.record()
+    _INTERVALS[-1].append((name, start, end))
+
+
+def interval_ms(intervals) -> Dict[str, float]:
+    """{name: the sum of its intervals' end - start, ms} from recorded,
+    completed events."""
+    out: Dict[str, float] = defaultdict(float)
+    for name, start, end in intervals:
+        out[name] += start.elapsed_time(end)
+    return dict(out)
 
 
 @contextlib.contextmanager

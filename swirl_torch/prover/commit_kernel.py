@@ -33,16 +33,18 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from .. import metrics
 from ..hash import poseidon2 as p2
 from .merkle import build_merkle_tree
-from .stacked_pcs import rs_code_matrix
+from .stacked_pcs import MERKLE_TIMING, rs_code_matrix
 
 
 def commit_eager(l_skip: int, log_blowup: int, k_whir: int, stacked) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """(codeword (w, h * 2^log_blowup), digest layers (8, n) from the
     strided levels' output to the root), eagerly."""
     code = rs_code_matrix(l_skip, log_blowup, stacked)
-    return code, build_merkle_tree(code, 1 << k_whir).layers
+    with metrics.device_interval(MERKLE_TIMING):
+        return code, build_merkle_tree(code, 1 << k_whir).layers
 
 
 @dataclass

@@ -37,9 +37,13 @@ Segment timings: on the card each segment body runs between a pair of
 timing events (``external``, so that under capture each record is an
 event-record node of the graph and every replay records it again). When a
 metrics collector is active, ``prove_fused`` reads them after the fetch
-and adds ``<segment>.device`` for each segment's device time and
+and adds ``<segment>.device`` for each segment's device time,
 ``segments.gap.device`` for the card's time between segments (the host's
-sync and the next graph's launch), beside the host spans ``fused.refresh``
+sync and the next graph's launch), and ``pcs.encode.device`` and
+``pcs.merkle.device``, the card's time in every RS encode and every Merkle
+build of the prove (each occurrence between events of its own,
+``metrics.device_interval``, opened inside the segments), beside the host
+spans ``fused.refresh``
 (the static inputs' copy), ``fused.launch`` (the graphs' launch calls),
 ``proof_fetch`` and ``proof_build``.
 
@@ -140,13 +144,11 @@ GAP = "segments.gap.device"
 
 
 def segment_events(device) -> Optional[Dict[str, Tuple[torch.cuda.Event, torch.cuda.Event]]]:
-    """A (start, end) pair of timing events a segment on a CUDA ``device``,
-    None elsewhere. They are ``external``: recorded under capture, each is an
-    event-record node of the graph."""
+    """A (start, end) pair of timing events a segment on a CUDA ``device``
+    (``metrics.event_pair``), None elsewhere."""
     if device.type != "cuda":
         return None
-    return {name: (torch.cuda.Event(enable_timing=True, external=True),
-                   torch.cuda.Event(enable_timing=True, external=True)) for name, _ in SEGMENTS}
+    return {name: metrics.event_pair() for name, _ in SEGMENTS}
 
 
 def segment_timings(times: Dict[str, Tuple[float, float]]) -> Dict[str, float]:
@@ -186,7 +188,8 @@ class _Prove:
     packed values in ``flat`` and ``layout`` and the proof's build in
     ``build``. ``cached``, per trace, takes the place of its cached mains
     when given. On the card :meth:`segment` runs a body between its pair
-    of ``events``."""
+    of ``events``, the device intervals opened inside it kept in
+    ``intervals``."""
 
     def __init__(self, backend, mpk, ctx: ProvingContext, commons: List[torch.Tensor], cached=None):
         self.backend, self.mpk, self.params = backend, mpk, mpk.params
@@ -199,6 +202,7 @@ class _Prove:
         self.parts: List[Deferred] = []
         self.sponge = None  # (state, absorb_idx, sample_idx) between segments
         self.events = segment_events(backend.device)
+        self.intervals = None if self.events is None else []
 
     def segment(self, name: str) -> None:
         """The segment body ``name``, between its events on the card."""
@@ -207,7 +211,8 @@ class _Prove:
             return
         start, end = self.events[name]
         start.record()
-        getattr(self, name)()
+        with metrics.device_intervals(self.intervals):
+            getattr(self, name)()
         end.record()
 
     def _transcript(self) -> DeviceTranscript:
@@ -314,7 +319,8 @@ def static_cached(cached):
 class FusedGraphs:
     """One cache entry: the graphs of one (mode, context key), each group
     with its span, the static inputs (common traces, cached mains) and
-    output, the segments' timing events that every replay records, the
+    output, the segments' timing events and the device intervals inside
+    them, which every replay records, the
     first call's seconds and counts (``stats["nodes"]``: each graph's
     nodes), kernel D's ticket counter
     and kernel F's (found word, ticket) pair of the graphs, which share
@@ -331,6 +337,7 @@ class FusedGraphs:
     build: object
     sync_each: bool
     events: Optional[Dict[str, Tuple[torch.cuda.Event, torch.cuda.Event]]] = None
+    intervals: Optional[list] = None
     stats: Dict[str, object] = field(default_factory=dict)
     tickets: torch.Tensor = None
     grind_scratch: torch.Tensor = None
@@ -446,7 +453,7 @@ def _capture(backend, mpk, ctx, mode: str) -> FusedGraphs:
     current.wait_stream(stream)
     return FusedGraphs(
         groups=groups, static=static, cached=cached, flat=run.flat, layout=run.layout, build=run.build,
-        sync_each=mode == "segmented", events=run.events,
+        sync_each=mode == "segmented", events=run.events, intervals=run.intervals,
         stats={"warm_up_s": warm_s, "capture_s": capture_s, "instantiate_s": instantiate_s,
                "graphs": sum(len(g) for _, g in groups), "nodes": nodes},
         tickets=own.tower,
@@ -533,17 +540,18 @@ def prove_fused(backend, mpk, unsorted_ctx: ProvingContext, mode: str = "jit", m
     with metrics.span("stark_prove_excluding_trace"), annotate.spmd_mesh(mesh):
         if device.type != "cuda" or mode == "eager":
             run = run_segments(backend, mpk, ctx, commons)
-            flat, layout, build, events = run.flat, run.layout, run.build, run.events
+            flat, layout, build, events, intervals = run.flat, run.layout, run.build, run.events, run.intervals
         else:
             key = graph_key(backend, ctx, mode, mesh)
             entry = cached_entry(mpk, key, lambda: _capture(backend, mpk, ctx, mode))
             entry.replay(ctx, device)
-            flat, layout, build, events = entry.flat, entry.layout, entry.build, entry.events
+            flat, layout, build = entry.flat, entry.layout, entry.build
+            events, intervals = entry.events, entry.intervals
         with metrics.span("proof_fetch"):
             host = F.unpack(layout, F.to_host(flat))
         # the fetch waited for the stream, so every segment's events are done
         if events is not None and metrics.collecting():
-            for name, ms in segment_timings(read_events(events)).items():
+            for name, ms in {**segment_timings(read_events(events)), **metrics.interval_ms(intervals)}.items():
                 metrics.time_ms(name, ms)
         with metrics.span("proof_build"):
             commit, gkr, batch, stacking, whir = build(host)

@@ -15,10 +15,17 @@ import torch
 
 from .errors import StackedPcsError
 
+from .. import metrics
 from ..fields import field as F
 from ..parallel import annotate
 from .merkle import build_merkle_tree
 from .ntt import intt, ntt, zeta_transform
+
+# the card's time in a prove's RS encodes (kernels A, A′, with the chunk
+# iDFTs and the padding) and in its Merkle builds (B, C, D), each summed
+# over its occurrences (``metrics.device_interval``)
+ENCODE_TIMING = "pcs.encode.device"
+MERKLE_TIMING = "pcs.merkle.device"
 
 
 @dataclass(frozen=True)
@@ -178,9 +185,10 @@ def rs_encode(padded, ext: bool = False):
 def rs_code_matrix(l_skip: int, log_blowup: int, stacked):
     """Reed-Solomon codewords of all stacked columns (one batched NTT)."""
     width, height = stacked.shape
-    padded = torch.zeros((width, height << log_blowup), dtype=F.DTYPE, device=stacked.device)
-    padded[:, :height] = rs_message(l_skip, stacked)
-    return rs_encode(padded)
+    with metrics.device_interval(ENCODE_TIMING):
+        padded = torch.zeros((width, height << log_blowup), dtype=F.DTYPE, device=stacked.device)
+        padded[:, :height] = rs_message(l_skip, stacked)
+        return rs_encode(padded)
 
 
 def stacked_commit(

@@ -23,6 +23,7 @@ from typing import Sequence
 
 import torch
 
+from .. import metrics
 from ..fields.babybear import P, two_adic_generator
 from ..params import SystemParams
 from ..proof import WhirProof
@@ -33,7 +34,7 @@ from .deferred import Deferred
 from .device_transcript import device_view
 from .merkle import build_merkle_tree, get_opened_rows_batch
 from .ntt import mobius_transform, zeta_transform
-from .stacked_pcs import StackedPcsData, rs_encode, rs_message
+from .stacked_pcs import ENCODE_TIMING, MERKLE_TIMING, StackedPcsData, rs_encode, rs_message
 from .sumcheck import (
     eq_pows_base_batch,
     eq_pows_hypercube,
@@ -148,14 +149,16 @@ def whir_opening_deferred(
 
         g_coeffs = mobius_transform(f_evals[None], cur_m, ext=True)[0]  # (2^cur_m, 4)
         if not is_last:
-            padded = torch.zeros((1 << (log_rs - 1), 4), dtype=F.DTYPE, device=device)
-            padded[: 1 << cur_m] = g_coeffs
-            g_rs = rs_encode(padded[None], ext=True)  # (1, H, 4)
-            if tree_builder is None:
-                g_tree = build_merkle_tree(g_rs, 1 << k, ext=True)
-                g_commit = g_tree.layers[-1][:, 0]
-            else:
-                g_commit, g_tree = tree_builder(g_rs, 1 << k, True)
+            with metrics.device_interval(ENCODE_TIMING):
+                padded = torch.zeros((1 << (log_rs - 1), 4), dtype=F.DTYPE, device=device)
+                padded[: 1 << cur_m] = g_coeffs
+                g_rs = rs_encode(padded[None], ext=True)  # (1, H, 4)
+            with metrics.device_interval(MERKLE_TIMING):
+                if tree_builder is None:
+                    g_tree = build_merkle_tree(g_rs, 1 << k, ext=True)
+                    g_commit = g_tree.layers[-1][:, 0]
+                else:
+                    g_commit, g_tree = tree_builder(g_rs, 1 << k, True)
             commits.append(tr.observe_commit(g_commit))
 
             z0 = tr.sample_ext()

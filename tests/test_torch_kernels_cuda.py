@@ -18,8 +18,9 @@ prover's captured proves (golden bytes in segmented and jit mode, a replay
 on another trace, a replay on a fresh context of a cached trace whose
 first context was freed, a failed capture that raises, the segments'
 device timings from events that the graphs record and each graph's node
-count, kernel D's ticket counter owned by each captured prove and commit,
-the golden bytes on a world-of-one NCCL mesh), kernel K (GKR's layer
+count, a leaf-shaped prove's RS encode and Merkle build timings, kernel
+D's ticket counter owned by each captured prove and commit, the golden
+bytes on a world-of-one NCCL mesh), kernel K (GKR's layer
 sumcheck: each kind of pass on both sides of the one-block boundary, the
 eq table, a capture replayed on new inputs, captures owning their ticket
 counters, 2^14 fractions against the CPU), and the BN254
@@ -1002,6 +1003,58 @@ def test_fused_segment_timings_on_the_card(monkeypatch, mode):
     assert {"fused.launch_time_ms", "fused.refresh_time_ms", "proof_fetch_time_ms", "proof_build_time_ms"} <= set(snap)
     if mode == "segmented":
         assert snap["gkr.device_time_ms"] + snap["batch.device_time_ms"] <= snap["prove_rap_constraints_time_ms"]
+    fused.release_fused(dpk)
+
+
+def _leaf_case():
+    """(engine, dpk, ctx) of a small leaf-shaped prove on the card: the leaf
+    preset at a stacked height of 2^16 (rate 1/4, two WHIR rounds) over a
+    2^12 x 16 degree-4 SyntheticAir with interactions, on a seeded trace
+    whose kill column is zero."""
+    from swirl_torch.engine import StarkEngine
+    from swirl_torch.params import leaf_params_with_100_bits_security
+    from swirl_torch.prover.backend import ProvingContext
+    from swirl_torch.testing import synthetic
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    air = synthetic.SyntheticAir(synthetic.uniform_shape(12, 16, num_constraints=4, num_interactions=2, degree=4))
+    eng = StarkEngine(leaf_params_with_100_bits_security(16), device="cuda")
+    pk, _ = eng.keygen([air])
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(24)
+    trace = torch.randint(0, P, (air.common_main_width(), 1 << 12), generator=gen, device="cuda", dtype=torch.int64)
+    trace[0] = 0
+    return eng, eng.transport_pk(pk), ProvingContext([eng.context_for(0, trace)])
+
+
+@pytest.mark.parametrize("mode", ["segmented", "jit", "eager"])
+def test_fused_encode_and_merkle_timings_on_the_card(mode):
+    """A leaf-shaped prove replayed (or run eagerly): each RS encode and
+    Merkle build of the prove is one interval of its own (the main commit's
+    and the WHIR codeword's), both timings are positive and fit in the
+    commit and WHIR segments, and the proof's bytes are those of a prove
+    with no timing events (``Coordinator.prove``)."""
+    from swirl_torch import metrics
+    from swirl_torch.codec import encode_proof
+    from swirl_torch.prover import fused
+    from swirl_torch.prover.stacked_pcs import ENCODE_TIMING, MERKLE_TIMING
+
+    eng, dpk, ctx = _leaf_case()
+    plain = encode_proof(eng.prove(dpk, ctx))
+    fused.prove_fused(eng.backend, dpk, ctx, mode=mode)
+    with metrics.run_with_metric_collection() as c:
+        proof = fused.prove_fused(eng.backend, dpk, ctx, mode=mode)
+    snap = c.snapshot()
+    encode, merkle = snap[f"{ENCODE_TIMING}_time_ms"], snap[f"{MERKLE_TIMING}_time_ms"]
+    assert encode > 0 and merkle > 0
+    assert encode + merkle <= snap["commit.device_time_ms"] + snap["whir.device_time_ms"]
+    assert encode_proof(proof) == plain
+    if mode != "eager":
+        entry = next(iter(dpk._fused_cache.values()))
+        names = [name for name, _, _ in entry.intervals]
+        codewords = dpk.params.whir.num_whir_rounds() - 1
+        assert codewords == 1 and names.count(ENCODE_TIMING) == names.count(MERKLE_TIMING) == 1 + codewords
     fused.release_fused(dpk)
 
 

@@ -1,6 +1,8 @@
 """The port's tracing on the CPU: ``swirl_torch/metrics.py``'s ``time_ms``,
-``collecting`` and the ``span:<name>`` range a span opens under the
-profiler, and the fused prover's segment timings and host spans
+``collecting``, the ``span:<name>`` range a span opens under the
+profiler and the device intervals (each RS encode and Merkle build of a
+prove between events of its own, with the events stood in for), and the
+fused prover's segment timings and host spans
 (``swirl_torch/prover/fused.py``). The timings themselves come from CUDA
 events, which exist on the card only: ``tests/test_torch_kernels_cuda.py``
 holds them to the first start and the last end there.
@@ -112,6 +114,51 @@ def test_no_events_off_the_card():
     assert fused.segment_events(torch.device("cpu")) is None
 
 
+def test_interval_ms_sums_each_names_occurrences():
+    pairs = [("enc", _Event(1.0), _Event(3.5)), ("mk", _Event(4.0), _Event(10.0)), ("enc", _Event(12.0), _Event(12.25))]
+    assert metrics.interval_ms(pairs) == {"enc": 2.75, "mk": 6.0}
+    assert metrics.interval_ms([]) == {}
+
+
+class _Recorded:
+    """Stands for a timing event: logs its making and its record."""
+
+    log = []
+
+    def __init__(self, **kwargs):
+        assert kwargs == {"enable_timing": True, "external": True}
+        self.log.append(("event",))
+
+    def record(self):
+        self.log.append(("record", self))
+
+
+def test_device_interval_records_only_inside_an_open_list(monkeypatch):
+    """Outside any open list, and inside ``device_intervals(None)``, a
+    device interval makes no event; inside, each occurrence makes a pair of
+    its own, recorded around its block, and the innermost list keeps it."""
+    monkeypatch.setattr(torch.cuda, "Event", _Recorded)
+    log = _Recorded.log
+    log.clear()
+    with metrics.device_interval("x"):
+        pass
+    with metrics.device_intervals(None), metrics.device_interval("x"):
+        pass
+    assert log == []
+    outer, inner = [], []
+    with metrics.device_intervals(outer):
+        with metrics.device_interval("a"):
+            log.append("body a")
+        with metrics.device_intervals(inner), metrics.device_interval("b"):
+            pass
+        with metrics.device_interval("a"):
+            pass
+    assert [name for name, _, _ in outer] == ["a", "a"] and [name for name, _, _ in inner] == ["b"]
+    (_, s0, e0), (_, s1, e1) = outer
+    assert len({id(e) for e in (s0, e0, s1, e1)}) == 4
+    assert log[:5] == [("event",), ("event",), ("record", s0), "body a", ("record", e0)]
+
+
 @pytest.fixture(scope="module")
 def fib():
     params, airs, ctxs = golden_cases()["fib"]()
@@ -171,3 +218,32 @@ def test_replay_spans_the_refresh_and_each_launch(monkeypatch):
             ("close", "rap"), ("open", "whir"), *launch("w"), ("close", "whir")]
     assert log == want
     assert {"fused.refresh_time_ms", "fused.launch_time_ms", "rap_time_ms", "whir_time_ms"} <= set(c.snapshot())
+
+
+@pytest.mark.parametrize("cache_rs", [True, False])
+def test_every_encode_and_merkle_build_of_a_prove_is_an_interval(fib, monkeypatch, cache_rs):
+    """With a list held open around a prove, each RS encode and each Merkle
+    build is one interval: the main commit's and each WHIR codeword's (one
+    encode more where WHIR recomputes the dropped codewords); the bytes
+    are the prove's without them."""
+    import dataclasses
+
+    from swirl_torch.codec import encode_proof
+    from swirl_torch.prover.stacked_pcs import ENCODE_TIMING, MERKLE_TIMING
+
+    eng, dpk, ctx = fib
+    config = eng.backend.config
+    eng.backend.config = dataclasses.replace(config, cache_rs_code_matrix=cache_rs)
+    try:
+        plain = encode_proof(fused.prove_fused(eng.backend, dpk, ctx, mode="eager"))
+        monkeypatch.setattr(torch.cuda, "Event", _Recorded)
+        intervals = []
+        with metrics.device_intervals(intervals):
+            timed = encode_proof(fused.prove_fused(eng.backend, dpk, ctx, mode="eager"))
+    finally:
+        eng.backend.config = config
+    codewords = dpk.params.whir.num_whir_rounds() - 1
+    names = [name for name, _, _ in intervals]
+    assert names.count(ENCODE_TIMING) == 1 + codewords + (0 if cache_rs else 1)
+    assert names.count(MERKLE_TIMING) == 1 + codewords
+    assert codewords >= 1 and timed == plain
