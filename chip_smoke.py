@@ -29,7 +29,9 @@ Phases, each printing its result on lines of its own:
    ``row_floor_ms``). Kernel K, GKR's layer sumcheck a pass a sub-round, at
    the app's column lengths 2^22, 2^16 and 2^8 (``GKR_CASES``) by graph
    replay beside its bytes bound and the floor of one launch, and its eq
-   table at 22 variables;
+   table at 22 variables. Kernel L, the batch sumcheck's EF4 product and
+   product-and-sum, at the batch phase's shapes (``EF4_CASES``) the same
+   way;
 3. golden: the four golden proofs through the port's ``run_test`` on the
    card (debug check, prove, verify), byte for byte against
    ``tests/golden`` (vk, proof, transcript log), then proved again on a
@@ -608,7 +610,7 @@ def time_grind(st0, a: int, bits: int, label: str) -> tuple:
         st.copy_(st0)
         p2.grind(st, a, bits)
 
-    with p2.private_tickets(st0.device):  # the timing's side stream keeps no (found word, ticket) pair
+    with K.private_tickets(st0.device):  # the timing's side stream keeps no (found word, ticket) pair
         ms = _graph_time_ms(fk, reps=10)
     return ms, witness, plain_ms
 
@@ -989,6 +991,95 @@ def check_gkr_kernels(device) -> dict:
          f"bytes bound {(32 << GKR_EQ_VARS) / HBM_BYTES_PER_S * 1e3:.4f} ms")
     torch.cuda.empty_cache()
     return results
+
+
+# Kernel L's cases at the batch phase's shapes: (label, kind, shape). A
+# product: the app's multilinear round 1 (its 95-node DAG runs node by node
+# on interp_mle_at_int's stride-2 views of 2^15 rows), a level group as the
+# interpreter forms it (187 nodes of 2^15 rows), a table by a challenge. A
+# sum: round 0's 16 constraint terms of 2^21 base values gathered from 40
+# buffer rows, a round-0 coset grid segment (2^13 chunks x 48 columns) by
+# the eq table, a multilinear round's eq-weighted sum of 2^15 rows, and 16
+# gathered constraint rows of 2^15 EF4 values
+EF4_CASES = (("mul_stride2_2_15", "mul", (1 << 15,)), ("mul_group_187_2_15", "mul", (187, 1 << 15)),
+             ("mul_challenge_2_16", "mul", (1 << 16,)), ("sum_round0_base_16_2_21", "sum", (16, 1 << 21)),
+             ("sum_round0_grid_2_13_48", "sum", (1 << 13, 48)), ("sum_eq_2_15", "sum", (1 << 15, 1)),
+             ("sum_constraints_16_2_15", "sum", (16, 1 << 15)))
+# an EF4 product of two values: 19 Montgomery products and 12 adds, then 4
+# fix-up products; a term of a sum: a product by a factor (16 products, 12
+# adds) and 4 adds, or 4 products and 4 adds for a base value
+EF4_MUL = plus(times(MONT_MUL, 23), times(ADD, 12))
+EF4_TERM, EF4_BASE_TERM = plus(times(MONT_MUL, 16), times(ADD, 16)), plus(times(MONT_MUL, 4), times(ADD, 4))
+
+
+def check_ef4_kernels(device) -> dict:
+    """Kernel L's product and product-and-sum against their plain versions
+    at ``EF4_CASES``, bit for bit, timed by CUDA graph replay beside the
+    bound (bytes: each operand element read once, the output written once,
+    or the operations) and the latency floor of one launch; the plain
+    version's ms (one call)."""
+    import torch
+
+    from swirl_torch import kernels as K
+    from swirl_torch.fields import ef4
+    from swirl_torch.fields import field as F
+    from swirl_torch.fields.babybear import P
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 6)
+
+    def rand(*shape):
+        return torch.randint(0, P, shape, generator=gen, device=device, dtype=torch.int64)
+
+    one = torch.zeros(1, dtype=torch.int64, device=device)
+    floor_ms = _graph_time_ms(lambda: one.add_(1), reps=100)
+    cases = {}
+    for label, kind, shape in EF4_CASES:
+        if kind == "mul":
+            if label.startswith("mul_stride2"):
+                t = rand(2, 2 * shape[0], 4)
+                a, b = t[0, 1::2], t[1, 1::2]
+            elif label.startswith("mul_challenge"):
+                a, b = rand(*shape, 4), rand(4)
+            else:
+                a, b = rand(*shape, 4), rand(*shape, 4)
+            run = lambda: ef4.mul(a, b)  # noqa: E731
+            plain = lambda: F.ext_mul(a, b)  # noqa: E731
+            n = math.prod(shape)
+            work = (8 * (a.numel() + b.numel()) + 32 * n, times(EF4_MUL, n))
+        else:
+            k, m = shape
+            if label.startswith("sum_round0_base") or label.startswith("sum_constraints"):
+                ext = not label.startswith("sum_round0_base")
+                v = rand(40, m, 4) if ext else rand(40, m)
+                index = torch.randperm(40, generator=gen, device=device)[:k]
+                w = rand(k, 4)
+            else:
+                ext, index = True, None
+                v, w = rand(k, m, 4) if m > 1 else rand(k, 4), rand(k, 4)
+            run = lambda: ef4.mul_sum(v, w, index=index, ext=ext)  # noqa: E731
+            plain = lambda: ef4.mul_sum_plain(v, w, index=index, ext=ext)  # noqa: E731
+            work = ((32 if ext else 8) * k * m + 40 * k + 32 * m, times(EF4_TERM if ext else EF4_BASE_TERM, k * m))
+        got = run()
+        want, plain_ms = _timed_ms(plain)
+        err = _max_abs_err(got, want)
+        if err:
+            raise AssertionError(f"kernel ef4 [{label}]: max_abs_err {err}")
+        del got, want
+        ms = _graph_time_ms(run, reps=10)
+        bound_ms, bound_by = bound(work)
+        if floor_ms > bound_ms:
+            bound_ms, bound_by = floor_ms, "one launch"
+        plan = f"tj, gy {ef4.sum_plan(shape[1], shape[0], SMS)}" if kind == "sum" else "a thread an element"
+        _say(f"kernel ef4 [{label}] {kind} {shape} ({plan}): equal=True max_abs_err={err} ms={ms:.4f} (by CUDA "
+             f"graph replay) plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) floor_ms={floor_ms:.4f} "
+             f"(one launch) share={bound_ms / ms:.1%}")
+        cases[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+        torch.cuda.empty_cache()
+    first = cases[EF4_CASES[0][0]]
+    return {K.EF4.name: {"max_abs_err": 0, "ms": first["ms"], "plain_ms": first["plain_ms"],
+                         "bound_ms": first["bound_ms"], "bound_by": first["bound_by"], "library_ms": None,
+                         "floor_ms": floor_ms, "cases": cases}}
 
 
 def _timed_ms(fn):
@@ -2575,7 +2666,9 @@ def report(tag: str, run: dict, required) -> None:
     want = PROOF_SHA256.get(tag)
     if want is not None:
         _say(f"{tag}: proof sha256 {run['proof_sha256'][:16]} (ROADMAP.md §D: {want}); GKR sub-rounds by kernel "
-             f"K {run['counters'].get('gkr_kernel_subrounds', 0)}, its launches {run['launches']['gkr_round']}")
+             f"K {run['counters'].get('gkr_kernel_subrounds', 0)}, its launches {run['launches']['gkr_round']}; "
+             f"the batch phase's kernel L launches {run['counters'].get('batch_ef4_launches', 0)} and F.ext_mul "
+             f"calls left {run['counters'].get('batch_ef4_aten', 0)}")
         if not run["proof_sha256"].startswith(want):
             raise AssertionError(f"{tag}: proof sha256 {run['proof_sha256'][:16]}, not {want}")
     for line in run.get("extra", []):
@@ -2707,6 +2800,7 @@ def main() -> int:
     results.update(check_transcript_kernels(device, perm_floor_ms, row_floor_ms))
     results[K.GRIND.name] = check_grind_widths(device, row_floor_ms, scalar_floor_ms)
     results.update(check_gkr_kernels(device))
+    results.update(check_ef4_kernels(device))
     t0 = time.perf_counter()
     results.update(check_bn254_kernels(device, bn_perm_floor))
     torch.cuda.empty_cache()
@@ -2787,13 +2881,13 @@ def main() -> int:
         raise AssertionError(f"the memory model's batch phase is below the zerocheck_round0 span's peak: {below}")
 
     # launches: the leaf path, the one path that runs A-D and A′; E and F
-    # on the app's device-transcript prove, K on its host-transcript prove;
+    # on the app's device-transcript prove, K and L on its host-transcript prove;
     # G-J on the outer root prove (G,
     # the elementwise field kernel, is phase 2's and the tests': 0 there)
     bn254 = (K.BN254_FIELD, K.BN254_MERKLE, K.BN254_LEAVES, K.BN254_GRIND)
 
     def source_run(k):
-        if k is K.GKR_ROUND:
+        if k in (K.GKR_ROUND, K.EF4):
             return app
         return app["on_card"] if k in (K.DUPLEX, K.GRIND) else outer if k in bn254 else leaf
 

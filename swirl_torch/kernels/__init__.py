@@ -8,7 +8,9 @@ Nothing is built at import time: the first launch on a CUDA tensor builds.
 
 Every kernel wrapper takes the kernel on a CUDA tensor and its plain
 PyTorch version on a CPU tensor; there is no switch and no fallback on the
-card. Each wrapper counts its launches in a :class:`Kernel` below.
+card. Each wrapper counts its launches in a :class:`Kernel` below. A
+kernel that hands its work between blocks or launches takes its counters
+from :func:`tickets`, a capture's own inside :func:`private_tickets`.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import os
 import shutil
 import subprocess
 import threading
+from contextlib import contextmanager
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -98,8 +102,13 @@ GKR_ROUND = Kernel(
     "gkr_round", "swirl_torch/csrc/gkr.cu",
     "none: swirl/prover/gkr.py:58 (_gkr_round_evals) + :82 (_gkr_fold), XLA ops",
 )
+# the port's own: the JAX package runs EF4 products and sums as XLA ops
+EF4 = Kernel(
+    "ef4", "swirl_torch/csrc/ef4.cu",
+    "none: swirl/fields/jfield.py:256 (ext_mul) and :311 (ext_sum), XLA ops",
+)
 KERNELS = (NTT, NTT_RECURSIVE, HASH_COLS, COMPRESS, TOWER, DUPLEX, GRIND,
-           BN254_FIELD, BN254_MERKLE, BN254_LEAVES, BN254_GRIND, GKR_ROUND)
+           BN254_FIELD, BN254_MERKLE, BN254_LEAVES, BN254_GRIND, GKR_ROUND, EF4)
 
 
 def reset_launch_counts() -> None:
@@ -217,6 +226,8 @@ class _Library:
                     "swirl_bn254_grind": [vp, vp, vp],
                     "swirl_gkr_eq": [vp, i32, vp, i32, vp],
                     "swirl_gkr_round": [vp, vp, vp, vp, vp, i64, i64, vp, vp, vp, vp, vp, vp, i32, vp],
+                    "swirl_ef4_mul": [vp, vp, vp, i64, vp, i32, vp],
+                    "swirl_ef4_mul_sum": [vp, i64, vp, vp, i32, i64, i32, i32, i32, vp, vp, vp, vp],
                 }
                 for name, args in sigs.items():
                     fn = getattr(lib, name)
@@ -271,6 +282,67 @@ def require(t: torch.Tensor, ndim, what: str, dtype=torch.int64) -> None:
             f"{t.dtype} {tuple(t.shape)} on {t.device} "
             f"(contiguous={t.is_contiguous()})"
         )
+
+
+# the counters of each (device index, stream): the tower's ticket, the
+# grind's (found word, ticket) pair, the GKR pass's ticket and the EF4
+# product-and-sum's as :class:`Tickets`, zero (the found word all ones)
+# between launches, views of one allocation (:func:`_counters`). torch hands
+# out pooled streams round robin, so a stream's handle recurs; a capture
+# takes its own (private_tickets) instead.
+_TICKETS = {}
+_PRIVATE = threading.local()
+
+
+class Tickets(NamedTuple):
+    """One stream's or capture's counters: kernel D's ticket (int32) and
+    kernel F's (found word, ticket) pair (int64, ``hash/poseidon2.py``),
+    kernel K's ticket (int32, ``prover/gkr.py``) and kernel L's (int32,
+    ``fields/ef4.py``)."""
+
+    tower: torch.Tensor
+    grind: torch.Tensor
+    gkr: torch.Tensor
+    ef4: torch.Tensor
+
+
+def _counters(device) -> Tickets:
+    """One int64 quintuple (F's found word, all ones; F's ticket; D's, K's
+    and L's tickets, each the int32 low half of its word), as its four
+    views."""
+    t = torch.tensor([-1, 0, 0, 0, 0], dtype=torch.int64, device=device)
+    low = lambda i: t[i : i + 1].view(torch.int32)[:1]  # noqa: E731
+    return Tickets(low(2), t[:2], low(3), low(4))
+
+
+@contextmanager
+def private_tickets(device):
+    """Kernel D's, F's, K's and L's launches on ``device`` from this thread
+    inside it use counters made here (armed) and yielded, as :class:`Tickets`, for the
+    caller to keep: the graphs captured inside it read them at every replay,
+    and no other launch shares them."""
+    own = _counters(device)
+    prev = getattr(_PRIVATE, "own", None)
+    _PRIVATE.own = own
+    try:
+        yield own
+    finally:
+        _PRIVATE.own = prev
+
+
+def tickets(device) -> Tickets:
+    """The counters of the capture inside :func:`private_tickets`, else of
+    ``device``'s current stream (made at its first call, outside a capture)."""
+    own = getattr(_PRIVATE, "own", None)
+    if own is not None and own.tower.device == device:
+        return own
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    if key not in _TICKETS:
+        if torch.cuda.is_current_stream_capturing():  # a captured fill runs only at replay
+            raise KernelError("compress_tower, grind, gkr_round, ef4_mul_sum: call one on this stream "
+                              "before capturing it")
+        _TICKETS[key] = _counters(device)
+    return _TICKETS[key]
 
 
 def _upload_poseidon2_constants(lib) -> None:

@@ -14,7 +14,7 @@ Capture needs what the eager path makes at its first call on a stream to
 exist before it: the NTT twiddle tables and the kernels' constants. So the
 capture runs one eager commit on its own stream first, then captures on
 that stream. Kernel D's launches in both use a ticket counter of the
-graph's own (``p2.private_tickets``), made before them: a zero fill
+graph's own (``K.private_tickets``), made before them: a zero fill
 captured in the graph would run only at replay, and a counter keyed by the
 stream's handle would be shared with any later pooled stream of that
 handle. A failed capture raises; there
@@ -33,8 +33,8 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from .. import kernels as K
 from .. import metrics
-from ..hash import poseidon2 as p2
 from .merkle import build_merkle_tree
 from .stacked_pcs import MERKLE_TIMING, rs_code_matrix
 
@@ -50,7 +50,7 @@ def commit_eager(l_skip: int, log_blowup: int, k_whir: int, stacked) -> Tuple[to
 @dataclass
 class CommitGraph:
     """One captured commit: its static input and outputs, and kernel D's
-    ticket counter of the graph (``p2.private_tickets``)."""
+    ticket counter of the graph (``K.private_tickets``)."""
 
     graph: torch.cuda.CUDAGraph
     stacked: torch.Tensor
@@ -79,7 +79,7 @@ def _capture(l_skip: int, log_blowup: int, k_whir: int, stacked) -> CommitGraph:
     static = torch.empty_like(stacked)
     static.copy_(stacked)
     stream.wait_stream(current)
-    with p2.private_tickets(device) as own:
+    with K.private_tickets(device) as own:
         with torch.cuda.stream(stream):
             commit_eager(l_skip, log_blowup, k_whir, static)
         graph = torch.cuda.CUDAGraph()

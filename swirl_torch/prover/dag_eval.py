@@ -8,6 +8,11 @@ the level-scheduled interpreter (:mod:`.dag_vectorized`), a smaller one node
 by node, as in the reference. The host evaluator runs single EF points for
 the verifier; the prover evaluates an exhausted trace's single folded point
 on the device.
+
+Ext mode's products and every weighted sum go through kernel L
+(:mod:`~swirl_torch.fields.ef4`) on the card: a product is one launch, and a
+weighted sum of the interpreter's values one launch that reads their buffer
+rows in place; on the CPU their plain versions.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from ..fields import ext as hext
 from ..fields.babybear import P
 from ..symbolic import ConstraintsDag, eval_dag_nodes
 
+from ..fields import ef4
 from ..fields import field as F
 from .dag_vectorized import NodeValues, eval_dag_vectorized
 
@@ -44,7 +50,7 @@ class DeviceEvaluator:
         self.parts = parts
         self.public_values = public_values
         self.ext_mode = ext_mode
-        self.mul = F.ext_mul if ext_mode else F.mul
+        self.mul = ef4.mul if ext_mode else F.mul
 
     add = staticmethod(F.add)
     sub = staticmethod(F.sub)
@@ -104,11 +110,6 @@ def eval_nodes(dag: ConstraintsDag, evaluator) -> list:
 
 VECTORIZE_THRESHOLD = 128
 
-# EF4 terms (int64 elements) a weighted sum forms at once: a group's values,
-# product and its reduction hold 9/4 x 8 bytes a term element (0.6 GB),
-# near what the interaction sums held a term at a time on a round-0 grid
-TERM_CHUNK_ELEMS = 1 << 25
-
 
 def _eval_nodes_device(dag: ConstraintsDag, ev):
     """Dispatch: node by node for small DAGs, the level-scheduled
@@ -120,30 +121,21 @@ def _eval_nodes_device(dag: ConstraintsDag, ev):
 
 def _times_ef(ev: DeviceEvaluator, value, weight):
     """node value (base or EF) times an EF weight (4,) -> EF."""
-    return F.ext_mul(value, weight) if ev.ext_mode else F.mul(value[..., None], weight)
+    return ef4.mul(value, weight) if ev.ext_mode else F.mul(value[..., None], weight)
 
 
 def _weighted_sum_gather(nodes, indices, weights, ev: DeviceEvaluator):
-    """sum_i weights[i] * nodes[indices[i]] by gathers (from the
-    interpreter's buffer, or stacks of a node list's values) and sums, in
-    groups of at most TERM_CHUNK_ELEMS term elements (field sums are
-    associative, so the grouping changes no value). weights: (k, 4) EF.
-    -> (*batch, 4)."""
-    batch = tuple(ev.batch_shape())
-    group = max(1, TERM_CHUNK_ELEMS // (4 * torch.Size(batch).numel() or 1))
+    """sum_i weights[i] * nodes[indices[i]] by one
+    :func:`~swirl_torch.fields.ef4.mul_sum`: over the interpreter's buffer
+    rows in place, or over the stack of a node list's values. weights:
+    (k, 4) EF, or more rows, of which the first k are read. -> (*batch, 4)."""
+    weights = weights[: len(indices)]
     if isinstance(nodes, NodeValues):
-        pos = nodes.positions(indices)
-        take = lambda g: nodes.buf.index_select(0, pos[g : g + group])  # noqa: E731
-    else:
-        shape = batch + ((4,) if ev.ext_mode else ())
-        take = lambda g: torch.stack(  # noqa: E731
-            [torch.broadcast_to(nodes[i], shape) for i in indices[g : g + group]])
-    acc = torch.zeros(batch + (4,), dtype=F.DTYPE, device=ev.sels.device)
-    for g in range(0, len(indices), group):
-        vals = take(g)
-        w = weights[g : g + len(vals)].reshape((len(vals),) + (1,) * len(batch) + (4,))
-        acc = acc + _times_ef(ev, vals, w).sum(0)
-    return acc % P
+        return ef4.mul_sum(nodes.buf, weights, index=nodes.positions(indices), ext=ev.ext_mode)
+    shape = tuple(ev.batch_shape()) + ((4,) if ev.ext_mode else ())
+    vals = [torch.broadcast_to(nodes[i], shape) for i in indices]
+    vals = torch.stack(vals) if vals else torch.zeros((0,) + shape, dtype=F.DTYPE, device=ev.sels.device)
+    return ef4.mul_sum(vals, weights, ext=ev.ext_mode)
 
 
 def acc_constraints(dag: ConstraintsDag, ev: DeviceEvaluator, lambda_pows):
@@ -178,8 +170,8 @@ def acc_interactions(dag, ev: DeviceEvaluator, beta_pows, bus_terms, eq_3bs):
                          dtype=np.uint64).reshape(-1, 2),
         ev.sels.device,
     )
-    weights = F.ext_mul(eq_3bs.index_select(0, terms[:, 0]), beta_pows.index_select(0, terms[:, 1]))
-    bus = F.ext_sum(F.ext_mul(eq_3bs, bus_terms), axis=0)
+    weights = ef4.mul(eq_3bs.index_select(0, terms[:, 0]), beta_pows.index_select(0, terms[:, 1]))
+    bus = ef4.mul_sum(bus_terms, eq_3bs)
     denom = F.add(_weighted_sum_gather(nodes, msg, weights, ev), bus)
     return numer, denom
 

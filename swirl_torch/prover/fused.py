@@ -61,7 +61,7 @@ and the DAG schedules' index tensors are made there, since none can be
 made while the stream captures (what ``commit_kernel.py`` learned); kernel
 D's launches in both use a ticket counter that the entry owns, kernel
 F's a (found word, ticket) pair and kernel K's (GKR's layer sumcheck) a
-ticket of its own (``p2.private_tickets``). A capture that fails raises: the card has no
+ticket of its own (``K.private_tickets``). A capture that fails raises: the card has no
 eager fallback. On the CPU every mode runs the five bodies eagerly through
 the plain kernels and captures nothing.
 
@@ -99,7 +99,6 @@ from .. import metrics
 from .. import sanitize
 from .. import tpoly
 from ..fields import field as F
-from ..hash import poseidon2 as p2
 from ..parallel import annotate
 from ..proof import Proof
 from .backend import (
@@ -325,7 +324,7 @@ class FusedGraphs:
     nodes), kernel D's ticket counter
     and kernel F's (found word, ticket) pair of the graphs, which share
     their allocation with kernel K's ticket
-    (``p2.private_tickets``): torch's pooled streams recur, so a counter
+    (``K.private_tickets``): torch's pooled streams recur, so a counter
     keyed by the capture stream's handle could be shared with an eager
     launch while a replay runs."""
 
@@ -440,7 +439,7 @@ def _capture(backend, mpk, ctx, mode: str) -> FusedGraphs:
     cached = static_cached([tc.cached_mains for _, tc in ctx.per_trace])
     stream = torch.cuda.Stream(device)
     stream.wait_stream(current)
-    with p2.private_tickets(device) as own:
+    with K.private_tickets(device) as own:
         t0 = time.perf_counter()
         _warm_up(backend, mpk, ctx, static, cached, stream)
         stream.synchronize()

@@ -39,7 +39,6 @@ from .. import metrics
 from ..fields import ext as hext
 from ..proof import GkrLayerClaims
 from ..fields import field as F
-from ..hash import poseidon2 as p2
 from .deferred import Deferred
 from .device_transcript import device_view
 from .sumcheck import eq_hypercube, fold_mle, interp_mle_at_int
@@ -135,7 +134,7 @@ def gkr_round(cols, r=None, lam=None):
     out = None if r is None else torch.empty((5, n // 2, 4), dtype=F.DTYPE, device=device)
     K.LIB.launch(K.GKR_ROUND, "swirl_gkr_round", eq, *ptrs, stride, n, None if r is None else r.data_ptr(),
                  lam.data_ptr(), None if out is None else out.data_ptr(), evals.data_ptr(),
-                 words.data_ptr() + 8 * EVAL_WORDS, p2.tickets(device).gkr.data_ptr(), blocks)
+                 words.data_ptr() + 8 * EVAL_WORDS, K.tickets(device).gkr.data_ptr(), blocks)
     return (list(cols) if out is None else list(out.unbind(0))), evals
 
 

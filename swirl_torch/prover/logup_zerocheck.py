@@ -12,6 +12,11 @@ and the stage reads the host three times (GKR's root check and copy, the
 batch phase's one copy at its end); the fused prover
 (``prover/fused.py``) leaves all three to its one copy of the proof. On a
 host transcript each observe reads its value first.
+The batch phase's EF4 products of data tables and its eq-weighted sums are
+kernel L (:mod:`~swirl_torch.fields.ef4`) on the card, but for the folds of
+``fold_mle``, which the stacked reduction and WHIR share; its eq tables are
+kernel K's (``gkr.gkr_eq``). The build counts L's launches
+(``batch_ef4_launches``) and those folds (``batch_ef4_aten``).
 With ``save_memory`` (``ProverConfig.zerocheck_save_memory``) round 0's
 coset grids of a tall trace are built and summed in 8 segments of rows
 (``chunked_sums``, :787-880), which bounds the live grid to 1/8; the sums,
@@ -26,6 +31,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import kernels as K
 from .. import metrics
 from .. import tpoly
 from ..fields.babybear import GENERATOR, P, batch_inverse
@@ -34,15 +40,15 @@ from ..proof import BatchConstraintProof, GkrProof
 from .errors import LogupZerocheckError
 from ..symbolic import ConstraintsDag
 
+from ..fields import ef4
 from ..fields import field as F
 from .deferred import Deferred
 from .dag_eval import DeviceEvaluator, acc_constraints, acc_interactions, interactions_pq
 from .device_transcript import device_view
-from .gkr import fractional_sumcheck_deferred
+from .gkr import fractional_sumcheck_deferred, gkr_eq
 from .stacked_pcs import StackedLayout
 from .sumcheck import (
     coset_eval_chunks,
-    eq_hypercube,
     fold_mle,
     fold_ple,
     interp_mle_at_int,
@@ -101,7 +107,8 @@ class TraceProver:
 
 
 class _EqTables:
-    """Device eq tables over slices of xi, cached by (start, end)."""
+    """Device eq tables over slices of xi, cached by (start, end):
+    :func:`~.gkr.gkr_eq`'s (bit i of the index belongs to xi[start + i])."""
 
     def __init__(self, xi, device):
         self.xi = xi
@@ -111,7 +118,7 @@ class _EqTables:
     def __call__(self, start: int, end: int):
         key = (start, end)
         if key not in self._tables:
-            self._tables[key] = eq_hypercube(self.xi[start:end], self.device)
+            self._tables[key] = gkr_eq(self.xi[start:end]) if end > start else F.ext_one(self.device)[None]
         return self._tables[key]
 
 
@@ -324,6 +331,16 @@ def prove_batch_phase(
     eq_table = _EqTables(xi, device)
     beta_pows = F.epowers(beta, max_msg_len + 1)
 
+    # the counters of the build: kernel L's launches in this phase, and the
+    # F.ext_mul calls left in it, one a table that fold_mle folds
+    ef4_launches = K.EF4.launches
+    aten_products = 0
+
+    def fold(tab, r):
+        nonlocal aten_products
+        aten_products += tab.shape[-2] > 1
+        return fold_mle(tab, r)
+
     lam = tr.sample_ext()
     max_num_constraints = max(len(t.dag.constraint_idx) for t in traces)
     lambda_pows = F.epowers(lam, max(max_num_constraints, 1))
@@ -373,8 +390,8 @@ def prove_batch_phase(
                     ]
                     prep_g, main_g = t.split_pairs(pairs)
                     ev = DeviceEvaluator(sels_g, prep_g, main_g, t.public_values, False)
-                    eq_seg = eq_tab[ci * seg_chunks : (ci + 1) * seg_chunks, None, :]
-                    sums = [F.ext_sum(F.ext_mul(p, eq_seg), axis=0) for p in eval_fn(ev)]
+                    eq_seg = eq_tab[ci * seg_chunks : (ci + 1) * seg_chunks]
+                    sums = [ef4.mul_sum(p, eq_seg) for p in eval_fn(ev)]
                     # free this segment's grids before the next one is built
                     del sels_g, pairs, prep_g, main_g, ev
                     total = sums if total is None else [F.add(a, b) for a, b in zip(total, sums)]
@@ -521,7 +538,7 @@ def prove_batch_phase(
                 outs = [acc_constraints(t.dag, ev, lambda_pows)]
                 if has_int:
                     outs.extend(acc_interactions(t.dag, ev, beta_pows, bus_terms[t_idx], eq_3b[t_idx]))
-                at_x.append(torch.stack([F.ext_sum(F.ext_mul(o, eq_tab), axis=0) for o in outs]))
+                at_x.append(torch.stack([ef4.mul_sum(o, eq_tab) for o in outs]))
             sums = torch.stack(at_x, dim=1)  # (1 or 3, d_global, 4)
             if has_int:
                 sums = torch.stack([sums[0], F.mul(sums[1], norm), sums[2]])
@@ -558,10 +575,10 @@ def prove_batch_phase(
 
         for t in traces:
             if t.sels.shape[1] > 1:
-                t.sels = fold_mle(t.sels, r_rnd)
+                t.sels = fold(t.sels, r_rnd)
                 fold_pair = lambda p: (  # noqa: E731
-                    fold_mle(p[0], r_rnd),
-                    fold_mle(p[1], r_rnd) if p[1] is not None else None,
+                    fold(p[0], r_rnd),
+                    fold(p[1], r_rnd) if p[1] is not None else None,
                 )
                 if t.prep_pair is not None:
                     t.prep_pair = fold_pair(t.prep_pair)
@@ -593,8 +610,11 @@ def prove_batch_phase(
     slot_rows = [(t_idx, int(parts_per_trace[t_idx][i].shape[0]), traces[t_idx].needs_next) for t_idx, i in slots]
     slot_ids = list(slots)
     n_parts = [len(parts) for parts in parts_per_trace]
+    ef4_launches = K.EF4.launches - ef4_launches
 
     def build(host):
+        metrics.counter("batch_ef4_launches", ef4_launches)
+        metrics.counter("batch_ef4_aten", aten_products)
         claims_h, univ_h, *rest = host
         polys_h, opened_h = rest[:n_rounds], rest[n_rounds]
         column_openings = [[None] * n for n in n_parts]

@@ -31,8 +31,9 @@ import torch
 
 from ..fields import field as F
 from ..fields.babybear import P
+from ..fields.ef4 import TERM_CHUNK_ELEMS
 from ..symbolic import ConstraintsDag
-from .dag_eval import TERM_CHUNK_ELEMS, DeviceEvaluator
+from .dag_eval import DeviceEvaluator
 from .dag_vectorized import DagSchedule
 
 MAX_MONOMIALS = 4096

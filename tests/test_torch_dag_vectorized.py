@@ -28,6 +28,7 @@ import swirl_torch  # noqa: E402
 from swirl.fields import jfield as jf  # noqa: E402
 from swirl.prover import dag_eval as jde  # noqa: E402
 from swirl.prover import dag_vectorized as jdv  # noqa: E402
+from swirl_torch.fields import ef4 as tef4  # noqa: E402
 from swirl_torch.fields import field as F  # noqa: E402
 from swirl_torch.fields.babybear import P  # noqa: E402
 from swirl_torch.prover import dag_eval as tde  # noqa: E402
@@ -133,7 +134,7 @@ def test_constraint_sum_in_groups(dags, monkeypatch):
     tev, _ = _evaluators(tdag, False, seed=2)
     lam = F.const_arr(np.random.default_rng(3).integers(0, P, (len(tdag.constraint_idx), 4), dtype=U64))
     whole = tde.acc_constraints(tdag, tev, lam)
-    monkeypatch.setattr(tde, "TERM_CHUNK_ELEMS", 4 * BATCH * 100)
+    monkeypatch.setattr(tef4, "TERM_CHUNK_ELEMS", 4 * BATCH * 100)
     monkeypatch.setattr(tdv, "ROW_CHUNK_ELEMS", BATCH * 1000)
     assert torch.equal(tde.acc_constraints(tdag, tev, lam), whole)
 

@@ -32,6 +32,7 @@ jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp  # noqa: E402
 
 from swirl.prover.device_transcript import DeviceTranscript as JaxDeviceTranscript  # noqa: E402
+from swirl_torch import kernels as K  # noqa: E402
 from swirl_torch.fields import field as F  # noqa: E402
 from swirl_torch.fields.babybear import P  # noqa: E402
 from swirl_torch.hash import poseidon2 as p2  # noqa: E402
@@ -163,20 +164,22 @@ def test_grind_candidate_work_counts_the_sweeps_adds():
 
 def test_private_tickets_own_the_grind_pair():
     """Inside ``private_tickets`` the wrappers' counters are the capture's:
-    an armed (found word, ticket) pair and zero tower and GKR counters, none
-    of any stream's table."""
+    an armed (found word, ticket) pair and zero tower, GKR and EF4 counters,
+    none of any stream's table."""
     cpu = torch.device("cpu")
-    with p2.private_tickets(cpu) as own:
-        assert p2.tickets(cpu) is own
+    with K.private_tickets(cpu) as own:
+        assert K.tickets(cpu) is own
         assert own.grind.tolist() == [-1, 0] and own.tower.tolist() == [0] and own.gkr.tolist() == [0]
-        assert own.grind.dtype == torch.int64 and own.tower.dtype == own.gkr.dtype == torch.int32
+        assert own.ef4.tolist() == [0]
+        assert own.grind.dtype == torch.int64 and own.tower.dtype == own.gkr.dtype == own.ef4.dtype == torch.int32
         # one allocation: D's counter is the low half of the word after F's
-        # pair, K's the low half of the word after D's
+        # pair, K's the low half of the word after D's, L's of the word after K's
         assert own.tower.data_ptr() == own.grind.data_ptr() + 16
         assert own.gkr.data_ptr() == own.grind.data_ptr() + 24
-        assert own.grind.untyped_storage().data_ptr() == own.tower.untyped_storage().data_ptr()
-        assert own.gkr.untyped_storage().data_ptr() == own.tower.untyped_storage().data_ptr()
-    assert getattr(p2._PRIVATE, "own", None) is None
+        assert own.ef4.data_ptr() == own.grind.data_ptr() + 32
+        for view in (own.grind, own.gkr, own.ef4):
+            assert view.untyped_storage().data_ptr() == own.tower.untyped_storage().data_ptr()
+    assert getattr(K._PRIVATE, "own", None) is None
 
 
 @pytest.mark.parametrize("name,label", [

@@ -23,7 +23,11 @@ D's ticket counter owned by each captured prove and commit, the golden
 bytes on a world-of-one NCCL mesh), kernel K (GKR's layer
 sumcheck: each kind of pass on both sides of the one-block boundary, the
 eq table, a capture replayed on new inputs, captures owning their ticket
-counters, 2^14 fractions against the CPU), and the BN254
+counters, 2^14 fractions against the CPU), kernel L (the batch sumcheck's
+EF4 product and product-and-sum at the batch phase's shapes, stride-2
+views, one row and none, a capture replayed on new inputs, captures owning
+their ticket counters, and degree-3 and degree-4 fused proofs on the card
+equal to the CPU's), and the BN254
 kernels G-J against their plain versions (the field's operations on
 random and edge operands, the permutations, compress layers at every kind
 of stride, leaf hashes of every absorb shape and of extension-field
@@ -456,7 +460,7 @@ def test_grind_kernel_in_a_cuda_graph(rand, bits):
     p2.grind(st0.clone(), 3, bits)  # the library and its constants, before any capture
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
-    with p2.private_tickets(st.device) as own:
+    with K.private_tickets(st.device) as own:
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, stream=stream):
             w = p2.grind(st, 3, bits)
@@ -480,7 +484,7 @@ def test_captures_own_their_grind_pairs(rand):
         p2.grind(st.clone(), 0, bits)  # the library and its constants, before any capture
         stream = torch.cuda.Stream()
         stream.wait_stream(torch.cuda.current_stream())
-        with p2.private_tickets(st.device) as own:
+        with K.private_tickets(st.device) as own:
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph, stream=stream):
                 p2.grind(st, 0, bits)
@@ -491,7 +495,7 @@ def test_captures_own_their_grind_pairs(rand):
     pairs.append(next(iter(dpk._fused_cache.values())).grind_scratch)
     fused.prove_fused(eng.backend, dpk, ctx, mode="segmented")
     torch.cuda.synchronize()
-    shared = {t.grind.data_ptr() for t in p2._TICKETS.values()}
+    shared = {t.grind.data_ptr() for t in K._TICKETS.values()}
     assert len({t.data_ptr() for t in pairs}) == 3 and not shared & {t.data_ptr() for t in pairs}
     assert all(t.dtype == torch.int64 and t.tolist() == [-1, 0] for t in pairs)
     fused.release_fused(dpk)
@@ -1076,7 +1080,7 @@ def test_captures_own_their_tower_tickets(rand):
     ck.release_graphs()
     ck.commit_kernel(2, 1, 3, rand(4, 1 << 12))
     owned = [entry.tickets, next(iter(ck._GRAPHS.values())).tickets]
-    shared = {t.tower.data_ptr() for t in p2._TICKETS.values()}
+    shared = {t.tower.data_ptr() for t in K._TICKETS.values()}
     assert all(t.dtype == torch.int32 and t.numel() == 1 and t.data_ptr() not in shared for t in owned)
     fused.prove_fused(eng.backend, dpk, ctx, mode="segmented")
     ck.commit_kernel(2, 1, 3, rand(4, 1 << 12))
@@ -1163,7 +1167,7 @@ def test_gkr_round_kernel_matches_plain(rand, log_m):
     _assert_pass_equal(gkr.gkr_round(compact, None, lam), gkr.gkr_round_plain(compact, None, lam))
     assert K.GKR_ROUND.launches == before + 3
     torch.cuda.synchronize()
-    assert p2.tickets(r.device).gkr.tolist() == [0]
+    assert K.tickets(r.device).gkr.tolist() == [0]
 
 
 def test_gkr_round_kernel_on_the_largest_values():
@@ -1200,7 +1204,7 @@ def test_gkr_round_kernel_replays_in_a_cuda_graph(rand):
     gkr.gkr_round(cols, r, lam)  # the library, before any capture
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
-    with p2.private_tickets(r.device) as own:
+    with K.private_tickets(r.device) as own:
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, stream=stream):
             got = gkr.gkr_round(cols, r, lam)
@@ -1227,13 +1231,13 @@ def test_gkr_round_captures_own_their_tickets(rand):
         gkr.gkr_round(cols, r, lam)
         stream = torch.cuda.Stream()
         stream.wait_stream(torch.cuda.current_stream())
-        with p2.private_tickets(r.device) as own:
+        with K.private_tickets(r.device) as own:
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph, stream=stream):
                 got = gkr.gkr_round(cols, r, lam)
         cases.append((graph, got, cols, r, lam))
         owned.append(own.gkr)
-    shared = {t.gkr.data_ptr() for t in p2._TICKETS.values()}
+    shared = {t.gkr.data_ptr() for t in K._TICKETS.values()}
     assert len({t.data_ptr() for t in owned}) == 2 and not shared & {t.data_ptr() for t in owned}
     for _ in range(2):
         for graph, *_ in cases:
@@ -1295,3 +1299,192 @@ def test_gkr_round_kernel_refuses_bad_operands(rand):
         gkr.gkr_round(cols, r.to(torch.int32), lam)
     with pytest.raises(K.KernelError):
         gkr.gkr_eq(rand(31, 4))
+
+
+# -- kernel L: the batch sumcheck's EF4 product and product-and-sum ------------
+
+
+def _full(shape, v=P - 1):
+    return torch.full(shape, v, dtype=torch.int64, device="cuda")
+
+
+def _ef4_mul_cases(rand):
+    """(label, a, b) at the batch phase's shapes: the largest level group of
+    the app's multilinear rounds against its equal operand, a table by a
+    (4,) challenge, (k, 1, 4) weights against (k, rows, 4), interp_mle_at_int's
+    stride-2 views at X = 1, one row, no row, and every value P - 1."""
+    big = rand(3, 2 << 15, 4)
+    return [
+        ("level group (187, 2^15)", rand(187, 1 << 15, 4), rand(187, 1 << 15, 4)),
+        ("challenge (2^16, 4) x (4,)", rand(1 << 16, 4), rand(4)),
+        ("weights (40, 1, 4) x (40, 2^12, 4)", rand(40, 1, 4), rand(40, 1 << 12, 4)),
+        ("stride-2 (3, 2^15, 4)", big[:, 1::2], rand(3, 1 << 15, 4)),
+        ("stride-2 by a challenge", big[:, 1::2], rand(4)),
+        ("one row", rand(1, 4), rand(1, 4)),
+        ("a point", rand(4), rand(4)),
+        ("no row", rand(0, 4), rand(4)),
+        ("P - 1", _full((1000, 4)), _full((1000, 4))),
+    ]
+
+
+def test_ef4_mul_kernel_matches_ext_mul(rand):
+    """Kernel L's product bit for bit against ``F.ext_mul`` at the batch
+    phase's shapes, one launch each (none for an empty product)."""
+    from swirl_torch.fields import ef4
+    from swirl_torch.fields import field as F
+
+    for label, a, b in _ef4_mul_cases(rand):
+        before = K.EF4.launches
+        got = ef4.mul(a, b)
+        want = F.ext_mul(a, b)
+        assert got.is_contiguous() and torch.equal(got, want), label
+        assert K.EF4.launches == before + (got.numel() > 0), label
+
+
+def _ef4_sum_cases(rand):
+    """(label, v, w, index, ext) at the batch phase's shapes: round 0's
+    (16, 2^21) base terms gathered from the interpreter's buffer, its coset
+    grid sums (2^13 chunks x 48 columns) by the eq table's segment, a
+    multilinear round's eq-weighted sum (2^15 rows into one value, blocks
+    over the terms), a round's constraint sum of 16 gathered (2^15, 4)
+    rows, the exhausted trace's one point, one row, no term, and every value
+    P - 1."""
+    buf = rand(40, 1 << 21)
+    rows = torch.randperm(40, device="cuda")[:16]
+    return [
+        ("round 0 base terms (16, 2^21)", buf, rand(16, 4), rows, False),
+        ("round 0 grid (2^13, 48)", rand(1 << 13, 48, 4), rand(1 << 13, 4), None, True),
+        ("eq-weighted (2^15, 4)", rand(1 << 15, 4), rand(1 << 15, 4), None, True),
+        ("constraints (16 of 40, 2^15)", rand(40, 1 << 15, 4), rand(16, 4), rows, True),
+        ("one point", rand(40, 1, 4), rand(16, 4), rows, True),
+        ("one row", rand(1, 4), rand(1, 4), None, True),
+        ("no term", rand(4, 8, 4), rand(0, 4), rows[:0], True),
+        ("P - 1 (2^14, 4)", _full((1 << 14, 4)), _full((1 << 14, 4)), None, True),
+        ("P - 1 base (300, 64)", _full((300, 64)), _full((300, 4)), None, False),
+    ]
+
+
+def test_ef4_mul_sum_kernel_matches_plain(rand):
+    """Kernel L's product-and-sum bit for bit against
+    ``F.ext_sum(F.ext_mul(...))`` (the base x EF4 form for base terms) at
+    the batch phase's shapes; the stream's ticket zero after the sums that
+    split over blocks."""
+    from swirl_torch.fields import ef4
+
+    for label, v, w, index, ext in _ef4_sum_cases(rand):
+        got = ef4.mul_sum(v, w, index=index, ext=ext)
+        want = ef4.mul_sum_plain(v, w, index=index, ext=ext)
+        assert torch.equal(got, want), label
+    torch.cuda.synchronize()
+    assert K.tickets(torch.device("cuda", torch.cuda.current_device())).ef4.tolist() == [0]
+
+
+def test_ef4_kernel_replays_in_a_cuda_graph(rand):
+    """A product, a sum over one block and a sum over many blocks (the
+    ticket) captured once and replayed on new operands, each replay
+    bit-equal to the plain versions; the capture's ticket zero after it."""
+    from swirl_torch.fields import ef4
+    from swirl_torch.fields import field as F
+
+    a, b = rand(64, 1 << 12, 4)[:, 1::2], rand(4)
+    v, w = rand(1 << 15, 4), rand(1 << 15, 4)
+    buf, rows, lam = rand(40, 1 << 14, 4), torch.randperm(40, device="cuda")[:16], rand(16, 4)
+    ef4.mul_sum(v, w)  # the stream's counters, before any capture
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with K.private_tickets(v.device) as own:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            prod = ef4.mul(a, b)
+            total = ef4.mul_sum(v, w)
+            cons = ef4.mul_sum(buf, lam, index=rows)
+    for _ in range(2):
+        for t in (a, b, v, w, buf, lam):
+            t.copy_(rand(*t.shape))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(prod, F.ext_mul(a, b))
+        assert torch.equal(total, ef4.mul_sum_plain(v, w))
+        assert torch.equal(cons, ef4.mul_sum_plain(buf, lam, index=rows))
+        assert own.ef4.tolist() == [0]
+
+
+def test_ef4_captures_own_their_tickets(rand):
+    """Two captured sums over many blocks each take their capture's ticket,
+    neither a stream's: replayed in turns, both bit-equal, both counters
+    zero."""
+    from swirl_torch.fields import ef4
+
+    cases, owned = [], []
+    for rows in (1 << 14, 1 << 16):
+        v, w = rand(rows, 4), rand(rows, 4)
+        ef4.mul_sum(v, w)
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with K.private_tickets(v.device) as own:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=stream):
+                got = ef4.mul_sum(v, w)
+        cases.append((graph, got, v, w))
+        owned.append(own.ef4)
+    shared = {t.ef4.data_ptr() for t in K._TICKETS.values()}
+    assert len({t.data_ptr() for t in owned}) == 2 and not shared & {t.data_ptr() for t in owned}
+    for _ in range(2):
+        for graph, *_ in cases:
+            graph.replay()
+    torch.cuda.synchronize()
+    for _, got, v, w in cases:
+        assert torch.equal(got, ef4.mul_sum_plain(v, w))
+    assert [t.tolist() for t in owned] == [[0], [0]]
+
+
+def test_ef4_kernel_refuses_bad_operands(rand):
+    from swirl_torch.fields import ef4
+
+    with pytest.raises(K.KernelError):
+        ef4.mul(rand(8, 4), rand(8, 4).to(torch.int32))
+    with pytest.raises(K.KernelError):
+        ef4.mul(rand(8, 3), rand(8, 3))
+    with pytest.raises(K.KernelError):
+        ef4.mul_sum(rand(8, 16, 4), rand(7, 4))  # 8 rows, 7 weights
+    with pytest.raises(K.KernelError):
+        ef4.mul_sum(rand(8, 16, 4), rand(2, 4), index=torch.zeros(3, dtype=torch.int64, device="cuda"))
+
+
+@pytest.mark.parametrize("degree", [3, 4])
+def test_fused_synthetic_proof_on_the_card_equals_the_cpu(degree):
+    """A SyntheticAir of the app's shape (64 columns, 16 constraints, 8
+    interactions) at degree 3 and 4, proved through ``prove_fused``
+    (segmented) on the card and eagerly on the CPU: the same bytes; on the
+    card the batch segment launches kernel L, and the F.ext_mul calls left
+    in it are the folds, two a round (the selectors and the main trace)."""
+    from swirl_torch import metrics
+    from swirl_torch.codec import encode_proof
+    from swirl_torch.engine import StarkEngine
+    from swirl_torch.params import test_system_params_small
+    from swirl_torch.prover.backend import ProvingContext
+    from swirl_torch.prover.fused import prove_fused, release_fused
+    from swirl_torch.testing.synthetic import SyntheticAir, uniform_shape
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    log_h, l_skip = 8, 2
+    air = SyntheticAir(uniform_shape(log_h, 64, 16, 8, degree=degree))
+    trace = np.random.default_rng(degree).integers(0, P, (1 << log_h, air.common_main_width()), dtype=np.uint64)
+    trace[:, 0] = 0
+    out = {}
+    for device in ("cuda", "cpu"):
+        eng = StarkEngine(test_system_params_small(l_skip, log_h, 3, max_constraint_degree=degree), device=device)
+        pk, _ = eng.keygen([air])
+        dpk = eng.transport_pk(pk)
+        ctx = ProvingContext([eng.context_for(0, trace, [], [])])
+        if device == "cuda":
+            prove_fused(eng.backend, dpk, ctx, mode="segmented")  # the capture
+        with metrics.run_with_metric_collection() as c:
+            proof = prove_fused(eng.backend, dpk, ctx, mode="segmented")
+        out[device] = (encode_proof(proof), c.snapshot())
+        release_fused(dpk)
+    (card, on_card), (cpu, on_cpu) = out["cuda"], out["cpu"]
+    assert card == cpu
+    assert on_card["batch_ef4_launches"] > 0 and on_cpu["batch_ef4_launches"] == 0
+    assert on_card["batch_ef4_aten"] == on_cpu["batch_ef4_aten"] == 2 * (log_h - l_skip)
